@@ -1,0 +1,388 @@
+"""Unified GP method API: ``fit -> PosteriorState -> plan -> serve`` — port of
+``repro.core.api`` (the FGP/PITC part).
+
+Everything that is O((|D|/M)^3) or O(|S|^3) happens once at fit time and is
+cached in a per-method state (a NamedTuple of tensors); a query then costs
+only the cross-covariances against the cached factors.
+
+Serving is two-phase. Phase 1: ``GPMethod.plan(kfn, params, state, spec) ->
+ServePlan`` turns a ``ServeSpec`` into the plan's callables (built once per
+entry point and shared across ``rebind``) and bucket ladder. Phase 2:
+``plan.diag(U)`` / ``plan.full(U)`` serve. The reference jits one executable
+per entry point; PyTorch runs eagerly, so a plan's "executables" are plain
+callables and ``PlanStats.n_traces`` counts how many were built.
+
+Not ported yet: pPIC/PIC/pICF states and plans, the routed path
+(``ServeSpec(routed=True)``), the per-block C⁻¹ cache (``cached_cinv``), the
+incremental ``StateStore`` protocol and the multi-tenant ``compat_key``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch import device as _device
+from repro_torch.parallel.runner import ROUTED_ALPHA
+
+
+# ---------------------------------------------------------------------------
+# Per-method posterior states.
+# ---------------------------------------------------------------------------
+
+class FGPState(NamedTuple):
+    """Exact GP: cached |D|x|D| Cholesky + weights (eqs. 1-2)."""
+    X: torch.Tensor        # (n, d) training inputs
+    L: torch.Tensor        # (n, n) chol(K_DD + noise)
+    alpha: torch.Tensor    # (n,)   (K_DD + noise)^{-1} y
+
+
+class PITCState(NamedTuple):
+    """PITC/pPITC: everything global lives in S-space (eqs. 5-8)."""
+    S: torch.Tensor        # (s, d) support set
+    Kss_L: torch.Tensor    # (s, s) chol K_SS
+    Sdd_L: torch.Tensor    # (s, s) chol Sigma-dot_DD  (eq. 6)
+    alpha: torch.Tensor    # (s,)   Sdd^{-1} ydd       (eq. 7 weights)
+
+
+# ---------------------------------------------------------------------------
+# ServeSpec — phase 1's input: every per-deployment serving decision, once.
+# ---------------------------------------------------------------------------
+
+def default_buckets(max_batch: int, *, min_bucket: int = 8,
+                    block_q: int = 1) -> tuple[int, ...]:
+    """Powers of two from min_bucket up, capped by max_batch (inclusive),
+    each rounded up to a multiple of ``block_q``; sorted, duplicate-free and
+    covering (the top bucket is >= max_batch). Non-positive sizes raise."""
+    if max_batch < 1 or min_bucket < 1 or block_q < 1:
+        raise ValueError(
+            f"default_buckets needs positive sizes; got max_batch="
+            f"{max_batch}, min_bucket={min_bucket}, block_q={block_q}")
+    align = lambda v: -(-v // block_q) * block_q
+    sizes = []
+    b = min_bucket
+    while b < max_batch:
+        sizes.append(align(b))
+        b *= 2
+    sizes.append(align(max_batch))
+    return tuple(dict.fromkeys(sizes))
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeSpec:
+    """Frozen per-deployment serving policy — phase 1's single input.
+
+    * ``kernel``   — a ``cov.KernelSpec`` overriding the fit-time kernel
+      callable; ``None`` serves with the plan's kernel.
+    * ``block_q``  — serving query tile: this field, then the kernel's
+      declared ``block_q``, then 8. Bucket ladders land on it.
+    * ``max_batch`` / ``buckets`` / ``min_bucket`` — the bucket ladder.
+      Explicit ``buckets`` win; otherwise ``default_buckets``; with neither
+      the plan serves every batch at its exact size. Oversized batches round
+      up to a multiple of the top bucket.
+    * ``routed`` / ``alpha`` / ``max_overflow_groups`` / ``cached_cinv`` —
+      the PIC family's routed serving; not ported yet: ``routed=True`` and
+      ``cached_cinv=True`` raise rather than serve the diag path.
+    * ``dtype``    — query dtype policy: ``"preserve"``, ``"state"`` or
+      ``"float32"``.
+    """
+    kernel: Any = None
+    block_q: int | None = None
+    max_batch: int | None = None
+    buckets: tuple[int, ...] | None = None
+    min_bucket: int = 8
+    routed: bool = False
+    alpha: int = ROUTED_ALPHA
+    max_overflow_groups: int | None = None
+    cached_cinv: bool = False
+    dtype: str = "preserve"
+
+    def __post_init__(self):
+        if self.routed or self.cached_cinv:
+            raise NotImplementedError(
+                "ServeSpec(routed=True) / ServeSpec(cached_cinv=True): the "
+                "routed PIC-family serving path is not yet ported to "
+                "repro_torch (it comes with the pPIC slice)")
+        if self.alpha < 1:
+            raise ValueError(f"ServeSpec.alpha must be >= 1; got "
+                             f"{self.alpha}")
+        if self.max_overflow_groups is not None \
+                and self.max_overflow_groups < 0:
+            raise ValueError(f"ServeSpec.max_overflow_groups must be >= 0; "
+                             f"got {self.max_overflow_groups}")
+
+    def resolve_kfn(self, kfn: Callable) -> Callable:
+        served = self.kernel if self.kernel is not None else kfn
+        if self.block_q is not None:
+            from repro_torch.core import covariance as cov
+            if isinstance(served, cov.KernelSpec) and \
+                    served.block_q != self.block_q:
+                # the fused dispatch reads the KernelSpec's tile
+                served = dataclasses.replace(served, block_q=self.block_q)
+        return served
+
+    def resolve_block_q(self, kfn: Callable) -> int:
+        if self.block_q is not None and self.block_q < 1:
+            raise ValueError(f"ServeSpec.block_q must be a positive tile "
+                             f"size; got {self.block_q}")
+        kfn = self.resolve_kfn(kfn)
+        return self.block_q or getattr(kfn, "block_q", None) or 8
+
+    def resolve_buckets(self, kfn: Callable) -> tuple[int, ...] | None:
+        """The ladder, or ``None`` for identity bucketing (no padding)."""
+        if self.buckets is not None:
+            buckets = tuple(sorted(dict.fromkeys(self.buckets)))
+            if not buckets or buckets[0] < 1:
+                raise ValueError(f"ServeSpec.buckets must be positive; got "
+                                 f"{self.buckets}")
+            if self.max_batch is not None and buckets[-1] < self.max_batch:
+                raise ValueError(
+                    f"largest bucket {buckets[-1]} < max_batch "
+                    f"{self.max_batch}: the ladder would under-cover the "
+                    f"serving queue")
+            return buckets
+        if self.max_batch is None:
+            return None
+        return default_buckets(self.max_batch, min_bucket=self.min_bucket,
+                               block_q=self.resolve_block_q(kfn))
+
+
+# ---------------------------------------------------------------------------
+# ServePlan — phase 1's output: callables + ladder, owned per state.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PlanStats:
+    """Shared across ``rebind`` generations: the callable cache and its
+    counters describe the plan lineage."""
+    n_traces: int = 0          # serving callables built across the lineage
+    n_diag_batches: int = 0
+    n_full_batches: int = 0
+    n_padded_rows: int = 0
+
+
+def _state_device(state) -> torch.device:
+    return next(iter(state)).device
+
+
+@dataclasses.dataclass(frozen=True)
+class ServePlan:
+    """Serving program for ONE (method, kernel, spec, state).
+
+    * ``diag(U)``       — (mean, var) for any |U|: pad to the bucket ladder
+      on the state's device, one dispatch, trim;
+    * ``full(U)``       — the method's native posterior, un-padded;
+    * ``rebind(state)`` — same plan, new posterior: the callables and stats
+      are shared, so nothing is rebuilt;
+    * ``warmup(d)``     — run every bucket once (kernel builds and first
+      launches are not charged to serving latency).
+    """
+    method: "GPMethod"
+    kfn: Callable
+    params: dict
+    state: Any
+    spec: ServeSpec
+    block_q: int
+    buckets: tuple[int, ...] | None
+    stats: PlanStats = dataclasses.field(default_factory=PlanStats)
+    _exec: dict = dataclasses.field(default_factory=dict)
+
+    def bucket_for(self, u: int) -> int:
+        if self.buckets is None:        # identity bucketing: exact batches
+            return u
+        for b in self.buckets:
+            if b >= u:
+                return b
+        big = self.buckets[-1]          # oversized: multiple of the top
+        return -(-u // big) * big
+
+    def _staged(self, U) -> torch.Tensor:
+        """``U`` as a tensor on the state's device, under the spec's dtype
+        policy (``"preserve"`` keeps the caller's dtype)."""
+        policy = self.spec.dtype
+        if policy == "preserve":
+            target = None
+        elif policy == "state":
+            target = next(iter(self.state)).dtype
+        elif policy == "float32":
+            target = torch.float32
+        else:
+            raise ValueError(
+                f"unknown ServeSpec.dtype policy {policy!r}; expected "
+                f"'preserve', 'state', or 'float32'")
+        if isinstance(U, (np.ndarray, list, tuple)):
+            U = torch.as_tensor(np.asarray(U))
+        return U.to(device=_state_device(self.state), dtype=target)
+
+    def _padded(self, U) -> tuple[torch.Tensor, int]:
+        U = self._staged(U)
+        u = U.shape[0]
+        bucket = self.bucket_for(u)
+        if bucket == u:
+            return U, u
+        buf = U.new_zeros((bucket,) + tuple(U.shape[1:]))
+        buf[:u] = U
+        self.stats.n_padded_rows += bucket - u
+        return buf, u
+
+    def _callable(self, key: str, impl: Callable) -> Callable:
+        """The serving callable ``key`` over the method's raw ``impl``,
+        built once and shared across rebinds; ``stats.n_traces`` counts the
+        builds."""
+        fn = self._exec.get(key)
+        if fn is None:
+            kfn = self.kfn
+            fn = self._exec[key] = lambda params, state, U: impl(
+                kfn, params, state, U)
+            self.stats.n_traces += 1
+        return fn
+
+    def diag(self, U) -> tuple[torch.Tensor, torch.Tensor]:
+        """(mean, var) over a (u, d) batch — THE serving hot path."""
+        Up, u = self._padded(U)
+        mean, var = self._callable("diag", self.method.predict_diag_fn)(
+            self.params, self.state, Up)
+        self.stats.n_diag_batches += 1
+        return mean[:u], var[:u]
+
+    def full(self, U):
+        """The method's native posterior (mean + covariance). Queries are
+        not bucket-padded: the covariance block shape is the output."""
+        post = self._callable("full", self.method.predict_fn)(
+            self.params, self.state, self._staged(U))
+        self.stats.n_full_batches += 1
+        return post
+
+    def rebind(self, state) -> "ServePlan":
+        """Hot-swap the posterior: a new plan over ``state`` sharing this
+        plan's callables and stats."""
+        return dataclasses.replace(self, state=state)
+
+    def warmup(self, d: int, *, dtype=torch.float32) -> "ServePlan":
+        """Serve one zero batch per bucket, so kernel builds and first
+        launches are paid before traffic; a no-op under identity
+        bucketing. ``d`` is the query feature dimension."""
+        dev = _state_device(self.state)
+        for b in self.buckets or ():
+            self.diag(torch.zeros((b, d), dtype=dtype, device=dev))
+        if self.buckets and dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return self
+
+
+# ---------------------------------------------------------------------------
+# Method registry.
+# ---------------------------------------------------------------------------
+
+_DEFAULT_SPEC = ServeSpec()
+
+
+@dataclasses.dataclass(frozen=True)
+class GPMethod:
+    """One GP regression method behind the uniform state API.
+
+    ``fit(kfn, params, X, y, **kw) -> state`` where ``kw`` is the subset of
+    (S=, M=, runner=) the method needs; ``predict_fn(kfn, params, state, U)``
+    -> native posterior; ``predict_diag_fn(kfn, params, state, U)`` ->
+    (mean, var) vectors.
+    """
+    name: str
+    fit: Callable[..., Any]
+    predict_fn: Callable[..., Any]
+    predict_diag_fn: Callable[..., Any]
+
+    def plan(self, kfn, params, state, spec: ServeSpec | None = None
+             ) -> ServePlan:
+        """Build the serving program for ``state`` under ``spec``."""
+        spec = spec if spec is not None else _DEFAULT_SPEC
+        return ServePlan(self, spec.resolve_kfn(kfn), params, state, spec,
+                         spec.resolve_block_q(kfn),
+                         spec.resolve_buckets(kfn))
+
+
+REGISTRY: dict[str, GPMethod] = {}
+
+
+def register(method: GPMethod) -> GPMethod:
+    REGISTRY[method.name] = method
+    return method
+
+
+def get(name: str) -> GPMethod:
+    if name not in REGISTRY:
+        # methods self-register at module import; pull the core modules in
+        from repro_torch.core import gp, ppitc  # noqa: F401
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown GP method {name!r}; have {names()}")
+
+
+def names() -> list[str]:
+    return sorted(REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# FittedGP — what serving / examples hold on to.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class FittedGP:
+    """A fitted model: method + kernel + hyperparameters + cached state.
+    Every predict goes through a memoized ``ServePlan`` (one per spec);
+    ``with_state`` rebinds the plans already built."""
+    method: GPMethod
+    kfn: Callable
+    params: dict
+    state: Any
+
+    def plan(self, spec: ServeSpec | None = None) -> ServePlan:
+        """The serving program for this model under ``spec`` (memoized)."""
+        spec = spec if spec is not None else _DEFAULT_SPEC
+        plans = self.__dict__.setdefault("_plans", {})
+        if spec not in plans:
+            plans[spec] = self.method.plan(self.kfn, self.params, self.state,
+                                           spec)
+        return plans[spec]
+
+    def predict(self, U):
+        return self.plan().full(U)
+
+    def predict_diag(self, U):
+        return self.plan().diag(U)
+
+    def with_state(self, state) -> "FittedGP":
+        """Hot-swap the cached posterior; plans already built are rebound."""
+        new = dataclasses.replace(self, state=state)
+        plans = self.__dict__.get("_plans")
+        if plans:
+            new.__dict__["_plans"] = {sp: pl.rebind(state)
+                                      for sp, pl in plans.items()}
+        return new
+
+
+def _method_kwargs(S=None, M=None, runner=None) -> dict:
+    kw = {}
+    if S is not None:
+        kw["S"] = S
+    if M is not None:
+        kw["M"] = M
+    if runner is not None:
+        kw["runner"] = runner
+    return kw
+
+
+def fit(name: str, kfn, params, X, y, *, S=None, M=None, runner=None,
+        device=None) -> FittedGP:
+    """Registry front door: fit method ``name`` on ``device`` (the CUDA card
+    unless named) and return a FittedGP. Data, support set and
+    hyperparameters are moved there first."""
+    dev = _device.resolve(device)
+    method = get(name)
+    params = {k: v.to(dev) for k, v in params.items()}
+    X, y = X.to(dev), y.to(dev)
+    S = S.to(dev) if S is not None else None
+    state = method.fit(kfn, params, X, y, **_method_kwargs(S, M, runner))
+    return FittedGP(method, kfn, params, state)

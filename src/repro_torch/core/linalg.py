@@ -1,0 +1,84 @@
+"""Shared PSD linear-algebra helpers — port of ``repro.core.linalg``.
+
+All solves of the GP stack go through these helpers so that the jitter policy
+and dtype behaviour are uniform. Every helper broadcasts over leading batch
+dimensions (the machine axis of ``parallel.runner.VmapRunner``).
+
+The rank-1/rank-b Cholesky updates of the streaming stores (Sec. 5.2) are not
+ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+# Jitter scaled to dtype: float64 paths need far less regularisation.
+_JITTER = {torch.float64: 1e-10, torch.float32: 1e-6}
+
+
+def default_jitter(dtype) -> float:
+    return _JITTER.get(dtype, 1e-6)
+
+
+def _eye_like(K: torch.Tensor) -> torch.Tensor:
+    return torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+
+
+def add_jitter(K: torch.Tensor, jitter: float | None = None) -> torch.Tensor:
+    """K + jitter * mean(diag(K)) * I — relative jitter keeps scale-invariance
+    (the mean is taken per matrix of a batch)."""
+    if jitter is None:
+        jitter = default_jitter(K.dtype)
+    scale = torch.diagonal(K, dim1=-2, dim2=-1).mean(-1)[..., None, None]
+    return K + (jitter * scale) * _eye_like(K)
+
+
+def cholesky_nan(A: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor; a NaN lower triangle where the matrix is not
+    positive definite.
+
+    ``jnp.linalg.cholesky`` returns NaN on a non-PD matrix, while
+    ``torch.linalg.cholesky`` raises. The port keeps the reference's NaN:
+    raising would need the device to report back to the host after every
+    factorization (a sync on the fit path), and a NaN factor propagates to
+    every output, where the callers' finiteness checks catch it.
+    """
+    L, info = torch.linalg.cholesky_ex(A)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(L, float("nan")).tril(), L)
+
+
+def chol(K: torch.Tensor, jitter: float | None = None) -> torch.Tensor:
+    """Lower Cholesky factor of a PSD matrix with relative jitter (NaN if it
+    is still not positive definite; see ``cholesky_nan``)."""
+    return cholesky_nan(add_jitter(K, jitter))
+
+
+def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve (L Lᵀ) X = B given lower Cholesky L."""
+    return torch.cholesky_solve(B, L, upper=False)
+
+
+def chol_solve_right(L: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Solve X (L Lᵀ) = A given lower Cholesky L — A (L Lᵀ)⁻¹ with A's ROWS
+    as the batch axis (= ``chol_solve(L, A.T).T`` mathematically)."""
+    t = torch.linalg.solve_triangular(L.mT, A, upper=True, left=False)
+    return torch.linalg.solve_triangular(L, t, upper=False, left=False)
+
+
+def psd_solve(K: torch.Tensor, B: torch.Tensor,
+              jitter: float | None = None) -> torch.Tensor:
+    """Solve K X = B for PSD K via jittered Cholesky."""
+    return chol_solve(chol(K, jitter), B)
+
+
+def tri_solve(L: torch.Tensor, B: torch.Tensor, *, lower: bool = True,
+              trans: bool = False) -> torch.Tensor:
+    """Solve L X = B (or Lᵀ X = B with ``trans``) for triangular L."""
+    if trans:
+        return torch.linalg.solve_triangular(L.mT, B, upper=lower)
+    return torch.linalg.solve_triangular(L, B, upper=not lower)
+
+
+def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
+    return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
+                           dim=-1)

@@ -1,0 +1,142 @@
+"""pPITC — parallel PITC approximation of FGP (paper Sec. 3, Defs. 1-4);
+port of ``repro.core.ppitc``.
+
+Per-machine program, run for all M machines at once over the leading
+machine axis (``parallel.runner.VmapRunner``):
+
+  Step 1  data arrives block-sharded: machine m holds (D_m, y_{D_m});
+  Step 2  local summary  (eqs. 3-4)  — O((|D|/M)^3) local Cholesky;
+  Step 3  global summary (eqs. 5-6)  — the one all-reduce of the algorithm,
+          a sum over the machine axis;
+  Step 4  predict (eqs. 7-8) from the cached S-space factors.
+
+``fit`` runs steps 1-3 and caches ``api.PITCState`` (Kss_L, Sdd_L, alpha =
+Sdd^{-1} ydd); ``predict_batch``/``predict_batch_diag`` are then
+O(|U||S| + |S|^2) per query batch. Zero prior mean assumed (the data
+pipeline centers y). The streaming ``init_store`` comes with the stores.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import api
+from repro_torch.core import covariance as cov
+from repro_torch.core import linalg
+from repro_torch.core.gp import GPPosterior
+from repro_torch.parallel.runner import Runner
+
+
+class LocalSummary(NamedTuple):
+    """(eqs. 3-4) restricted to B = B' = S — what crosses the network.
+    Stacked over machines: (M, s) and (M, s, s)."""
+    ydot: torch.Tensor   # (..., s)    y-dot_S^m
+    Sdot: torch.Tensor   # (..., s, s) Sigma-dot_SS^m
+
+
+class GlobalSummary(NamedTuple):
+    """(eqs. 5-6)."""
+    ydd: torch.Tensor    # (s,)
+    Sdd: torch.Tensor    # (s, s)  ( = K_SS + sum_m Sdot^m )
+
+
+class ParallelPosterior(NamedTuple):
+    """Block posterior: machine m owns mean/cov of its U_m slice."""
+    mean: torch.Tensor      # (u,)
+    blocks: torch.Tensor    # (M, u/M, u/M) diagonal covariance blocks
+
+    @property
+    def var(self) -> torch.Tensor:
+        return torch.diagonal(self.blocks, dim1=-2, dim2=-1).reshape(-1)
+
+    @property
+    def cov(self) -> torch.Tensor:   # dense block-diagonal view (small U only)
+        return torch.block_diag(*self.blocks)
+
+
+def local_summary(kfn, params, S, Kss_L, Xm, ym):
+    """Eqs. (3)-(4) with B=B'=S, for machine blocks Xm (..., b, d) and
+    ym (..., b). Also returns the pieces pPIC/hyper reuse:
+    (Ksd, C_L = chol Sigma_{DmDm|S}, Wy = C^{-1} y_m)."""
+    Ksd = kfn(params, S, Xm)                          # (..., s, b)
+    V = linalg.tri_solve(Kss_L, Ksd)                  # Kss^{-1/2} K_SD_m
+    Kdd = cov.add_noise(kfn(params, Xm, Xm), params)
+    C_L = linalg.chol(Kdd - V.mT @ V)                 # chol Sigma_{DmDm|S}
+    Wy = linalg.chol_solve(C_L, ym[..., None])[..., 0]
+    ydot = (Ksd @ Wy[..., None])[..., 0]
+    Sdot = Ksd @ linalg.chol_solve(C_L, Ksd.mT)
+    return LocalSummary(ydot, Sdot), (Ksd, C_L, Wy)
+
+
+def global_summary(kfn, params, S, local: LocalSummary) -> GlobalSummary:
+    """Eqs. (5)-(6): the single all-reduce of the algorithm — a sum over the
+    stacked machine axis of ``local``."""
+    Kss = kfn(params, S, S)
+    return GlobalSummary(local.ydot.sum(0), Kss + local.Sdot.sum(0))
+
+
+def fit(kfn, params, X, y, *, S, runner: Runner) -> api.PITCState:
+    """Steps 1-3 over a Runner, cached as an ``api.PITCState`` through the
+    summary store (``online.build``/``online.to_state``), as the reference
+    does."""
+    from repro_torch.core import online
+    return online.to_state(online.build(kfn, params, S, X, y, runner), S)
+
+
+def predict_batch(kfn, params, state: api.PITCState, U) -> GPPosterior:
+    """Eqs. (7)-(8) from cached factors: O(|U||S| + |S|^2) per call."""
+    Kus = kfn(params, U, state.S)
+    mean = Kus @ state.alpha
+    Kuu = kfn(params, U, U)
+    covm = Kuu - Kus @ (linalg.chol_solve(state.Kss_L, Kus.mT)
+                        - linalg.chol_solve(state.Sdd_L, Kus.mT))
+    return GPPosterior(mean, covm)
+
+
+def predict_batch_diag(kfn, params, state: api.PITCState, U):
+    """(mean, var) without forming the |U|x|U| posterior covariance.
+
+    The serving hot path: with a CUDA ``cov.KernelSpec`` the K_US tile, both
+    cached triangular solves and the variance quadratic form collapse into
+    the fused ``xcov_diag`` kernel, at any |S|. The compose path below is
+    the math it is held against.
+    """
+    if isinstance(kfn, cov.KernelSpec) and kfn.fuse(state.S.device):
+        return kfn.fused_diag(params, U, state.S, state.Kss_L, state.alpha,
+                              L2=state.Sdd_L)
+    Kus = kfn(params, U, state.S)
+    mean = Kus @ state.alpha
+    A = linalg.chol_solve(state.Kss_L, Kus.T)         # Kss^{-1} K_SU
+    B = linalg.chol_solve(state.Sdd_L, Kus.T)         # Sdd^{-1} K_SU
+    var = (cov.kdiag(kfn, params, U)
+           - torch.sum(Kus.T * A, dim=0) + torch.sum(Kus.T * B, dim=0))
+    return mean, var
+
+
+def predict_blocks(kfn, params, state: api.PITCState, U,
+                   M: int) -> ParallelPosterior:
+    """Per-machine prediction layout (step 4) from the cached state; U's
+    length must divide among the M machines."""
+    u = U.shape[0]
+    Ub = U.reshape(M, u // M, -1)
+    post = predict_batch(kfn, params, state, Ub)
+    return ParallelPosterior(post.mean.reshape(u), post.cov)
+
+
+def summaries(kfn, params, S, X, y, runner: Runner):
+    """Stacked per-machine local summaries + the global summary (Sec. 5.2:
+    the global summary is a sum, so machines fold in and out)."""
+    Xb, yb = runner.shard_blocks(X), runner.shard_blocks(y)
+
+    def fn(Xm, ym, params, S):
+        Kss_L = linalg.chol(kfn(params, S, S))
+        local, _ = local_summary(kfn, params, S, Kss_L, Xm, ym)
+        return local
+
+    locals_ = runner.map(fn, (Xb, yb), (params, S))
+    return locals_, global_summary(kfn, params, S, locals_)
+
+
+api.register(api.GPMethod("ppitc", fit, predict_fn=predict_batch,
+                          predict_diag_fn=predict_batch_diag))
