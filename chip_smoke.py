@@ -7,17 +7,28 @@ card. Run from the root of a checkout, with one card visible:
 Phases, in order; any failure exits non-zero before the last line:
 
 1. card: name and power limit (nvidia-smi);
-2. build: both CUDA kernels from the checkout's sources (nvcc, sm_90a,
-   one compiler per source, started together) into build/kernels/;
+2. build: the four CUDA kernels (rbf, xcov_diag, flash_attention,
+   ssd_intra_chunk) from the checkout's sources (nvcc, sm_90a, one
+   compiler per source, started together) into build/kernels/;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the fit and serving shapes, within the tolerances stated below,
-   and each timed at the main path's shapes;
-4. main path: pPITC at the paper's AIMPEAK configuration (|D| = 32000,
+   card, at the main paths' shapes and at edge cases, within the tolerances
+   stated below, and each timed at its main path's shape (flash also
+   against ``scaled_dot_product_attention``, a yardstick the port never
+   calls);
+4. GP main path: pPITC at the paper's AIMPEAK configuration (|D| = 32000,
    M = 20, |S| = 2048, d = 5, float32): support selection, fit, plan,
-   warm-up, 8 requests through ``plan.diag``; the kernels' launch counts
-   are zeroed just before and read just after; outputs must be finite and
+   warm-up, 8 requests through ``plan.diag``; outputs must be finite and
    the fused diag must agree with the compose path;
-5. one JSON line listing each kernel's launches, error, times and bound.
+5. LM main path, qwen3-1.7b at full width and depth (random weights from
+   seed 0, bfloat16 compute): prefill of 4 x 4096 tokens through
+   ``forward(logits_last_only=True)``, then ``prefill_then_decode`` (4
+   prompts of 32 tokens, 32 greedy new tokens); then, in float32, the
+   forward logits against ``decode_step``'s at every position;
+6. LM main path, mamba2-130m, the same;
+7. one JSON line listing each kernel's launches, error, times and bound.
+
+Each main path zeroes its kernels' launch counts just before it and reads
+them just after; a kernel of the path that was not launched fails the run.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Imports nothing of JAX and nothing of the JAX package.
@@ -36,6 +47,7 @@ ROOT = Path(__file__).resolve().parent
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 # Kernel-vs-plain tolerances (max abs error):
 #  rbf f32 1e-5 and bf16 3e-2 are the reference's own (tests/test_kernels.py).
@@ -47,9 +59,60 @@ F32_FLOPS_PER_S = 67e12
 TOL_RBF = {"float32": 1e-5, "bfloat16": 3e-2}
 TOL_XCOV_F64 = 1e-10
 TOL_XCOV_F32_S2048 = 1e-4
+#  flash 2e-3 f32 and 3e-2 bf16 are the reference's own
+#  (tests/test_kernels.py). They are absolute, and at the main path's shapes
+#  a row that sees n keys of random data has outputs of ~0.8 sqrt(e / n)
+#  (0.03 at n = 2048), so a wrong tile would pass them. Each flash case is
+#  therefore also held to a limit scaled to the output's size, row by row:
+#  max_d (|got - want| - r |want|)+ <= c rms_d(want). r = 2^-7 in bf16 is
+#  one bf16 ulp of the output (both sides round their float32 result to
+#  bf16), 0 in f32. c = 2e-2 in bf16: the kernel rounds P to bf16 for the
+#  P.V product, as FlashAttention does, an error of up to 2^-9 per term that
+#  reaches 0.74% of the row RMS over 8M outputs in a CPU emulation of that
+#  rounding; one key tile dropped errs by > 10x the row RMS and late rows
+#  scaled by 1.02 by 6.9%. c = 1e-4 in f32 (rounding order only).
+#  SSD 3e-4 for Y and S, 1e-5 for cum, are the reference's own
+#  (tests/test_ssd_kernel.py), set for outputs of up to ~10 whose cumsum
+#  both sides computed alike. The kernel's block scan and torch.cumsum round
+#  cum (~ -20 at cs = 256) differently by ~1e-6, which exp(cum_i - cum_j)
+#  carries into Y and S relative to their size, and at cs = 256, N = 128
+#  they reach ~1e2: beyond 10 the tolerance grows with the output's size
+#  (3e-5 relative; a wrong tile or mask errs by the output's own size).
+TOL_FLASH = {"float32": 2e-3, "bfloat16": 3e-2}
+TOL_FLASH_ROW = {"float32": (0.0, 1e-4), "bfloat16": (2.0 ** -7, 2e-2)}
+TOL_SSD = (3e-4, 3e-4, 1e-5)
+# Forward vs decode logits, float32 compute, full width and depth: the
+# reference holds 5e-4 on its two-layer smoke widths (tests/test_models.py).
+# The batched forward and the one-token decode sum in different orders
+# (cuBLAS picks other algorithms for 256 rows than for 2, the flash kernel
+# tiles the keys differently), and those float32 roundings compound over
+# 14x more layers of the residual stream: 2e-3, on logits of order 1.
+TOL_CONSISTENCY = 2e-3
+
+
+def ssd_tol(want, base: float) -> float:
+    return base * max(1.0, float(want.abs().max()) / 10.0)
+
+
+def flash_row_err(got, want, r: float) -> float:
+    """max over rows of max_d (|got - want| - r |want|)+ / rms_d(want); a
+    row whose want is all zero (no valid key) must match exactly."""
+    g, w = got.double(), want.double()
+    excess = ((g - w).abs() - r * w.abs()).clamp(min=0).amax(-1)
+    rms = w.pow(2).mean(-1).sqrt()
+    ratio = excess / rms.clamp(min=1e-300)
+    return float(ratio.max())
+
 
 M, N_TRAIN, N_TEST, S_SIZE, D = 20, 32000, 3200, 2048, 5
 REQUEST_SIZES = (1, 7, 64, 200, 256, 256, 1000, 3200)
+
+# LM serving: prefill batch x length, generation prompt and new tokens, and
+# the length of the float32 forward-vs-decode check (two SSD chunks for
+# mamba2).
+LM_BATCH, LM_SEQ = 4, 4096
+GEN_PROMPT, GEN_NEW = 32, 32
+CONSISTENCY_T = {"qwen3-1.7b": 128, "mamba2-130m": 512}
 
 
 def fail(msg: str) -> None:
@@ -81,8 +144,9 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+def bound_ms(nbytes: float, flops: float,
+             peak_flops: float = F32_FLOPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -196,6 +260,239 @@ def check_xcov(torch, ops, ref, gen):
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, embed_tri_inv_ms=embed,
                 shape=f"n={n}, |S|={s}, d={D}, with L2, f32")
+
+
+def check_flash(torch, ops, ref, gen):
+    """flash attention vs plain in f32 and bf16: the qwen3 prefill shape,
+    the reference's cases (window, offset, ragged Tq != Tk, GQA 4:1),
+    D = 16 and 256, and decode steps; timed at the prefill shape in bf16."""
+    prefill = (LM_BATCH, 16, 8, LM_SEQ, LM_SEQ, 128, None, 0)
+    cases = [prefill,
+             (1, 4, 4, 128, 128, 64, None, 0),
+             (2, 8, 2, 128, 128, 64, None, 0),          # GQA 4:1
+             (1, 4, 4, 256, 256, 32, 128, 0),           # sliding window
+             (1, 2, 2, 64, 256, 64, None, 192),         # offset
+             (1, 4, 2, 100, 200, 48, None, 100),        # ragged Tq != Tk
+             (1, 1, 1, 64, 64, 128, 32, 0),
+             (2, 8, 4, 300, 300, 16, None, 0),          # D = 16
+             (2, 8, 4, 300, 300, 256, 100, 0),          # D = 256
+             (LM_BATCH, 16, 8, 1, 2 * GEN_PROMPT, 128, None, 45),  # decode
+             (LM_BATCH, 16, 8, 1, LM_SEQ, 128, None, LM_SEQ - 1)]
+    worst = worst_row = 0.0
+    for B, Hq, Hkv, Tq, Tk, Dh, window, off in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, Hq, Tq, Dh), generator=gen, device="cuda")
+            k = torch.randn((B, Hkv, Tk, Dh), generator=gen, device="cuda")
+            v = torch.randn((B, Hkv, Tk, Dh), generator=gen, device="cuda")
+            q, k, v = q.to(dt), k.to(dt), v.to(dt)
+            got = ops.attention(q, k, v, window=window, q_offset=off)
+            want = ref.attention(q, k, v, window=window, q_offset=off)
+            torch.cuda.synchronize()
+            key = str(dt).split(".")[1]
+            err = max_err(got, want)
+            r, c = TOL_FLASH_ROW[key]
+            row = flash_row_err(got, want, r)
+            size = float(want.float().abs().mean())
+            print(f"  flash B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} D={Dh} "
+                  f"window={window} offset={off} {key}: max|err| "
+                  f"{err:.3e} (tol {TOL_FLASH[key]}), row-scaled {row:.3e} "
+                  f"(tol {c}), mean|want| {size:.3e}", flush=True)
+            if not (err <= TOL_FLASH[key] and row <= c):
+                fail(f"flash {(B, Hq, Hkv, Tq, Tk, Dh, window, off)} {key} "
+                     f"error {err} > {TOL_FLASH[key]} or row-scaled {row} > "
+                     f"{c}")
+            if key == "bfloat16":
+                worst = max(worst, err)
+                worst_row = max(worst_row, row)
+            del q, k, v, got, want
+    # timing at the qwen3 prefill shape, bf16, causal
+    B, Hq, Hkv, T, Dh = prefill[:4] + (prefill[5],)
+    q = torch.randn((B, Hq, T, Dh), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k = torch.randn((B, Hkv, T, Dh), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    v = torch.randn((B, Hkv, T, Dh), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    ms = time_ms(lambda: ops.attention(q, k, v), 10)
+    plain = time_ms(lambda: ref.attention(q, k, v), 3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10)
+    got = ops.attention(q, k, v)
+    want = sdpa(q, k, v, is_causal=True, enable_gqa=True)
+    # both round P to bf16, independently: the row-scaled limit still holds
+    row = flash_row_err(got, want, TOL_FLASH_ROW["bfloat16"][0])
+    print(f"  flash vs scaled_dot_product_attention at the prefill shape: "
+          f"max|err| {max_err(got, want):.3e}, row-scaled {row:.3e} (tol "
+          f"{TOL_FLASH_ROW['bfloat16'][1]})", flush=True)
+    if not row <= TOL_FLASH_ROW["bfloat16"][1]:
+        fail(f"flash disagrees with scaled_dot_product_attention: "
+             f"row-scaled {row}")
+    pairs = T * (T + 1) // 2                       # causal (query, key) pairs
+    flops = 4 * B * Hq * Dh * pairs
+    nbytes = 2 * (2 * B * Hq * T * Dh + 2 * B * Hkv * T * Dh)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/attention/csrc/"
+                       "flash_attention.cu",
+                replaces="src/repro/kernels/attention/flash.py:90",
+                max_abs_err=worst, tol=TOL_FLASH["bfloat16"],
+                row_scaled_err=worst_row,
+                row_scaled_tol=TOL_FLASH_ROW["bfloat16"][1], ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib,
+                shape=f"B={B}, Hq={Hq}, Hkv={Hkv}, T={T}, D={Dh}, causal, "
+                      f"bf16")
+
+
+def check_ssd(torch, ops, ref, gen):
+    """SSD intra-chunk vs plain at the mamba2 prefill shape (f32, as the
+    path feeds it, and bf16) and a ragged small case; timed in f32."""
+    prefill = (LM_BATCH * LM_SEQ // 256, 256, 24, 64, 128)
+    worst, worst_tol = [0.0, 0.0, 0.0], list(TOL_SSD)
+
+    def inputs(BC, cs, H, P, N, dt):
+        xdt = torch.randn((BC, cs, H, P), generator=gen, device="cuda")
+        dA = -torch.randn((BC, H, cs), generator=gen, device="cuda").abs() \
+            * 0.1
+        Bc = torch.randn((BC, cs, N), generator=gen, device="cuda")
+        Cc = torch.randn((BC, cs, N), generator=gen, device="cuda")
+        return [t.to(dt) for t in (xdt, dA, Bc, Cc)]
+
+    for shape in (prefill, (3, 100, 5, 24, 40)):
+        for dt in (torch.float32, torch.bfloat16):
+            args = inputs(*shape, dt)
+            got = ops.intra_chunk(*args)
+            want = ref.intra_chunk(*args)
+            torch.cuda.synchronize()
+            errs = [max_err(g, w) for g, w in zip(got, want)]
+            tols = [ssd_tol(w, b) for w, b in zip(want, TOL_SSD)]
+            key = str(dt).split(".")[1]
+            print(f"  ssd (BC, cs, H, P, N)={shape} {key}: max|err| Y "
+                  f"{errs[0]:.3e}, S {errs[1]:.3e}, cum {errs[2]:.3e} "
+                  f"(tol {tols[0]:.3e}, {tols[1]:.3e}, {tols[2]:.3e})",
+                  flush=True)
+            if not all(e <= t for e, t in zip(errs, tols)):
+                fail(f"ssd {shape} {key} errors {errs} > {tols}")
+            if shape == prefill and key == "float32":
+                worst, worst_tol = errs, tols
+    BC, cs, H, P, N = prefill
+    args = inputs(*prefill, torch.float32)
+    ms = time_ms(lambda: ops.intra_chunk(*args), 20)
+    plain = time_ms(lambda: ref.intra_chunk(*args), 5)
+    # the function's work: the causal half (j <= i) of G = C B^T once per
+    # chunk (it does not depend on the head; L zeroes the rest), the causal
+    # Y product, the state S; each byte once
+    flops = 2 * BC * N * cs * (cs + 1) // 2 \
+        + 2 * BC * H * P * cs * (cs + 1) // 2 + 2 * BC * H * P * N * cs
+    nbytes = 4 * (2 * BC * cs * H * P + 2 * BC * H * cs + 2 * BC * cs * N
+                  + BC * H * P * N)
+    b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    return dict(name="ssd_intra_chunk", route="cuda",
+                source="src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
+                replaces="src/repro/kernels/ssd/ssd.py:57",
+                max_abs_err=worst[0], tol=worst_tol[0], ms=ms,
+                plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                shape=f"BC={BC}, cs={cs}, H={H}, P={P}, N={N}, f32")
+
+
+def lm_path(torch, card: str, name: str, counter) -> int:
+    """Prefill and generation of ``name`` at full width and depth through
+    the port's entry points, then the float32 forward-vs-decode check;
+    returns the launches of the path's kernel (``counter``: its ops
+    module and count attribute) during prefill and generation."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    ops_mod, attr = counter
+    cfg = get_config(name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = tf.init_model(cfg, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for p in [params["embed"]] + params["layers"]
+                   for t in _leaves(p))
+    print(f"  [{card}] {name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{n_params / 1e9:.3f} B float32 parameters, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    toks = synthetic.lm_tokens(gen, batch=LM_BATCH, seq=LM_SEQ - 1,
+                               vocab=cfg.vocab)
+    prompt = synthetic.lm_tokens(gen, batch=LM_BATCH, seq=GEN_PROMPT - 1,
+                                 vocab=cfg.vocab)
+
+    ops_mod.reset_counts()
+    tf.forward(params, toks, cfg, logits_last_only=True)      # warm-up
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    logits = tf.forward(params, toks, cfg, logits_last_only=True)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t1
+    step_ms: list = []
+    out = serve.prefill_then_decode(params, prompt, cfg,
+                                    max_len=GEN_PROMPT + GEN_NEW,
+                                    n_decode=GEN_NEW, step_ms=step_ms)
+    torch.cuda.synchronize()
+    launches = getattr(ops_mod, attr)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+    if logits.shape != (LM_BATCH, 1, cfg.vocab_padded) or not finite:
+        fail(f"{name} prefill logits {tuple(logits.shape)}, finite {finite}")
+    if out.shape != (LM_BATCH, GEN_PROMPT + GEN_NEW) \
+            or not torch.equal(out[:, :GEN_PROMPT], prompt) \
+            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
+        fail(f"{name} generation gave {tuple(out.shape)} tokens in "
+             f"[{int(out.min())}, {int(out.max())}]")
+    lat = sorted(step_ms)
+    print(f"  [{card}] {name} prefill {LM_BATCH} x {LM_SEQ} tokens: "
+          f"{prefill_s * 1e3:.1f} ms, {LM_BATCH * LM_SEQ / prefill_s:.0f} "
+          f"tokens/s; logits finite {finite}", flush=True)
+    print(f"  [{card}] {name} generation B={LM_BATCH}, prompt {GEN_PROMPT}, "
+          f"{GEN_NEW} greedy tokens: per-token latency p50 "
+          f"{lat[len(lat) // 2]:.3f} ms, max {lat[-1]:.3f} ms; peak device "
+          f"memory {peak_gb:.2f} GB", flush=True)
+    print(f"  {name} launches of {attr} during prefill + generation: "
+          f"{launches}", flush=True)
+    if launches <= 0:
+        fail(f"kernel {attr} was not launched on the {name} path")
+
+    # forward vs decode_step logits at every position, float32 compute
+    T = CONSISTENCY_T[name]
+    f32 = torch.float32
+    toks2 = synthetic.lm_tokens(gen, batch=2, seq=T - 1, vocab=cfg.vocab)
+    full = tf.forward(params, toks2, cfg, compute_dtype=f32)
+    last = tf.forward(params, toks2, cfg, compute_dtype=f32,
+                      logits_last_only=True)
+    state = tf.init_serve(cfg, 2, T, cache_dtype=f32)
+    errs = []
+    for t in range(T):
+        lg, state = tf.decode_step(params, toks2[:, t:t + 1], state, cfg,
+                                   compute_dtype=f32)
+        errs.append((lg[:, 0, :cfg.vocab] - full[:, t, :cfg.vocab]).abs()
+                    .max())
+    err = float(torch.stack(errs).max())
+    err_last = max_err(last[:, 0, :cfg.vocab], full[:, -1, :cfg.vocab])
+    scale = float(full[..., :cfg.vocab].abs().max())
+    print(f"  {name} float32 forward vs decode_step over {T} positions, "
+          f"B=2: max|dlogit| {err:.3e} (tol {TOL_CONSISTENCY}; max|logit| "
+          f"{scale:.3f}); logits_last_only vs full {err_last:.3e}",
+          flush=True)
+    if not (err <= TOL_CONSISTENCY and err_last <= TOL_CONSISTENCY):
+        fail(f"{name} forward and decode disagree: {err}, {err_last}")
+    del params, state, full
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif tree is not None:
+        yield tree
 
 
 def main_path(torch, card: str):
@@ -341,15 +638,29 @@ def main() -> int:
                     print(f"  {name}: {line.strip()}", flush=True)
 
     print("phase 3: kernel vs plain", flush=True)
+    from repro_torch.kernels.attention import ops as attn_ops, ref as attn_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = [check_rbf(torch, ops, ref, gen), check_xcov(torch, ops, ref, gen)]
+    rows = [check_rbf(torch, ops, ref, gen), check_xcov(torch, ops, ref, gen),
+            check_flash(torch, attn_ops, attn_ref, gen),
+            check_ssd(torch, ssd_ops, ssd_ref, gen)]
+    torch.cuda.empty_cache()
 
-    print("phase 4: main path", flush=True)
+    print("phase 4: GP main path", flush=True)
     launches = main_path(torch, card)
+
+    print("phase 5: LM main path, qwen3-1.7b", flush=True)
+    launches["flash_attention"] = lm_path(
+        torch, card, "qwen3-1.7b", (attn_ops, "flash_launches"))
+
+    print("phase 6: LM main path, mamba2-130m", flush=True)
+    launches["ssd_intra_chunk"] = lm_path(
+        torch, card, "mamba2-130m", (ssd_ops, "ssd_launches"))
+
     for row in rows:
         row["launches"] = launches[row["name"]]
 
-    print("phase 5: kernels", flush=True)
+    print("phase 7: kernels", flush=True)
     for row in rows:
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms",
                                                    "bound_ms")):

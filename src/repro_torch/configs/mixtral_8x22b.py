@@ -1,0 +1,11 @@
+"""mixtral-8x22b [moe] — 8 experts top-2, SWA [arXiv:2401.04088; hf]."""
+from repro_torch.configs.base import LayerDesc, ModelConfig
+
+CONFIG = ModelConfig(
+    name="mixtral-8x22b", family="moe",
+    n_layers=56, d_model=6144, n_heads=48, n_kv_heads=8,
+    d_ff=16384, vocab=32768,
+    layer_pattern=(LayerDesc(kind="attn", window=4096, moe=True),),
+    moe_experts=8, moe_top_k=2,
+    rope_theta=1e6, max_seq=65536,
+)

@@ -1,11 +1,13 @@
-"""Hyperparameters and fitted states of the JAX package, as the port's
-tensors.
+"""Hyperparameters, fitted states and LM parameters of the JAX package, as
+the port's tensors.
 
-Both take arrays (numpy, or anything ``numpy.asarray`` reads) so that this
+All take arrays (numpy, or anything ``numpy.asarray`` reads) so that this
 module needs nothing of the JAX package: the caller hands over
 ``{"log_signal", "log_noise", "log_lengthscale"}`` or a fitted
 ``PITCState``/``FGPState`` (any object with those fields, such as the JAX
 NamedTuple itself), and gets the same model on ``device`` in ``dtype``.
+``lm_params_from_arrays`` takes an LM's parameter tree with numpy leaves
+(``jax.tree.map(np.asarray, params)`` on the caller's side).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import api
+from repro_torch.models import transformer as tf
 
 _PARAM_KEYS = ("log_signal", "log_noise", "log_lengthscale")
 _STATES = (api.PITCState, api.FGPState)
@@ -43,3 +46,53 @@ def state_from_arrays(state, *, device, dtype=None):
                          for f in cls._fields))
     raise TypeError(f"no port state has the fields {fields}; have "
                     f"{[c._fields for c in _STATES]}")
+
+
+_NORM_KEYS = ("ln1", "ln2", "norm", "q_norm", "k_norm")
+
+
+def _tree(node, device, dtype, index=None):
+    """Nested dicts of arrays -> dicts of tensors, taking entry ``index`` of
+    the leading (stacked) axis of every leaf when it is given. Float leaves
+    are cast to ``dtype`` (None keeps theirs), except the norm weights,
+    which the reference keeps in float32 whatever the parameter dtype."""
+    if node is None:
+        return None
+    if isinstance(node, Mapping):
+        return {k: _tree(v, device, None if k in _NORM_KEYS else dtype,
+                         index)
+                for k, v in node.items()}
+    a = np.asarray(node)
+    if index is not None:
+        a = a[index]
+    return _tensor(a, device, dtype if a.dtype.kind == "f" else None)
+
+
+def lm_params_from_arrays(tree: Mapping, cfg, *, device, dtype=None) -> dict:
+    """The JAX package's LM parameters (``transformer.init_model``'s tree,
+    numpy leaves) as the port's flat-layer parameters on ``device``.
+
+    JAX stacks layer parameters per pattern position (``tree["stack"][pos]``
+    with a leading axis over the n_full periods) and keeps the remainder in
+    ``tree["rest"]``. The port's ``params["layers"][i * period + pos]`` is
+    stacked entry ``i`` of position ``pos``; the remainder layers follow.
+    Leaves keep their layouts (``conv_w`` stays (K, conv_dim): the port's
+    causal conv is the same sum of shifted products).
+    """
+    tf.check_supported(cfg)
+    period = cfg.period
+    n_full = cfg.n_layers // period
+    stack = tree.get("stack", ())
+    rest = tree.get("rest", ())
+    if len(stack) != (period if n_full else 0) or \
+            len(rest) != cfg.n_layers - n_full * period:
+        raise ValueError(f"tree has {len(stack)} stacked positions and "
+                         f"{len(rest)} remainder layers; {cfg.name} needs "
+                         f"{period if n_full else 0} and "
+                         f"{cfg.n_layers - n_full * period}")
+    layer_list = [_tree(stack[pos], device, dtype, index=i)
+                  for i in range(n_full) for pos in range(period)]
+    layer_list += [_tree(r, device, dtype) for r in rest]
+    return {"embed": _tree(tree["embed"], device, dtype),
+            "layers": layer_list,
+            "final_norm": _tree(tree["final_norm"], device, None)}

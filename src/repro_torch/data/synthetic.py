@@ -1,5 +1,5 @@
 """Synthetic datasets mirroring the paper's two domains — port of the GP part
-of ``repro.data.synthetic``.
+of ``repro.data.synthetic``, and its LM token stream.
 
 The real AIMPEAK/SARCOS data are not vendored; these generators reproduce
 their statistical shape (dimensions, scale, noise levels quoted in Sec. 6).
@@ -82,3 +82,20 @@ def standardize(ds: Dataset) -> Dataset:
     """Center/scale outputs (the GP core assumes zero prior mean)."""
     return Dataset(ds.X, (ds.y - ds.mean_y) / ds.std_y, ds.X_test,
                    (ds.y_test - ds.mean_y) / ds.std_y, ds.mean_y, ds.std_y)
+
+
+def lm_tokens(gen, *, batch: int, seq: int, vocab: int,
+              zipf_a: float = 1.2) -> torch.Tensor:
+    """Zipf-distributed synthetic token stream (batch, seq + 1), int64, so
+    that embedding gathers see a realistic rank-frequency profile.
+
+    ``gen`` is a ``torch.Generator`` (the tokens land on its device) or a
+    ``numpy.random.Generator`` (CPU tokens, for tests that feed the same
+    stream to both packages)."""
+    if isinstance(gen, torch.Generator):
+        u = torch.rand((batch, seq + 1), generator=gen, device=gen.device,
+                       dtype=torch.float64) * (1.0 - 1e-6) + 1e-6
+    else:
+        u = torch.from_numpy(gen.uniform(1e-6, 1.0, size=(batch, seq + 1)))
+    ranks = torch.floor(u ** (-1.0 / (zipf_a - 1.0)))
+    return torch.clamp(ranks, 0, vocab - 1).to(torch.int64)

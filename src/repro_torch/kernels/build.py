@@ -95,6 +95,18 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
+def on_cpu(*tensors) -> bool:
+    """True for all-CPU inputs (a wrapper's plain path), False for all
+    inputs on one CUDA device (its kernel path); anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return True
+    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
+        return False
+    raise ValueError(f"inputs must all lie on the CPU or all on one CUDA "
+                     f"device; got {sorted(str(t.device) for t in tensors)}")
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if code != 0:

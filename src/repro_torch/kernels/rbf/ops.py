@@ -53,18 +53,6 @@ def _xcov_entry():
     return lib, fn
 
 
-def _on_cpu(*tensors) -> bool:
-    """True for all-CPU inputs (plain path), False for all-CUDA inputs
-    (kernel path); anything else raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
-        return False
-    raise ValueError(f"inputs must all lie on the CPU or all on one CUDA "
-                     f"device; got {sorted(str(t.device) for t in tensors)}")
-
-
 def _check_cuda(**tensors) -> None:
     for name, t in tensors.items():
         if t.dtype not in _DTYPE_CODE:
@@ -83,7 +71,7 @@ def rbf_covariance(Xq: torch.Tensor, Xk: torch.Tensor, sig2) -> torch.Tensor:
     launch. f32/bf16/f64 in, f32 accumulation, output in Xq's dtype.
     """
     global rbf_launches
-    if _on_cpu(Xq, Xk):
+    if build.on_cpu(Xq, Xk):
         return ref.rbf_covariance(Xq, Xk, sig2)
     _check_cuda(Xq=Xq, Xk=Xk)
     if Xq.dtype != Xk.dtype:
@@ -167,7 +155,7 @@ def xcov_diag(Xq: torch.Tensor, Xk: torch.Tensor, L1: torch.Tensor,
     32/16/8-row query tiles not above it.
     """
     args = (Xq, Xk, L1, alpha) + ((L2,) if L2 is not None else ())
-    if _on_cpu(*args):
+    if build.on_cpu(*args):
         return ref.xcov_diag(Xq, Xk, L1, alpha, sig2, L2)
     s = Xk.shape[0]
     if L1.shape != (s, s) or (L2 is not None and L2.shape != (s, s)):
@@ -187,7 +175,7 @@ def xcov_diag_inv(Xq: torch.Tensor, Xk: torch.Tensor, L1inv: torch.Tensor,
     CUDA tensors only. Entries above the diagonal are never read."""
     global xcov_launches
     args = (Xq, Xk, L1inv, alpha) + ((L2inv,) if L2inv is not None else ())
-    if _on_cpu(*args):
+    if build.on_cpu(*args):
         raise ValueError("xcov_diag_inv launches the CUDA kernel and takes "
                          "CUDA tensors; the plain path is xcov_diag")
     n, d = Xq.shape

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (rbf, xcov_diag, flash attention, SSD) against
+their plain versions, on the card.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 with that reason elsewhere; run them on a machine with one:
@@ -11,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.attention import ops as attn_ops, ref as attn_ref
 from repro_torch.kernels.rbf import ops, ref
+from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +117,166 @@ def test_xcov_kernel_rejects_bfloat16(cuda):
     with pytest.raises(TypeError, match="float32 or float64"):
         ops.xcov_diag(X, X, torch.eye(4, device=cuda), torch.zeros(4,
                       device=cuda), 1.0)
+
+
+# --- flash attention and SSD (the LM serving slice) ---------------------------
+
+# the reference's tolerances: flash 2e-3 f32 / 3e-2 bf16
+# (tests/test_kernels.py), SSD 3e-4 for Y and S, 1e-5 for cum
+# (tests/test_ssd_kernel.py). The flash ones are absolute, and a row that
+# sees n keys of random data has outputs of ~0.8 sqrt(e / n), so each case
+# is also held row by row to a limit scaled to the output's size:
+# max_d (|got - want| - r |want|)+ <= c rms_d(want), with r one bf16 ulp
+# (2^-7) of the output in bf16 and c = 2e-2 for the kernel's bf16 rounding
+# of P before P.V; r = 0 and c = 1e-4 in f32 (chip_smoke.py gives the
+# numbers behind them). The reference set the SSD 3e-4 for outputs of up
+# to ~10 whose cumsum both sides computed alike. Here the kernel's block
+# scan and torch.cumsum round cum (~ -20 at cs = 256) differently by
+# ~1e-6, which exp(cum_i - cum_j) carries into Y and S relative to their
+# size, and those reach ~1e2 at cs = 256, N = 128: beyond 10 the tolerance
+# grows with the output's size (3e-5 relative).
+FLASH_TOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
+FLASH_ROW_TOL = {torch.float32: (0.0, 1e-4),
+                 torch.bfloat16: (2.0 ** -7, 2e-2)}
+
+
+def ssd_tol(want: torch.Tensor, base: float) -> float:
+    return base * max(1.0, float(want.abs().max()) / 10.0)
+
+
+def flash_row_err(got: torch.Tensor, want: torch.Tensor, r: float) -> float:
+    """max over rows of max_d (|got - want| - r |want|)+ / rms_d(want); a
+    row whose want is all zero (no valid key) must match exactly."""
+    g, w = got.double(), want.double()
+    excess = ((g - w).abs() - r * w.abs()).clamp(min=0).amax(-1)
+    rms = w.pow(2).mean(-1).sqrt()
+    return float((excess / rms.clamp(min=1e-300)).max())
+
+
+FLASH_CASES = [(1, 4, 4, 128, 128, 64, None, 0),
+               (2, 8, 2, 128, 128, 64, None, 0),
+               (1, 4, 4, 256, 256, 32, 128, 0),
+               (1, 2, 2, 64, 256, 64, None, 192),
+               (1, 4, 2, 100, 200, 48, None, 100),
+               (1, 1, 1, 64, 64, 128, 32, 0),
+               (1, 2, 1, 70, 70, 16, None, 0),
+               (1, 2, 2, 65, 65, 256, 40, 0),
+               (2, 4, 2, 33, 33, 100, None, 0),      # D % 8 != 0
+               (1, 2, 2, 9, 9, 1, None, 0),
+               (2, 16, 8, 1, 300, 128, None, 211),   # decode step
+               (2, 4, 1, 1, 96, 16, 16, 95)]
+
+
+def _qkv(cuda, dtype, B, Hq, Hkv, Tq, Tk, D, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(s, generator=g, device=cuda).to(dtype)
+            for s in ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D))]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,window,off", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Tq, Tk, D, window, off,
+                                    dtype):
+    q, k, v = _qkv(cuda, dtype, B, Hq, Hkv, Tq, Tk, D)
+    before = attn_ops.flash_launches
+    got = attn_ops.attention(q, k, v, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_launches == before + 1
+    want = attn_ref.attention(q, k, v, window=window, q_offset=off)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
+    r, c = FLASH_ROW_TOL[dtype]
+    assert flash_row_err(got, want, r) <= c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_takes_strided_views(cuda, dtype):
+    """q/k/v as (B, T, H, D) buffers seen as (B, H, T, D), the layout the
+    projections leave them in."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _qkv(cuda, dtype, 2, 8, 4, 80, 80, 64, seed=1))
+    assert not q.is_contiguous()
+    got = attn_ops.attention(q, k, v)
+    want = attn_ops.attention(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, want)
+
+
+def test_flash_kernel_rows_without_a_key_are_zero(cuda):
+    q, k, v = _qkv(cuda, torch.bfloat16, 1, 2, 2, 4, 8, 64)
+    out = attn_ops.attention(q, k, v, causal=True, window=2, q_offset=20)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_flash_kernel_rejects_float16(cuda):
+    q, k, v = _qkv(cuda, torch.float16, 1, 2, 2, 8, 8, 16)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        attn_ops.attention(q, k, v)
+
+
+def _ssd_inputs(cuda, dtype, BC, cs, H, P, N, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xdt = torch.randn((BC, cs, H, P), generator=g, device=cuda)
+    dA = -torch.randn((BC, H, cs), generator=g, device=cuda).abs() * 0.1
+    Bc = torch.randn((BC, cs, N), generator=g, device=cuda)
+    Cc = torch.randn((BC, cs, N), generator=g, device=cuda)
+    return [t.to(dtype) for t in (xdt, dA, Bc, Cc)]
+
+
+@pytest.mark.parametrize("BC,cs,H,P,N", [(4, 16, 3, 8, 8), (2, 64, 2, 16, 16),
+                                         (1, 128, 1, 64, 128),
+                                         (3, 32, 4, 8, 32), (2, 20, 3, 5, 7),
+                                         (2, 256, 4, 64, 128),
+                                         (1, 100, 2, 80, 150)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(cuda, BC, cs, H, P, N, dtype):
+    args = _ssd_inputs(cuda, dtype, BC, cs, H, P, N)
+    before = ssd_ops.ssd_launches
+    got = ssd_ops.intra_chunk(*args)
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_launches == before + 1
+    want = ssd_ref.intra_chunk(*args)
+    for g_, w, base in zip(got, want, (3e-4, 3e-4, 1e-5)):
+        assert g_.dtype == torch.float32 and g_.shape == w.shape
+        assert float((g_ - w).abs().max()) < ssd_tol(w, base)
+
+
+def test_ssd_scan_on_the_card_matches_the_plain_scan(cuda):
+    from repro_torch.models import ssm
+    g = torch.Generator(device=cuda).manual_seed(2)
+    B, L, H, P, N = 2, 64, 3, 8, 16
+    xh = torch.randn((B, L, H, P), generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, L, H), generator=g, device=cuda))
+    A = -torch.exp(torch.randn((H,), generator=g, device=cuda) * 0.3)
+    Bm = torch.randn((B, L, N), generator=g, device=cuda)
+    Cm = torch.randn((B, L, N), generator=g, device=cuda)
+    for chunk in (8, 16, 32):
+        Y, f = ssd_ops.ssd_scan(xh, dt, A, Bm, Cm, chunk)
+        Yr, fr = ssm.ssd_scan(xh, dt, A, Bm, Cm, chunk)
+        assert float((Y - Yr).abs().max()) < 2e-4
+        assert float((f - fr).abs().max()) < 2e-4
+
+
+@pytest.mark.parametrize("name,counter", [("qwen3-1.7b", "flash"),
+                                          ("mamba2-130m", "ssd")])
+def test_lm_on_the_card_matches_the_cpu(cuda, name, counter):
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import transformer as tf
+    cfg = smoke_config(name)
+    params = tf.init_model(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    on_card = {"embed": {k: t.to(cuda) for k, t in params["embed"].items()},
+               "final_norm": params["final_norm"].to(cuda),
+               "layers": [{k: ({kk: t.to(cuda) for kk, t in v.items()}
+                               if isinstance(v, dict) else v.to(cuda))
+                           for k, v in p.items()} for p in params["layers"]]}
+    toks = torch.randint(0, cfg.vocab, (2, 32),
+                         generator=torch.Generator().manual_seed(1))
+    attn_ops.reset_counts()
+    ssd_ops.reset_counts()
+    got = tf.forward(on_card, toks.to(cuda), cfg, compute_dtype=torch.float32)
+    launches = {"flash": attn_ops.flash_launches,
+                "ssd": ssd_ops.ssd_launches}
+    assert launches[counter] == cfg.n_layers
+    want = tf.forward(params, toks, cfg, compute_dtype=torch.float32)
+    assert float((got.cpu() - want).abs().max()) < 1e-3

@@ -24,8 +24,10 @@ def _port_modules() -> list[str]:
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     mods = _port_modules()
-    assert "repro_torch.core.ppitc" in mods and \
-        "repro_torch.kernels.rbf.ops" in mods
+    assert {"repro_torch.core.ppitc", "repro_torch.kernels.rbf.ops",
+            "repro_torch.kernels.attention.ops", "repro_torch.kernels.ssd.ops",
+            "repro_torch.models.transformer", "repro_torch.launch.serve",
+            "repro_torch.configs.registry"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
