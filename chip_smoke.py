@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero before the last line:
    card, at the main paths' shapes and at edge cases, within the tolerances
    stated below, and each timed at its main path's shape (flash also
    against ``scaled_dot_product_attention``, a yardstick the port never
-   calls);
+   calls, with its TFLOP/s and the host cost of a decode launch; rbf also
+   at the shape of an ICF pivot step). Each flash case runs three times
+   and every run must equal the first;
 4. GP main path: pPITC at the paper's AIMPEAK configuration (|D| = 32000,
    M = 20, |S| = 2048, d = 5, float32): support selection, fit, plan,
    warm-up, 8 requests through ``plan.diag``; outputs must be finite and
@@ -22,8 +24,9 @@ Phases, in order; any failure exits non-zero before the last line:
 5. LM main path, qwen3-1.7b at full width and depth (random weights from
    seed 0, bfloat16 compute): prefill of 4 x 4096 tokens through
    ``forward(logits_last_only=True)``, then ``prefill_then_decode`` (4
-   prompts of 32 tokens, 32 greedy new tokens); then, in float32, the
-   forward logits against ``decode_step``'s at every position;
+   prompts of 32 tokens, 32 greedy new tokens), every flash launch of
+   which must take the sm90 kernel; then, in float32, the forward logits
+   against ``decode_step``'s at every position;
 6. LM main path, mamba2-130m, the same;
 7. one JSON line listing each kernel's launches, error, times and bound.
 
@@ -80,6 +83,9 @@ TOL_XCOV_F32_S2048 = 1e-4
 #  (3e-5 relative; a wrong tile or mask errs by the output's own size).
 TOL_FLASH = {"float32": 2e-3, "bfloat16": 3e-2}
 TOL_FLASH_ROW = {"float32": (0.0, 1e-4), "bfloat16": (2.0 ** -7, 2e-2)}
+# launches of each flash case (each must equal the first), and of the loop
+# that reads the host cost of one decode launch
+FLASH_REPEAT, FLASH_HOST_CALLS = 3, 200
 TOL_SSD = (3e-4, 3e-4, 1e-5)
 # Forward vs decode logits, float32 compute, full width and depth: the
 # reference holds 5e-4 on its two-layer smoke widths (tests/test_models.py).
@@ -105,6 +111,7 @@ def flash_row_err(got, want, r: float) -> float:
 
 
 M, N_TRAIN, N_TEST, S_SIZE, D = 20, 32000, 3200, 2048, 5
+ICF_CANDIDATES = 8192        # select_support's pool: ds.X[:8192]
 REQUEST_SIZES = (1, 7, 64, 200, 256, 256, 1000, 3200)
 
 # LM serving: prefill batch x length, generation prompt and new tokens, and
@@ -142,6 +149,24 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_device_ms(torch, fn, name: str, iters: int) -> float:
+    """Mean device time of the kernels named ``name`` that ``iters`` calls
+    of ``fn`` launch, from a ``torch.profiler`` trace (after a warm-up)."""
+    from repro_torch.launch.profile import kernels
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e - s for n, s, e in kernels(prof) if name in n]
+    if len(spans) != iters:
+        fail(f"the profiler saw {len(spans)} {name} launches of {iters}")
+    return sum(spans) / iters / 1e3
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -187,14 +212,33 @@ def check_rbf(torch, ops, ref, gen):
     n_out = M * S_SIZE * (N_TRAIN // M)
     b_ms, b_by = bound_ms((S.numel() + Xb.numel()) * 4 + n_out * 4,
                           n_out * (2 * D + 6))
+    # the shape of 2048 of the path's launches: one ICF pivot column,
+    # K(x_p, X) over the 8192 candidates of select_support
+    n_icf = ICF_CANDIDATES
+    Xc = (torch.rand((n_icf, D), generator=gen, device="cuda") * 4 - 2) / 1.2
+    xp = Xc[:1]
+    # back to back, a launch this small waits for the host: the wrapper's
+    # host time, and the kernel's own device time from the profiler
+    icf_step_ms = time_ms(lambda: ops.rbf_covariance(xp, Xc, 1.3), 200)
+    icf_plain = time_ms(lambda: ref.rbf_covariance(xp, Xc, 1.3), 200)
+    icf_ms = kernel_device_ms(torch, lambda: ops.rbf_covariance(xp, Xc, 1.3),
+                              "rbf_kernel", 200)
+    icf_b_ms, icf_by = bound_ms((D + n_icf * D) * 4 + n_icf * 4,
+                                n_icf * (2 * D + 6))
+    print(f"  rbf at the K_SDm shape: {ms:.4f} ms (bound {b_ms:.4f} ms, "
+          f"{b_by}); at the ICF step (1,{D})x({n_icf},{D}): device "
+          f"{icf_ms * 1e3:.2f} us a launch (bound {icf_b_ms * 1e3:.3f} us, "
+          f"{icf_by}), {icf_step_ms * 1e3:.2f} us a launch back to back "
+          f"(plain {icf_plain * 1e3:.2f} us)", flush=True)
     return dict(name="rbf", route="cuda",
                 source="src/repro_torch/kernels/rbf/csrc/rbf.cu",
                 replaces="src/repro/kernels/rbf/rbf.py:55",
                 max_abs_err=worst["err"], tol=TOL_RBF["float32"], ms=ms,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None,
+                library_ms=None, icf_ms=icf_ms, icf_bound_ms=icf_b_ms,
+                icf_step_ms=icf_step_ms, icf_plain_ms=icf_plain,
                 shape=f"K_SDm: ({S_SIZE},{D}) x ({M},{N_TRAIN // M},{D}) "
-                      f"f32")
+                      f"f32; icf: (1,{D}) x ({n_icf},{D}) f32")
 
 
 def _factors(torch, s, gen, dtype):
@@ -262,10 +306,57 @@ def check_xcov(torch, ops, ref, gen):
                 shape=f"n={n}, |S|={s}, d={D}, with L2, f32")
 
 
+def _flash_case(torch, ops, ref, gen, case, dt, strided=False):
+    """One flash case, launched FLASH_REPEAT times: each run must equal the
+    first (a ring stage released too early shows as a run that differs)
+    and meet the absolute and row-scaled limits against the plain version.
+    Returns (max abs error, row-scaled error)."""
+    B, Hq, Hkv, Tq, Tk, Dh, window, off = case
+    shapes = ((B, Hq, Tq, Dh), (B, Hkv, Tk, Dh), (B, Hkv, Tk, Dh))
+    if strided:      # (B, T, H, D) buffers seen as (B, H, T, D)
+        q, k, v = (torch.randn((s[0], s[2], s[1], s[3]), generator=gen,
+                               device="cuda").to(dt).transpose(1, 2)
+                   for s in shapes)
+    else:
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dt)
+                   for s in shapes)
+    route = ops.route(q, k, v)
+    n0, s0 = ops.flash_launches, ops.flash_sm90_launches
+    runs = [ops.attention(q, k, v, window=window, q_offset=off)
+            for _ in range(FLASH_REPEAT)]
+    want = ref.attention(q, k, v, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    key = str(dt).split(".")[1]
+    want_sm90 = FLASH_REPEAT if key == "bfloat16" else 0
+    if ops.flash_launches - n0 != FLASH_REPEAT or \
+            ops.flash_sm90_launches - s0 != want_sm90:
+        fail(f"flash {case} {key}: {ops.flash_launches - n0} launches, "
+             f"{ops.flash_sm90_launches - s0} of the sm90 kernel")
+    if not all(torch.equal(r, runs[0]) for r in runs[1:]):
+        fail(f"flash {case} {key}: repeated launches disagree")
+    got = runs[0]
+    err = max_err(got, want)
+    r, c = TOL_FLASH_ROW[key]
+    row = flash_row_err(got, want, r)
+    size = float(want.float().abs().mean())
+    print(f"  flash B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} D={Dh} "
+          f"window={window} offset={off}{' (B,T,H,D) view' if strided else ''}"
+          f" {key} [{route} x{FLASH_REPEAT}]: max|err| {err:.3e} (tol "
+          f"{TOL_FLASH[key]}), row-scaled {row:.3e} (tol {c}), mean|want| "
+          f"{size:.3e}", flush=True)
+    if not (err <= TOL_FLASH[key] and row <= c):
+        fail(f"flash {case} {key} error {err} > {TOL_FLASH[key]} or "
+             f"row-scaled {row} > {c}")
+    return err, row
+
+
 def check_flash(torch, ops, ref, gen):
-    """flash attention vs plain in f32 and bf16: the qwen3 prefill shape,
-    the reference's cases (window, offset, ragged Tq != Tk, GQA 4:1),
-    D = 16 and 256, and decode steps; timed at the prefill shape in bf16."""
+    """flash attention vs plain in f32 and bf16: the qwen3 prefill shape
+    (also as (B, T, H, D) views), the reference's cases (window, offset,
+    ragged Tq != Tk, GQA 4:1), D = 16, 100 and 256, decode steps and the
+    sm90 kernel's tile boundaries, each launched FLASH_REPEAT times; timed
+    at the prefill shape in bf16, beside SDPA, with its TFLOP/s and the
+    host cost of a decode launch."""
     prefill = (LM_BATCH, 16, 8, LM_SEQ, LM_SEQ, 128, None, 0)
     cases = [prefill,
              (1, 4, 4, 128, 128, 64, None, 0),
@@ -276,35 +367,43 @@ def check_flash(torch, ops, ref, gen):
              (1, 1, 1, 64, 64, 128, 32, 0),
              (2, 8, 4, 300, 300, 16, None, 0),          # D = 16
              (2, 8, 4, 300, 300, 256, 100, 0),          # D = 256
+             (2, 4, 2, 33, 33, 100, None, 0),           # D % 8 != 0: pad
              (LM_BATCH, 16, 8, 1, 2 * GEN_PROMPT, 128, None, 45),  # decode
-             (LM_BATCH, 16, 8, 1, LM_SEQ, 128, None, LM_SEQ - 1)]
+             (LM_BATCH, 16, 8, 1, LM_SEQ, 128, None, LM_SEQ - 1),
+             # the sm90 kernel's boundaries: 128 query rows, 128 keys (64 at
+             # D = 256), a K/V ring of 3 stages (2 at D = 256)
+             (1, 4, 2, 127, 127, 128, None, 0),
+             (1, 4, 2, 128, 128, 128, None, 0),
+             (1, 4, 2, 129, 129, 128, None, 0),
+             (1, 4, 2, 257, 257, 128, None, 0),
+             (1, 4, 2, 1000, 1000, 128, None, 0),
+             (1, 64, 8, 200, 200, 128, None, 0),        # GQA 8:1
+             (2, 4, 2, 300, 300, 256, 100, 0),          # D = 256, window
+             (2, 16, 8, 1, 1024, 128, None, 700)]       # decode, 6 KV tiles
     worst = worst_row = 0.0
-    for B, Hq, Hkv, Tq, Tk, Dh, window, off in cases:
+    for case in cases:
         for dt in (torch.float32, torch.bfloat16):
-            q = torch.randn((B, Hq, Tq, Dh), generator=gen, device="cuda")
-            k = torch.randn((B, Hkv, Tk, Dh), generator=gen, device="cuda")
-            v = torch.randn((B, Hkv, Tk, Dh), generator=gen, device="cuda")
-            q, k, v = q.to(dt), k.to(dt), v.to(dt)
-            got = ops.attention(q, k, v, window=window, q_offset=off)
-            want = ref.attention(q, k, v, window=window, q_offset=off)
-            torch.cuda.synchronize()
-            key = str(dt).split(".")[1]
-            err = max_err(got, want)
-            r, c = TOL_FLASH_ROW[key]
-            row = flash_row_err(got, want, r)
-            size = float(want.float().abs().mean())
-            print(f"  flash B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} D={Dh} "
-                  f"window={window} offset={off} {key}: max|err| "
-                  f"{err:.3e} (tol {TOL_FLASH[key]}), row-scaled {row:.3e} "
-                  f"(tol {c}), mean|want| {size:.3e}", flush=True)
-            if not (err <= TOL_FLASH[key] and row <= c):
-                fail(f"flash {(B, Hq, Hkv, Tq, Tk, Dh, window, off)} {key} "
-                     f"error {err} > {TOL_FLASH[key]} or row-scaled {row} > "
-                     f"{c}")
-            if key == "bfloat16":
-                worst = max(worst, err)
-                worst_row = max(worst_row, row)
-            del q, k, v, got, want
+            err, row = _flash_case(torch, ops, ref, gen, case, dt)
+            if dt == torch.bfloat16:
+                worst, worst_row = max(worst, err), max(worst_row, row)
+    err, row = _flash_case(torch, ops, ref, gen, prefill, torch.bfloat16,
+                           strided=True)
+    worst, worst_row = max(worst, err), max(worst_row, row)
+    # a base 8 bytes past a 16-byte boundary: the padded copy
+    q, k, v = (torch.randn((2, 8, 150, 72), generator=gen, device="cuda")
+               .to(torch.bfloat16)[..., 4:68] for _ in range(3))
+    if ops.route(q, k, v) != "pad":
+        fail("a misaligned bf16 slice did not take the pad route")
+    got, want = ops.attention(q, k, v), ref.attention(q, k, v)
+    row = flash_row_err(got, want, TOL_FLASH_ROW["bfloat16"][0])
+    err = max_err(got, want)
+    print(f"  flash misaligned slice bf16 [pad]: max|err| {err:.3e}, "
+          f"row-scaled {row:.3e}", flush=True)
+    if not (err <= TOL_FLASH["bfloat16"]
+            and row <= TOL_FLASH_ROW["bfloat16"][1]):
+        fail(f"flash pad route error {err}, row-scaled {row}")
+    del q, k, v, got, want
+
     # timing at the qwen3 prefill shape, bf16, causal
     B, Hq, Hkv, T, Dh = prefill[:4] + (prefill[5],)
     q = torch.randn((B, Hq, T, Dh), generator=gen, device="cuda",
@@ -313,10 +412,10 @@ def check_flash(torch, ops, ref, gen):
                     dtype=torch.bfloat16)
     v = torch.randn((B, Hkv, T, Dh), generator=gen, device="cuda",
                     dtype=torch.bfloat16)
-    ms = time_ms(lambda: ops.attention(q, k, v), 10)
+    ms = time_ms(lambda: ops.attention(q, k, v), 20)
     plain = time_ms(lambda: ref.attention(q, k, v), 3, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 10)
+    lib = time_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True), 20)
     got = ops.attention(q, k, v)
     want = sdpa(q, k, v, is_causal=True, enable_gqa=True)
     # both round P to bf16, independently: the row-scaled limit still holds
@@ -331,7 +430,32 @@ def check_flash(torch, ops, ref, gen):
     flops = 4 * B * Hq * Dh * pairs
     nbytes = 2 * (2 * B * Hq * T * Dh + 2 * B * Hkv * T * Dh)
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
-    return dict(name="flash_attention", route="cuda",
+    tflops, lib_tflops = flops / ms / 1e9, flops / lib / 1e9
+    # host cost of one decode launch (tensor maps encoded in the C entry
+    # point): back-to-back calls that keep the device queue short
+    qd = q[:, :, :1]
+    kd, vd = k[:, :, :GEN_PROMPT + GEN_NEW], v[:, :, :GEN_PROMPT + GEN_NEW]
+    for _ in range(3):
+        ops.attention(qd, kd, vd, q_offset=GEN_PROMPT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FLASH_HOST_CALLS):
+        ops.attention(qd, kd, vd, q_offset=GEN_PROMPT)
+    host_us = (time.perf_counter() - t0) / FLASH_HOST_CALLS * 1e6
+    torch.cuda.synchronize()
+    encode_us = ops.last_encode_us()
+    decode_ms = kernel_device_ms(
+        torch, lambda: ops.attention(qd, kd, vd, q_offset=GEN_PROMPT),
+        "flash_sm90", FLASH_HOST_CALLS)
+    print(f"  flash at the prefill shape: {ms:.4f} ms, {tflops:.1f} TFLOP/s "
+          f"({100 * tflops * 1e12 / BF16_FLOPS_PER_S:.1f}% of the bf16 "
+          f"peak); SDPA {lib:.4f} ms, {lib_tflops:.1f} TFLOP/s; bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+    print(f"  flash decode launch (B={B}, Hq={Hq}, Tq=1, {GEN_PROMPT + 1} "
+          f"keys): device {decode_ms * 1e3:.2f} us; host {host_us:.1f} us, "
+          f"of which encoding the three tensor maps {encode_us:.2f} us",
+          flush=True)
+    return dict(name="flash_attention", route="cuda", ops_route="sm90",
                 source="src/repro_torch/kernels/attention/csrc/"
                        "flash_attention.cu",
                 replaces="src/repro/kernels/attention/flash.py:90",
@@ -339,7 +463,8 @@ def check_flash(torch, ops, ref, gen):
                 row_scaled_err=worst_row,
                 row_scaled_tol=TOL_FLASH_ROW["bfloat16"][1], ms=ms,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib,
+                library_ms=lib, tflops=tflops, decode_ms=decode_ms,
+                host_us=host_us, encode_us=encode_us,
                 shape=f"B={B}, Hq={Hq}, Hkv={Hkv}, T={T}, D={Dh}, causal, "
                       f"bf16")
 
@@ -400,13 +525,14 @@ def lm_path(torch, card: str, name: str, counter) -> int:
     """Prefill and generation of ``name`` at full width and depth through
     the port's entry points, then the float32 forward-vs-decode check;
     returns the launches of the path's kernel (``counter``: its ops
-    module and count attribute) during prefill and generation."""
+    module, its count attribute, and the attribute of a count that must
+    equal it, or None) during prefill and generation."""
     from repro_torch.configs.registry import get_config
     from repro_torch.data import synthetic
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
 
-    ops_mod, attr = counter
+    ops_mod, attr, same = counter
     cfg = get_config(name)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -437,6 +563,7 @@ def lm_path(torch, card: str, name: str, counter) -> int:
                                     n_decode=GEN_NEW, step_ms=step_ms)
     torch.cuda.synchronize()
     launches = getattr(ops_mod, attr)
+    launches_same = getattr(ops_mod, same) if same else launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
@@ -459,6 +586,11 @@ def lm_path(torch, card: str, name: str, counter) -> int:
           f"{launches}", flush=True)
     if launches <= 0:
         fail(f"kernel {attr} was not launched on the {name} path")
+    if same:
+        print(f"  {name} launches of {same}: {launches_same}", flush=True)
+        if launches_same != launches:
+            fail(f"{name}: {launches - launches_same} of {launches} "
+                 f"{attr} did not take {same}")
 
     # forward vs decode_step logits at every position, float32 compute
     T = CONSISTENCY_T[name]
@@ -512,7 +644,8 @@ def main_path(torch, card: str):
     params = cov.init_params(D, signal=1.0, noise=0.3, lengthscale=1.2)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    S = support.select_support(spec, params, ds.X[:8192], S_SIZE)
+    S = support.select_support(spec, params, ds.X[:ICF_CANDIDATES],
+                               S_SIZE)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     model = api.fit("ppitc", spec, params, ds.X, ds.y, S=S,
@@ -651,11 +784,12 @@ def main() -> int:
 
     print("phase 5: LM main path, qwen3-1.7b", flush=True)
     launches["flash_attention"] = lm_path(
-        torch, card, "qwen3-1.7b", (attn_ops, "flash_launches"))
+        torch, card, "qwen3-1.7b",
+        (attn_ops, "flash_launches", "flash_sm90_launches"))
 
     print("phase 6: LM main path, mamba2-130m", flush=True)
     launches["ssd_intra_chunk"] = lm_path(
-        torch, card, "mamba2-130m", (ssd_ops, "ssd_launches"))
+        torch, card, "mamba2-130m", (ssd_ops, "ssd_launches", None))
 
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -1,14 +1,25 @@
-"""Launch wrapper of the flash-attention CUDA kernel — port of
+"""Launch wrapper of the flash-attention CUDA kernels — port of
 ``repro.kernels.attention.ops``.
 
 ``attention`` takes the plain versions (``ref.py``) for CPU tensors, and
 only because they lie on the CPU: there it routes long sliding-window
 sequences to the chunked path, as the JAX package's jnp route does. For CUDA
 tensors it launches ``csrc/flash_attention.cu`` or raises; it never falls
-back. Unlike the Pallas route, nothing is copied or padded first: the kernel
-reads the KV head of each query head in place (GQA), takes q/k/v/out with
-their own strides (unit stride over the head dimension), and masks ragged
-Tq, Tk and D itself. ``flash_launches`` counts kernel launches.
+back. ``route`` picks the kernel from the inputs alone:
+
+- ``"sm90"``: bfloat16 that TMA can address (D % 8 == 0, 16-byte aligned
+  base pointers, strides that are multiples of 8 elements) goes to the
+  Hopper kernel (wgmma + a TMA ring), read in place: GQA without the head
+  broadcast, q/k/v/out with their own strides, ragged Tq, Tk and D masked
+  by TMA's zero fill;
+- ``"pad"``: any other bfloat16 input is first copied into zero-padded
+  contiguous buffers (D up to the next multiple of 8, the softmax scale of
+  the original D), takes the same kernel, and is sliced back;
+- ``"f32"``: float32 goes to the CUDA-core FMA kernel, used by the
+  consistency checks.
+
+``flash_launches`` counts every kernel launch; ``flash_sm90_launches`` those
+of the Hopper kernel.
 """
 from __future__ import annotations
 
@@ -21,16 +32,17 @@ from repro_torch.kernels import build
 from repro_torch.kernels.attention import ref
 
 flash_launches = 0
+flash_sm90_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
-_GRID_Y_MAX = 65535
+_GRID_MAX = 65535      # the f32 kernel's B * Hq, the sm90 kernel's tiles
 _MAX_D = 256
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def reset_counts() -> None:
-    global flash_launches
-    flash_launches = 0
+    global flash_launches, flash_sm90_launches
+    flash_launches = flash_sm90_launches = 0
 
 
 @functools.cache
@@ -38,9 +50,17 @@ def _entry():
     lib = build.library("flash_attention")
     fn = lib.flash_attention
     fn.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _I,
-                   _I, _I, _I, _P]
+                   _I, _I, _P]
     fn.restype = _I
+    lib.flash_last_encode_us.argtypes = []
+    lib.flash_last_encode_us.restype = ctypes.c_double
     return lib, fn
+
+
+def last_encode_us() -> float:
+    """Host microseconds the last bf16 launch spent encoding its three TMA
+    tensor maps."""
+    return _entry()[0].flash_last_encode_us()
 
 
 def _plain(q, k, v, causal, window, scale, q_offset):
@@ -53,12 +73,53 @@ def _plain(q, k, v, causal, window, scale, q_offset):
                          q_offset=q_offset)
 
 
-def _vec_ok(*tensors) -> bool:
-    """8 bf16 values (16 bytes) per load: D % 8 == 0, 16-byte aligned base,
-    and every row stride a multiple of 8 elements."""
-    return all(t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
-               and all(s % 8 == 0 for s in t.stride()[:3])
-               for t in tensors)
+def _tma_ok(t: torch.Tensor) -> bool:
+    """TMA can tile ``t`` in place: D % 8 == 0 with unit stride, a 16-byte
+    aligned base, and every stride of a non-trivial axis a multiple of 8
+    elements (16 bytes)."""
+    return (t.shape[-1] % 8 == 0 and t.stride(-1) == 1
+            and t.data_ptr() % 16 == 0
+            and all(s % 8 == 0 and s > 0
+                    for n, s in zip(t.shape[:3], t.stride()[:3]) if n > 1))
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a CUDA call with these inputs takes: "sm90", "pad" or
+    "f32" (see the module docstring). Decided by dtype, shape, strides and
+    alignment alone."""
+    if q.dtype == torch.float32:
+        return "f32"
+    return "sm90" if all(_tma_ok(t) for t in (q, k, v)) else "pad"
+
+
+def pad_head_dim(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` copied into a zero-filled contiguous (..., width) buffer."""
+    out = t.new_zeros(t.shape[:-1] + (width,))
+    out[..., :t.shape[-1]] = t
+    return out
+
+
+def _strides(t: torch.Tensor) -> list[int]:
+    # an axis of length 1 is never stepped over; give it a stride TMA takes
+    return [s if n > 1 else 8 for n, s in zip(t.shape[:3], t.stride()[:3])]
+
+
+def _launch(q, k, v, out, causal, window, scale, q_offset) -> None:
+    global flash_launches, flash_sm90_launches
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    strides = torch.tensor([s for t in (q, k, v, out) for s in _strides(t)],
+                           dtype=torch.int64)
+    lib, fn = _entry()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Tq, Tk, D,
+                  strides.data_ptr(), scale, int(q_offset), int(causal),
+                  0 if window is None else int(window), stream)
+    build.check(lib, code, "flash_attention launch")
+    flash_launches += 1
+    flash_sm90_launches += q.dtype == torch.bfloat16
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -68,7 +129,6 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     D) with Hq % Hkv == 0. ``window``: keys within [i - window + 1, i].
     ``q_offset`` (a host int): absolute position of q[0], e.g. the cache
     length in a decode step. Output in q's dtype and memory layout."""
-    global flash_launches
     if build.on_cpu(q, k, v):
         return _plain(q, k, v, causal, window, scale, q_offset)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -84,26 +144,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if Hkv == 0 or Hq % Hkv or not 1 <= D <= _MAX_D:
         raise ValueError(f"need Hq % Hkv == 0 and 1 <= D <= {_MAX_D}; got "
                          f"Hq={Hq}, Hkv={Hkv}, D={D}")
-    if B * Hq > _GRID_Y_MAX:
-        raise ValueError(f"B * Hq = {B * Hq} exceeds the kernel's grid")
     if window is not None and window < 1:
         raise ValueError(f"window must be positive; got {window}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        q, k, v = (t.contiguous() for t in (q, k, v))
+    kind = route(q, k, v)
+    if (B * Hq if kind == "f32" else -(-Tq // 128)) > _GRID_MAX:
+        raise ValueError(f"B * Hq = {B * Hq}, Tq = {Tq} exceed the kernel's "
+                         f"grid")
     out = torch.empty_like(q)     # q's layout, so a transposed view stays one
     if out.numel() == 0:
         return out
+    if Tk == 0:                   # no key: every row is 0
+        return out.zero_()
     scale = (D ** -0.5) if scale is None else float(scale)
-    strides = torch.tensor([s for t in (q, k, v, out) for s in t.stride()[:3]],
-                           dtype=torch.int64)
-    vec = q.dtype == torch.bfloat16 and _vec_ok(q, k, v)
-    lib, fn = _entry()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Tq, Tk, D,
-                  strides.data_ptr(), scale, int(q_offset), int(causal),
-                  0 if window is None else int(window), int(vec), stream)
-    build.check(lib, code, "flash_attention launch")
-    flash_launches += 1
+    if kind == "f32" and any(t.stride(-1) != 1 for t in (q, k, v)):
+        q, k, v = (t.contiguous() for t in (q, k, v))
+    if kind == "pad":
+        width = -(-D // 8) * 8
+        qp, kp, vp = (pad_head_dim(t, width) for t in (q, k, v))
+        op = torch.empty_like(qp)
+        _launch(qp, kp, vp, op, causal, window, scale, q_offset)
+        out.copy_(op[..., :D])
+        return out
+    _launch(q, k, v, out, causal, window, scale, q_offset)
     return out

@@ -32,7 +32,8 @@ def _mask(Tq: int, Tk: int, causal: bool, window: int | None, q_offset: int,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int | None = None,
               scale: float | None = None, q_offset: int = 0) -> torch.Tensor:
-    """Reference attention, softmax in float32.
+    """Reference attention, softmax in float32 (float64 for float64
+    inputs).
 
     q: (B, Hq, Tq, D); k, v: (B, Hkv, Tk, D) with Hq % Hkv == 0 (GQA).
     ``window``: keys within [i - window + 1, i]. ``q_offset``: absolute
@@ -42,9 +43,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hkv, Tk = k.shape[1], k.shape[2]
     G = Hq // Hkv
     scale = (D ** -0.5) if scale is None else scale
-    qf = q.to(torch.float32).reshape(B, Hkv, G, Tq, D)
-    kf = k.to(torch.float32)[:, :, None]
-    vf = v.to(torch.float32)[:, :, None]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(ct).reshape(B, Hkv, G, Tq, D)
+    kf = k.to(ct)[:, :, None]
+    vf = v.to(ct)[:, :, None]
     logits = (qf @ kf.transpose(-1, -2)) * scale              # (B,Hkv,G,Tq,Tk)
     mask = _mask(Tq, Tk, causal, window, q_offset, q.device)
     logits = torch.where(mask, logits, NEG_INF)

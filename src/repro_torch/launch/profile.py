@@ -29,7 +29,7 @@ BATCH, SEQ, PROMPT = 4, 4096, 32
 DECODE_STEPS, TOP = 8, 12
 
 
-def _kernels(prof):
+def kernels(prof):
     """(name, start_us, end_us) of every device kernel in the trace."""
     out = []
     for e in prof.events():
@@ -58,7 +58,7 @@ def report(label: str, fn) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ks = _kernels(prof)
+    ks = kernels(prof)
     if not ks:
         raise RuntimeError("the profiler recorded no device kernels; time "
                            "with CUDA events instead")

@@ -164,7 +164,17 @@ FLASH_CASES = [(1, 4, 4, 128, 128, 64, None, 0),
                (2, 4, 2, 33, 33, 100, None, 0),      # D % 8 != 0
                (1, 2, 2, 9, 9, 1, None, 0),
                (2, 16, 8, 1, 300, 128, None, 211),   # decode step
-               (2, 4, 1, 1, 96, 16, 16, 95)]
+               (2, 4, 1, 1, 96, 16, 16, 95),
+               # the Hopper kernel's tile boundaries: 128 query rows, 128
+               # keys (64 at D = 256), a 3-stage K/V ring (2 at D = 256)
+               (1, 4, 2, 127, 127, 128, None, 0),
+               (1, 4, 2, 128, 128, 128, None, 0),
+               (1, 4, 2, 129, 129, 128, None, 0),
+               (1, 4, 2, 257, 257, 128, None, 0),
+               (1, 4, 2, 1000, 1000, 128, None, 0),
+               (1, 64, 8, 200, 200, 128, None, 0),   # GQA 8:1
+               (2, 4, 2, 300, 300, 256, 100, 0),     # D = 256, window
+               (2, 16, 8, 1, 1024, 128, None, 700)]  # decode, 6 KV tiles
 
 
 def _qkv(cuda, dtype, B, Hq, Hkv, Tq, Tk, D, seed=0):
@@ -179,9 +189,17 @@ def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Tq, Tk, D, window, off,
                                     dtype):
     q, k, v = _qkv(cuda, dtype, B, Hq, Hkv, Tq, Tk, D)
     before = attn_ops.flash_launches
-    got = attn_ops.attention(q, k, v, window=window, q_offset=off)
+    before_sm90 = attn_ops.flash_sm90_launches
+    # three launches: a stage released before its product completes would
+    # show as a run that differs from the others
+    runs = [attn_ops.attention(q, k, v, window=window, q_offset=off)
+            for _ in range(3)]
     torch.cuda.synchronize()
-    assert attn_ops.flash_launches == before + 1
+    assert attn_ops.flash_launches == before + 3
+    assert attn_ops.flash_sm90_launches == \
+        before_sm90 + 3 * (dtype == torch.bfloat16)
+    got = runs[0]
+    assert all(torch.equal(r, got) for r in runs[1:])
     want = attn_ref.attention(q, k, v, window=window, q_offset=off)
     assert got.dtype == dtype and got.shape == want.shape
     assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
@@ -196,9 +214,32 @@ def test_flash_kernel_takes_strided_views(cuda, dtype):
     q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
                for t in _qkv(cuda, dtype, 2, 8, 4, 80, 80, 64, seed=1))
     assert not q.is_contiguous()
+    before_sm90 = attn_ops.flash_sm90_launches
     got = attn_ops.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_sm90_launches == \
+        before_sm90 + (dtype == torch.bfloat16)   # read in place, no pad
+    assert got.stride() == q.stride()
     want = attn_ops.attention(q.contiguous(), k.contiguous(), v.contiguous())
     assert torch.equal(got, want)
+
+
+def test_flash_kernel_pads_what_tma_cannot_address(cuda):
+    """A slice 8 bytes past a 16-byte boundary takes the padded copy, then
+    the same Hopper kernel."""
+    q, k, v = _qkv(cuda, torch.bfloat16, 2, 8, 4, 150, 150, 72, seed=2)
+    q = q[..., 4:68]
+    k, v = k[..., :64].contiguous(), v[..., :64].contiguous()
+    assert attn_ops.route(q, k, v) == "pad"
+    before_sm90 = attn_ops.flash_sm90_launches
+    got = attn_ops.attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attn_ops.flash_sm90_launches == before_sm90 + 1
+    want = attn_ref.attention(q, k, v)
+    r, c = FLASH_ROW_TOL[torch.bfloat16]
+    assert float((got.float() - want.float()).abs().max()) < \
+        FLASH_TOL[torch.bfloat16]
+    assert flash_row_err(got, want, r) <= c
 
 
 def test_flash_kernel_rows_without_a_key_are_zero(cuda):
