@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero before the last line:
    stated below, and each timed at its main path's shape (flash also
    against ``scaled_dot_product_attention``, a yardstick the port never
    calls, with its TFLOP/s and the host cost of a decode launch; rbf also
-   at the shape of an ICF pivot step). Each flash case runs three times
-   and every run must equal the first;
+   at the shape of an ICF pivot step; SSD with both its bounds and, in
+   its prose line, the GFLOP its tiles execute as counted from them). Each flash and SSD case runs three times and every run
+   must equal the first;
 4. GP main path: pPITC at the paper's AIMPEAK configuration (|D| = 32000,
    M = 20, |S| = 2048, d = 5, float32): support selection, fit, plan,
    warm-up, 8 requests through ``plan.diag``; outputs must be finite and
@@ -51,6 +52,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 
 # Kernel-vs-plain tolerances (max abs error):
 #  rbf f32 1e-5 and bf16 3e-2 are the reference's own (tests/test_kernels.py).
@@ -87,6 +89,7 @@ TOL_FLASH_ROW = {"float32": (0.0, 1e-4), "bfloat16": (2.0 ** -7, 2e-2)}
 # that reads the host cost of one decode launch
 FLASH_REPEAT, FLASH_HOST_CALLS = 3, 200
 TOL_SSD = (3e-4, 3e-4, 1e-5)
+SSD_REPEAT = 3           # launches of each SSD case (each must equal the first)
 # Forward vs decode logits, float32 compute, full width and depth: the
 # reference holds 5e-4 on its two-layer smoke widths (tests/test_models.py).
 # The batched forward and the one-token decode sum in different orders
@@ -469,10 +472,39 @@ def check_flash(torch, ops, ref, gen):
                       f"bf16")
 
 
+def ssd_flops(BC, cs, H, P, N) -> tuple[int, int]:
+    """(the function's flops, the flops the kernel's products execute) of
+    one intra-chunk call, both in multiply-adds x 2, before 3xTF32 triples
+    the tensor-core work. The function: the causal half (j <= i) of
+    G = C B^T once per chunk (it does not depend on the head; L zeroes the
+    rest), the causal Y product, the state S. The kernel's figure is a
+    model, counted from the tiles of ssd_intra_chunk.cu, not a measurement:
+    G once per (chunk, 64-row strip, group of 8 heads) over whole 64 x 64
+    tiles, Y over the same tiles, S per pair of heads and 64 columns of N;
+    P, N and the chunk padded to the tiles."""
+    fn = 2 * BC * N * cs * (cs + 1) // 2 \
+        + 2 * BC * H * P * cs * (cs + 1) // 2 + 2 * BC * H * P * N * cs
+
+    def up(x, m):
+        return -(-x // m) * m
+
+    tiles = sum(-(-min(64 * (r + 1), cs) // 64) for r in range(-(-cs // 64)))
+    g = 2 * BC * tiles * 64 * 64 * up(N, 32) * -(-H // 8)
+    y = 2 * BC * tiles * 64 * 64 * up(P, 64) * H
+    s = 2 * BC * up(H, 2) * up(P, 64) * up(N, 64) * up(cs, 32)
+    return fn, g + y + s
+
+
 def check_ssd(torch, ops, ref, gen):
-    """SSD intra-chunk vs plain at the mamba2 prefill shape (f32, as the
-    path feeds it, and bf16) and a ragged small case; timed in f32."""
+    """SSD intra-chunk vs plain in f32 (as the path feeds it) and bf16: the
+    mamba2 prefill shape, a ragged small case, and the kernel's group and
+    strip edges (H not a multiple of the 8-head group, cs = 200 and a single
+    strip at cs = 64); each case launched SSD_REPEAT times, every run equal
+    to the first. Timed at the prefill shape in f32."""
     prefill = (LM_BATCH * LM_SEQ // 256, 256, 24, 64, 128)
+    cases = [prefill, (3, 100, 5, 24, 40), (2, 256, 5, 64, 128),
+             (1, 256, 25, 64, 128), (2, 200, 3, 64, 128),
+             (4, 64, 24, 64, 128)]
     worst, worst_tol = [0.0, 0.0, 0.0], list(TOL_SSD)
 
     def inputs(BC, cs, H, P, N, dt):
@@ -483,19 +515,26 @@ def check_ssd(torch, ops, ref, gen):
         Cc = torch.randn((BC, cs, N), generator=gen, device="cuda")
         return [t.to(dt) for t in (xdt, dA, Bc, Cc)]
 
-    for shape in (prefill, (3, 100, 5, 24, 40)):
+    for shape in cases:
         for dt in (torch.float32, torch.bfloat16):
             args = inputs(*shape, dt)
-            got = ops.intra_chunk(*args)
+            n0 = ops.ssd_launches
+            runs = [ops.intra_chunk(*args) for _ in range(SSD_REPEAT)]
             want = ref.intra_chunk(*args)
             torch.cuda.synchronize()
+            key = str(dt).split(".")[1]
+            if ops.ssd_launches - n0 != SSD_REPEAT:
+                fail(f"ssd {shape} {key}: {ops.ssd_launches - n0} launches")
+            if not all(torch.equal(a, b) for run in runs[1:]
+                       for a, b in zip(run, runs[0])):
+                fail(f"ssd {shape} {key}: repeated launches disagree")
+            got = runs[0]
             errs = [max_err(g, w) for g, w in zip(got, want)]
             tols = [ssd_tol(w, b) for w, b in zip(want, TOL_SSD)]
-            key = str(dt).split(".")[1]
-            print(f"  ssd (BC, cs, H, P, N)={shape} {key}: max|err| Y "
-                  f"{errs[0]:.3e}, S {errs[1]:.3e}, cum {errs[2]:.3e} "
-                  f"(tol {tols[0]:.3e}, {tols[1]:.3e}, {tols[2]:.3e})",
-                  flush=True)
+            print(f"  ssd (BC, cs, H, P, N)={shape} {key} x{SSD_REPEAT}: "
+                  f"max|err| Y {errs[0]:.3e}, S {errs[1]:.3e}, cum "
+                  f"{errs[2]:.3e} (tol {tols[0]:.3e}, {tols[1]:.3e}, "
+                  f"{tols[2]:.3e})", flush=True)
             if not all(e <= t for e, t in zip(errs, tols)):
                 fail(f"ssd {shape} {key} errors {errs} > {tols}")
             if shape == prefill and key == "float32":
@@ -504,20 +543,28 @@ def check_ssd(torch, ops, ref, gen):
     args = inputs(*prefill, torch.float32)
     ms = time_ms(lambda: ops.intra_chunk(*args), 20)
     plain = time_ms(lambda: ref.intra_chunk(*args), 5)
-    # the function's work: the causal half (j <= i) of G = C B^T once per
-    # chunk (it does not depend on the head; L zeroes the rest), the causal
-    # Y product, the state S; each byte once
-    flops = 2 * BC * N * cs * (cs + 1) // 2 \
-        + 2 * BC * H * P * cs * (cs + 1) // 2 + 2 * BC * H * P * N * cs
+    flops, executed = ssd_flops(*prefill)
     nbytes = 4 * (2 * BC * cs * H * P + 2 * BC * H * cs + 2 * BC * cs * N
                   + BC * H * P * N)
-    b_ms, b_by = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    # the products run in 3xTF32 on the tensor cores: three TF32 products
+    # for each one of the function's
+    b_ms, b_by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    b_f32_ms, _ = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    tflops = flops / ms / 1e9
+    print(f"  ssd at the prefill shape: {ms:.4f} ms, {tflops:.1f} TFLOP/s "
+          f"of the function's {flops / 1e9:.2f} GFLOP (modelled from the "
+          f"tiles: {executed / 1e9:.2f} GFLOP executed, "
+          f"{3 * executed / 1e9:.2f} on the tensor cores in 3xTF32, "
+          f"{3 * executed / ms / 1e9:.1f} TFLOP/s); bound "
+          f"{b_ms:.4f} ms ({b_by}, 3xTF32), f32 CUDA-core bound "
+          f"{b_f32_ms:.4f} ms; plain {plain:.4f} ms", flush=True)
     return dict(name="ssd_intra_chunk", route="cuda",
                 source="src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
                 replaces="src/repro/kernels/ssd/ssd.py:57",
                 max_abs_err=worst[0], tol=worst_tol[0], ms=ms,
                 plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                bound_f32_ms=b_f32_ms, tflops=tflops,
                 shape=f"BC={BC}, cs={cs}, H={H}, P={P}, N={N}, f32")
 
 

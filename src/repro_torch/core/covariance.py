@@ -80,8 +80,19 @@ def rational_quadratic(params: dict, X1: torch.Tensor, X2: torch.Tensor,
     return signal_var(params) * (1.0 + d2 / (2.0 * alpha)) ** (-alpha)
 
 
+def se_ard_kernel(params: dict, X1: torch.Tensor,
+                  X2: torch.Tensor) -> torch.Tensor:
+    """SE-ARD through ``rbf_covariance``: the CUDA ``rbf`` kernel for CUDA
+    tensors, its plain version for CPU tensors (the reference's
+    ``se_ard_pallas``)."""
+    from repro_torch.kernels.rbf import ops as rbf_ops
+    return rbf_ops.rbf_covariance(
+        _scale(params, X1), _scale(params, X2), signal_var(params))
+
+
 KERNELS: dict[str, KernelFn] = {
     "se": se_ard,
+    "se_pallas": se_ard_kernel,
     "matern52": matern52,
     "rq": partial(rational_quadratic, alpha=1.0),
 }
@@ -98,7 +109,7 @@ def make_kernel(name: str) -> KernelFn:
 # KernelSpec — the serving-side kernel abstraction (hot-path declaration).
 # ---------------------------------------------------------------------------
 
-_SE_FAMILY = ("se",)
+_SE_FAMILY = ("se", "se_pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,7 +123,9 @@ class KernelSpec:
       ``rbf`` kernel for CUDA tensors, plain ``se_ard`` in the native dtype
       for CPU tensors), ``"cuda"`` (always the kernel; a CPU tensor raises)
       or ``"torch"`` (always plain ``se_ard``). Other kernels always run
-      their plain function.
+      their plain function. The reference's names are accepted as well:
+      ``"pallas"`` resolves as ``"cuda"``, ``"pallas_interpret"`` and
+      ``"jnp"`` as ``"torch"``.
     * ``fused`` — allow the S-space diag predicts (ppitc eqs. 7-8, fgp eqs.
       1-2) to dispatch the fused ``xcov_diag`` CUDA kernel. Honoured when
       ``impl`` resolves to ``"cuda"``. Unlike the TPU reference, whose VMEM
@@ -131,23 +144,26 @@ class KernelSpec:
         return make_kernel(self.name)
 
     def resolved_impl(self, device: torch.device) -> str:
-        """``"cuda"`` or ``"torch"`` for tensors on ``device``."""
-        if self.impl == "auto":
+        """``"cuda"`` or ``"torch"`` for tensors on ``device``. The
+        reference's names resolve too: ``pallas`` as ``cuda``,
+        ``pallas_interpret`` and ``jnp`` as ``torch``."""
+        impl = _IMPL_ALIASES.get(self.impl, self.impl)
+        if impl == "auto":
             return "cuda" if device.type == "cuda" else "torch"
-        if self.impl == "cuda" and device.type != "cuda":
+        if impl == "cuda" and device.type != "cuda":
             raise ValueError(
-                f"KernelSpec(impl='cuda') was given tensors on {device}; the "
-                f"CUDA kernels take CUDA tensors only (use impl='auto' or "
-                f"'torch' for the plain PyTorch path)")
-        return self.impl
+                f"KernelSpec(impl={self.impl!r}) was given tensors on "
+                f"{device}; the CUDA kernels take CUDA tensors only (use "
+                f"impl='auto' or 'torch' for the plain PyTorch path)")
+        return impl
 
     def __call__(self, params: dict, X1: torch.Tensor, X2: torch.Tensor):
         impl = self.resolved_impl(X1.device)
         if self.name not in _SE_FAMILY or impl == "torch":
-            return self.kfn(params, X1, X2)
-        from repro_torch.kernels.rbf import ops as rbf_ops
-        return rbf_ops.rbf_covariance(
-            _scale(params, X1), _scale(params, X2), signal_var(params))
+            # the plain path in the native dtype, as the reference's "jnp"
+            return (se_ard if self.name in _SE_FAMILY else self.kfn)(
+                params, X1, X2)
+        return se_ard_kernel(params, X1, X2)
 
     def diag(self, params: dict, X: torch.Tensor) -> torch.Tensor:
         """diag k(X, X) — constant sig2 for the stationary kernels this
@@ -175,7 +191,10 @@ class KernelSpec:
         return rbf_ref.xcov_diag(*args)
 
 
-_IMPLS = ("auto", "cuda", "torch")
+# the reference's impl names (checkpoint metadata) and what they resolve to
+_IMPL_ALIASES = {"pallas": "cuda", "pallas_interpret": "torch",
+                 "jnp": "torch"}
+_IMPLS = ("auto", "cuda", "torch", *_IMPL_ALIASES)
 
 
 def make_spec(name: str = "se", *, impl: str = "auto", fused: bool = True,

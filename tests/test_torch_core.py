@@ -85,9 +85,59 @@ def test_unknown_kernel_and_impl_rejected():
     with pytest.raises(ValueError, match="unknown kernel"):
         cov.make_spec("nope")
     with pytest.raises(ValueError, match="unknown kernel impl"):
-        cov.make_spec("se", impl="pallas")
+        cov.make_spec("se", impl="triton")
     with pytest.raises(ValueError, match="block_q"):
         cov.make_spec("se", block_q=0)
+
+
+def test_se_pallas_matches_the_reference(prob):
+    """``make_kernel("se_pallas")``, the name a reference checkpoint may
+    record, against the reference's: as the reference runs it on the CPU
+    (impl "auto" is dense jnp there) and through its Pallas kernel in
+    interpret mode, both in float32 within the rbf tolerance."""
+    from repro.kernels.rbf import ops as jrbf_ops
+    f32 = {k: v.to(torch.float32) for k, v in prob["params"].items()}
+    jf32 = {k: jnp.asarray(v, jnp.float32) for k, v in prob["jparams"].items()}
+    X, S = (np.asarray(prob[k], np.float32) for k in ("X", "S"))
+    got = cov.make_kernel("se_pallas")(f32, torch.tensor(X), torch.tensor(S))
+    assert got.dtype == torch.float32
+    want = jcov.make_kernel("se_pallas")(jf32, jnp.asarray(X), jnp.asarray(S))
+    interp = jrbf_ops.rbf_covariance(
+        jcov._scale(jf32, jnp.asarray(X)), jcov._scale(jf32, jnp.asarray(S)),
+        jcov.signal_var(jf32), impl="pallas_interpret")
+    assert _err(got, want) < 1e-5
+    assert _err(got, interp) < 1e-5
+    # float64 inputs: both accumulate in float32 and return float64
+    got64 = cov.make_kernel("se_pallas")(prob["params"], _t(prob["X"]),
+                                         _t(prob["S"]))
+    want64 = jcov.make_kernel("se_pallas")(prob["jparams"],
+                                           jnp.asarray(prob["X"]),
+                                           jnp.asarray(prob["S"]))
+    assert got64.dtype == torch.float64
+    assert _err(got64, want64) < 1e-5
+
+
+@pytest.mark.parametrize("name", ["se", "se_pallas"])
+@pytest.mark.parametrize("alias,target", [("pallas", "cuda"),
+                                          ("pallas_interpret", "torch"),
+                                          ("jnp", "torch")])
+def test_reference_impl_names_resolve(prob, name, alias, target):
+    """The reference's impl names resolve as the port's own, and a spec
+    that names one computes what the spec it resolves to computes."""
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    spec = cov.make_spec(name, impl=alias)
+    assert spec.resolved_impl(cuda) == target
+    assert spec.fuse(cuda) == cov.make_spec(name, impl=target).fuse(cuda)
+    X, S = _t(prob["X"][:9]), _t(prob["S"])
+    if target == "torch":
+        assert spec.resolved_impl(cpu) == "torch"
+        torch.testing.assert_close(spec(prob["params"], X, S),
+                                   cov.se_ard(prob["params"], X, S),
+                                   rtol=0, atol=0)
+    else:   # "pallas" is the CUDA kernel: CPU tensors raise as for "cuda"
+        for impl in (alias, target):
+            with pytest.raises(ValueError, match="CUDA tensors only"):
+                cov.KernelSpec(name, impl)(prob["params"], X, S)
 
 
 def test_auto_spec_on_cpu_is_plain_se_bitwise(prob):

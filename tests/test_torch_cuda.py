@@ -263,11 +263,19 @@ def _ssd_inputs(cuda, dtype, BC, cs, H, P, N, seed=0):
     return [t.to(dtype) for t in (xdt, dA, Bc, Cc)]
 
 
+# the kernel's edges: H not a multiple of its 8-head group, cs = 200 (a
+# ragged last strip), one strip at cs = 64, a chunk wider than the 256 G
+# columns a block keeps at once
+SSD_EDGES = [(2, 256, 5, 64, 128), (1, 256, 25, 64, 128),
+             (2, 200, 3, 64, 128), (4, 64, 24, 64, 128),
+             (1, 600, 3, 64, 32)]
+
+
 @pytest.mark.parametrize("BC,cs,H,P,N", [(4, 16, 3, 8, 8), (2, 64, 2, 16, 16),
                                          (1, 128, 1, 64, 128),
                                          (3, 32, 4, 8, 32), (2, 20, 3, 5, 7),
                                          (2, 256, 4, 64, 128),
-                                         (1, 100, 2, 80, 150)])
+                                         (1, 100, 2, 80, 150)] + SSD_EDGES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_kernel_matches_plain(cuda, BC, cs, H, P, N, dtype):
     args = _ssd_inputs(cuda, dtype, BC, cs, H, P, N)
@@ -279,6 +287,19 @@ def test_ssd_kernel_matches_plain(cuda, BC, cs, H, P, N, dtype):
     for g_, w, base in zip(got, want, (3e-4, 3e-4, 1e-5)):
         assert g_.dtype == torch.float32 and g_.shape == w.shape
         assert float((g_ - w).abs().max()) < ssd_tol(w, base)
+
+
+@pytest.mark.parametrize("BC,cs,H,P,N", [(2, 20, 3, 5, 7), (8, 256, 24, 64, 128)]
+                         + SSD_EDGES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_repeats_bitwise(cuda, BC, cs, H, P, N, dtype):
+    """No atomics: three launches on the same inputs give the same bits."""
+    args = _ssd_inputs(cuda, dtype, BC, cs, H, P, N, seed=3)
+    runs = [ssd_ops.intra_chunk(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(a, b)
 
 
 def test_ssd_scan_on_the_card_matches_the_plain_scan(cuda):

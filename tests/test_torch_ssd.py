@@ -105,3 +105,59 @@ def test_ssd_scan_rejects_a_ragged_sequence():
     xh, dt, A, Bm, Cm = (torch.tensor(a) for a in _scan_inputs(1, 12, 2, 4, 4))
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ops.ssd_scan(xh, dt, A, Bm, Cm, 8)
+
+
+# --- why the CUDA kernel's products run in 3xTF32 -----------------------------
+
+def _tf32(x: torch.Tensor, nearest: bool) -> torch.Tensor:
+    """x on a 10-bit mantissa (TF32), in float64: rounded to nearest, ties
+    away from zero (cvt.rna.tf32.f32, a TF32 matmul's conversion), or
+    truncated (what the tensor core reads of a float32 register)."""
+    m, e = torch.frexp(x)                       # x = m 2^e, 0.5 <= |m| < 1
+    scaled = m.abs() * 2.0 ** 11
+    kept = torch.floor(scaled + 0.5) if nearest else torch.floor(scaled)
+    return torch.ldexp(torch.sign(m) * kept / 2.0 ** 11, e)
+
+
+def _one_tf32(a, b):
+    return _tf32(a, True) @ _tf32(b, True)
+
+
+def _three_tf32(a, b):
+    """The kernel's split: hi = x as the tensor core reads it, lo the
+    exact remainder, read the same way; hi hi' + lo hi' + hi lo'."""
+    ah, bh = _tf32(a, False), _tf32(b, False)
+    al, bl = _tf32(a - ah, False), _tf32(b - bh, False)
+    return ah @ bh + al @ bh + ah @ bl
+
+
+def _intra_products(xdt, dA, Bc, Cc, prod):
+    """The plain version's three products, each through ``prod``, in
+    float64: G = C B^T, Y = (G o L) xdt, S = (xdt o decay)^T B."""
+    cs = dA.shape[-1]
+    cum = torch.cumsum(dA, dim=-1)                          # (BC, H, cs)
+    mask = torch.tril(torch.ones((cs, cs), dtype=torch.bool))
+    seg = cum[..., :, None] - cum[..., None, :]
+    L = torch.where(mask, torch.exp(torch.where(mask, seg, 0.0)), 0.0)
+    G = prod(Cc, Bc.transpose(1, 2))                        # (BC, cs, cs)
+    x = xdt.permute(0, 2, 1, 3)                             # (BC, H, cs, P)
+    Y = prod(G[:, None] * L, x)                             # (BC, H, cs, P)
+    decay = torch.exp(cum[..., -1:] - cum)                  # (BC, H, cs)
+    S = prod((x * decay[..., None]).transpose(2, 3), Bc[:, None])
+    return Y, S
+
+
+def test_3xtf32_meets_the_reference_tolerance_and_tf32_does_not():
+    """At two chunks of the mamba2-130m prefill shape, the kernel's 3xTF32
+    products stay within the tolerance the card holds the kernel to
+    (chip_smoke.py's ssd_tol: 3e-4, relative 3e-5 above |out| = 10) of the
+    exact float64 result; a single TF32 product misses it."""
+    arrs = _intra_inputs(2, 256, 24, 64, 128, seed=4)
+    xdt, dA, Bc, Cc = (torch.tensor(a, dtype=torch.float64) for a in arrs)
+    exact = _intra_products(xdt, dA, Bc, Cc, torch.matmul)
+    three = _intra_products(xdt, dA, Bc, Cc, _three_tf32)
+    one = _intra_products(xdt, dA, Bc, Cc, _one_tf32)
+    for want, got3, got1 in zip(exact, three, one):
+        tol = TOL_YS * max(1.0, float(want.abs().max()) / 10.0)
+        assert float((got3 - want).abs().max()) < tol / 10
+        assert float((got1 - want).abs().max()) > tol
