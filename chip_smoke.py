@@ -9,19 +9,26 @@ Phases, in order; any failure exits non-zero before the last line:
 1. card: name and power limit (nvidia-smi);
 2. build: the four CUDA kernels (rbf, xcov_diag, flash_attention,
    ssd_intra_chunk) from the checkout's sources (nvcc, sm_90a, one
-   compiler per source, started together) into build/kernels/;
+   compiler per source, started together) into build/kernels/; every
+   float32 xcov_diag instance must hold wgmma (HGMMA) in its SASS;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and at edge cases, within the tolerances
    stated below, and each timed at its main path's shape (flash also
    against ``scaled_dot_product_attention``, a yardstick the port never
    calls, with its TFLOP/s and the host cost of a decode launch; rbf also
    at the shape of an ICF pivot step; SSD with both its bounds and, in
-   its prose line, the GFLOP its tiles execute as counted from them). Each flash and SSD case runs three times and every run
-   must equal the first;
+   its prose line, the GFLOP its tiles execute as counted from them;
+   xcov_diag at four of the GP path's query buckets, with its 3xTF32,
+   bytes and f32 CUDA-core bounds, and on a fitted, conditioned pPITC
+   state). Each flash, SSD and xcov_diag case runs three times and every
+   run must equal the first; every float32 xcov_diag launch must take the
+   tensor-core instance;
 4. GP main path: pPITC at the paper's AIMPEAK configuration (|D| = 32000,
    M = 20, |S| = 2048, d = 5, float32): support selection, fit, plan,
-   warm-up, 8 requests through ``plan.diag``; outputs must be finite and
-   the fused diag must agree with the compose path;
+   warm-up, 8 requests through ``plan.diag``; outputs must be finite, the
+   fused diag must agree with the compose path, the requests must build
+   no triangular inverse (the plan's are cached per state) and every
+   xcov_diag launch must take the float32 tensor-core instance;
 5. LM main path, qwen3-1.7b at full width and depth (random weights from
    seed 0, bfloat16 compute): prefill of 4 x 4096 tokens through
    ``forward(logits_last_only=True)``, then ``prefill_then_decode`` (4
@@ -41,6 +48,8 @@ from __future__ import annotations
 
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -60,10 +69,15 @@ TF32_FLOPS_PER_S = 495e12
 #  xcov_diag f32 at s = 2048 is 1e-4, not the reference's 1e-5 (which it set
 #  at s <= 130): the kernel multiplies by an explicit triangular inverse where
 #  the plain version solves, and both sum 2048 products per entry in
-#  different orders, so the float32 rounding differences grow with s.
+#  different orders, so the float32 rounding differences grow with s. The
+#  kernel's products are 3xTF32 (float32-like error); one TF32 product would
+#  miss this limit on a fitted state, which check_xcov shows.
 TOL_RBF = {"float32": 1e-5, "bfloat16": 3e-2}
 TOL_XCOV_F64 = 1e-10
 TOL_XCOV_F32_S2048 = 1e-4
+XCOV_REPEAT = 3          # launches of each xcov case (each equals the first)
+XCOV_TIMED_N = (8, 256, 1024, 3328)   # the main path's query buckets
+PROFILE_TRIES = 3        # traces of one measurement before giving up
 #  flash 2e-3 f32 and 3e-2 bf16 are the reference's own
 #  (tests/test_kernels.py). They are absolute, and at the main path's shapes
 #  a row that sees n keys of random data has outputs of ~0.8 sqrt(e / n)
@@ -138,6 +152,26 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def hgmma_counts(lib) -> dict:
+    """Per kernel function of the shared library ``lib``: its count of
+    wgmma (HGMMA) instructions, from ``cuobjdump -sass`` (shipped with the
+    nvcc that builds the kernels; fails without it)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        fail("cuobjdump not found: the xcov_diag SASS cannot be read")
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s+Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = 0
+        elif cur is not None and re.search(r"\bHGMMA\b", line):
+            counts[cur] += 1
+    return counts
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
     import torch
@@ -154,22 +188,30 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_device_ms(torch, fn, name: str, iters: int) -> float:
-    """Mean device time of the kernels named ``name`` that ``iters`` calls
-    of ``fn`` launch, from a ``torch.profiler`` trace (after a warm-up)."""
+def kernel_device_ms(torch, fn, name: str, iters: int,
+                     per_call: tuple[int, ...] = (1,)) -> float:
+    """Mean device time, per call of ``fn``, of the kernels named ``name``
+    that ``iters`` calls launch, from a ``torch.profiler`` trace (after a
+    warm-up). The trace must hold k x iters of them for a k in
+    ``per_call``; one that lost records is taken again, up to
+    PROFILE_TRIES times in all."""
     from repro_torch.launch.profile import kernels
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e - s for n, s, e in kernels(prof) if name in n]
-    if len(spans) != iters:
-        fail(f"the profiler saw {len(spans)} {name} launches of {iters}")
-    return sum(spans) / iters / 1e3
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e - s for n, s, e in kernels(prof) if name in n]
+        if len(spans) in [k * iters for k in per_call]:
+            return sum(spans) / iters / 1e3
+        print(f"  (the profiler saw {len(spans)} {name} kernels in "
+              f"{iters} calls; tracing again)", flush=True)
+    fail(f"the profiler saw {len(spans)} {name} kernels in {iters} calls, "
+         f"{PROFILE_TRIES} times")
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -177,6 +219,15 @@ def bound_ms(nbytes: float, flops: float,
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def xcov_bytes(n: int, s: int, with_l2: bool) -> int:
+    """Bytes xcov_diag (float32) must move: the lower triangle of each
+    inverse (entries above the diagonal are never read), the queries, the
+    support set, alpha and sig2 once, mean and var written once."""
+    tri = s * (s + 1) // 2 * 4
+    return tri * (2 if with_l2 else 1) + (n + s) * D * 4 + s * 4 + 4 \
+        + 2 * n * 4
 
 
 def max_err(a, b) -> float:
@@ -256,56 +307,153 @@ def _factors(torch, s, gen, dtype):
     return L1.to(dtype), L2.to(dtype), alpha.to(dtype)
 
 
+def _xcov_case(torch, ops, ref, args, tag, tol):
+    """One xcov_diag case, launched XCOV_REPEAT times: each run must equal
+    the first, each float32 run must take the tensor-core instance, and
+    the first must meet ``tol`` against the plain version. Returns the
+    error."""
+    n0, t0 = ops.xcov_launches, ops.xcov_tc_launches
+    runs = [ops.xcov_diag(*args) for _ in range(XCOV_REPEAT)]
+    want = ref.xcov_diag(*args)
+    torch.cuda.synchronize()
+    want_tc = XCOV_REPEAT if args[0].dtype == torch.float32 else 0
+    if ops.xcov_launches - n0 != XCOV_REPEAT or \
+            ops.xcov_tc_launches - t0 != want_tc:
+        fail(f"xcov_diag {tag}: {ops.xcov_launches - n0} launches, "
+             f"{ops.xcov_tc_launches - t0} of the tensor-core instance")
+    if not all(torch.equal(a, b) for run in runs[1:]
+               for a, b in zip(run, runs[0])):
+        fail(f"xcov_diag {tag}: repeated launches disagree")
+    err = max(max_err(g, w) for g, w in zip(runs[0], want))
+    print(f"  xcov_diag {tag} x{XCOV_REPEAT}: max|err| {err:.3e} (tol "
+          f"{tol})", flush=True)
+    if not err <= tol:
+        fail(f"xcov_diag {tag} error {err} > {tol}")
+    return err
+
+
+def _tf32_trunc(torch, x):
+    """float32 -> float64 with the low 13 mantissa bits cleared: what the
+    tensor core reads of a float32 register as TF32."""
+    return (x.view(torch.int32) & ~0x1fff).view(torch.float32).double()
+
+
 def check_xcov(torch, ops, ref, gen):
-    """xcov_diag vs plain, f64 small and f32 at |S| = 2048; timed at the
-    main path's serving bucket (256 queries, |S| = 2048, with L2)."""
+    """xcov_diag vs plain: f64 small; f32 at |S| = 2048 and at the float32
+    kernel's tile edges (s = 2047, 2049, 100; n = 1, 9, 257, 3328), with and
+    without L2; f32 on a fitted pPITC state (cond Sdd ~1e8), where one TF32
+    product would miss the limit. Every case launched XCOV_REPEAT times.
+    Timed at n = 8, 256, 1024 and 3328 (|S| = 2048, with L2, f32)."""
     worst_f32 = 0.0
-    for dtype, cases in ((torch.float64, [(s, n, d) for s, d in
-                                          ((12, 3), (130, 21))
-                                          for n in (1, 16, 33, 256)]),
-                         (torch.float32, [(S_SIZE, n, D)
-                                          for n in (8, 256, 1024)])):
-        for s, n, d in cases:
-            Xq = torch.randn((n, d), generator=gen, device="cuda",
-                             dtype=torch.float64).to(dtype)
-            Xk = torch.randn((s, d), generator=gen, device="cuda",
-                             dtype=torch.float64).to(dtype)
-            L1, L2, alpha = _factors(torch, s, gen, dtype)
-            tol = TOL_XCOV_F64 if dtype == torch.float64 else \
-                TOL_XCOV_F32_S2048
-            for L2_ in (L2, None):
-                m_k, v_k = ops.xcov_diag(Xq, Xk, L1, alpha, 1.3, L2_)
-                m_r, v_r = ref.xcov_diag(Xq, Xk, L1, alpha, 1.3, L2_)
-                torch.cuda.synchronize()
-                err = max(max_err(m_k, m_r), max_err(v_k, v_r))
-                tag = "L1+L2" if L2_ is not None else "L1"
-                print(f"  xcov_diag s={s} n={n} d={d} {str(dtype)[6:]} "
-                      f"{tag}: max|err| {err:.3e} (tol {tol})", flush=True)
-                if not err <= tol:
-                    fail(f"xcov_diag s={s} n={n} {dtype} {tag} error {err} "
-                         f"> {tol}")
-                if dtype == torch.float32:
-                    worst_f32 = max(worst_f32, err)
-    # timing at the main path's serving shape, on the fit's kind of inputs
-    n, s = 256, S_SIZE
-    Xq = (torch.rand((n, D), generator=gen, device="cuda") * 4 - 2) / 1.2
+    f64_cases = [(torch.float64, s, n, d) for s, d in ((12, 3), (130, 21))
+                 for n in (1, 16, 33, 256)]
+    f32_cases = [(torch.float32, S_SIZE, n, D) for n in (8, 256, 1024)] + \
+        [(torch.float32, s, n, D) for s in (2047, 2049, 100)
+         for n in (1, 9, 257, 3328)]
+    for dtype, s, n, d in f64_cases + f32_cases:
+        Xq = torch.randn((n, d), generator=gen, device="cuda",
+                         dtype=torch.float64).to(dtype)
+        Xk = torch.randn((s, d), generator=gen, device="cuda",
+                         dtype=torch.float64).to(dtype)
+        L1, L2, alpha = _factors(torch, s, gen, dtype)
+        tol = TOL_XCOV_F64 if dtype == torch.float64 else \
+            TOL_XCOV_F32_S2048
+        for L2_ in (L2, None):
+            tag = (f"s={s} n={n} d={d} {str(dtype)[6:]} "
+                   f"{'L1+L2' if L2_ is not None else 'L1'}")
+            err = _xcov_case(torch, ops, ref,
+                             (Xq, Xk, L1, alpha, 1.3, L2_), tag, tol)
+            if dtype == torch.float32:
+                worst_f32 = max(worst_f32, err)
+
+    # conditioned factors: pPITC fitted on the card at |D| = 16384, M = 8,
+    # |S| = 2048 (AIMPEAK-like, seed 0)
+    from repro_torch.core import api, covariance as cov, support
+    from repro_torch.data import synthetic
+    from repro_torch.parallel.runner import VmapRunner
+    ds = synthetic.standardize(synthetic.aimpeak_like(
+        n=16384, n_test=1024, seed=0))
+    spec = cov.make_spec("se")
+    params = cov.init_params(D, signal=1.0, noise=0.3, lengthscale=1.2)
+    Sc = support.select_support(spec, params, ds.X[:ICF_CANDIDATES], S_SIZE)
+    model = api.fit("ppitc", spec, params, ds.X, ds.y, S=Sc,
+                    runner=VmapRunner(M=8))
+    st, sig2 = model.state, cov.signal_var(params)
+    Uc, Skc = cov._scale(params, ds.X_test), cov._scale(params, st.S)
+    ev = torch.linalg.eigvalsh(st.Sdd_L.double() @ st.Sdd_L.double().T)
+    cond = float(ev.max() / ev.min())
+    err_c = _xcov_case(torch, ops, ref,
+                       (Uc, Skc, st.Kss_L, st.alpha, sig2, st.Sdd_L),
+                       f"fitted s={S_SIZE} n={Uc.shape[0]} (cond Sdd "
+                       f"{cond:.2e}) float32 L1+L2", TOL_XCOV_F32_S2048)
+    worst_f32 = max(worst_f32, err_c)
+    # the same products with one TF32 product each, in float64
+    q2 = (Uc * Uc).sum(1)[:, None]
+    k2 = (Skc * Skc).sum(1)[None]
+    K = _tf32_trunc(torch, sig2 * torch.exp(
+        -0.5 * torch.clamp(q2 + k2 - 2 * Uc @ Skc.T, min=0)))
+    v1 = K @ _tf32_trunc(torch, ops.tri_inv(st.Kss_L)).T
+    v2 = K @ _tf32_trunc(torch, ops.tri_inv(st.Sdd_L)).T
+    var1 = float(sig2) - (v1 * v1).sum(1) + (v2 * v2).sum(1)
+    want = ref.xcov_diag(Uc, Skc, st.Kss_L, st.alpha, sig2, st.Sdd_L)[1]
+    err_1x = max_err(var1, want)
+    print(f"  xcov_diag fitted: one TF32 product (emulated in float64) "
+          f"would err {err_1x:.3e} on var (tol {TOL_XCOV_F32_S2048})",
+          flush=True)
+    if not err_1x > TOL_XCOV_F32_S2048:
+        fail(f"the conditioned case does not need 3xTF32: {err_1x}")
+    del model, ds, K, v1, v2
+
+    # timing at the main path's buckets, on the fit's kind of inputs
+    s = S_SIZE
     Xk = (torch.rand((s, D), generator=gen, device="cuda") * 4 - 2) / 1.2
     L1, L2, alpha = _factors(torch, s, gen, torch.float32)
-    L1inv = ops._embed_tri_inv(L1, s)
-    L2inv = ops._embed_tri_inv(L2, s)
-    ms = time_ms(lambda: ops.xcov_diag_inv(Xq, Xk, L1inv, alpha, 1.3, L2inv),
-                 50)
-    plain = time_ms(lambda: ref.xcov_diag(Xq, Xk, L1, alpha, 1.3, L2), 10)
-    embed = time_ms(lambda: (ops._embed_tri_inv(L1, s),
-                             ops._embed_tri_inv(L2, s)), 10)
-    b_ms, b_by = bound_ms(2 * s * s * 4 + (n + s) * D * 4 + s * 4 + 2 * n * 4,
-                          2 * n * s * s)
+    L1inv, L2inv = ops.tri_inv(L1), ops.tri_inv(L2)
+    # sig2 on the card, as the path passes it (a float would be copied to
+    # the card, and the stream synchronized, on every call)
+    s2 = torch.tensor(1.3, device="cuda")
+    ms_by_n, dev_by_n = {}, {}
+    for n in XCOV_TIMED_N:
+        Xq = (torch.rand((n, D), generator=gen, device="cuda") * 4 - 2) / 1.2
+
+        def call():
+            return ops.xcov_diag_inv(Xq, Xk, L1inv, alpha, s2, L2inv)
+        ms_by_n[n] = time_ms(call, 50)
+        # the two or three kernels of a call (panels, chunk sums, reduce)
+        dev_by_n[n] = kernel_device_ms(torch, call, "xcov_", 50, (2, 3))
+        flops = 2 * n * s * s
+        nbytes = xcov_bytes(n, s, True)
+        b3, b3_by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+        bf32, _ = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+        print(f"  xcov_diag n={n}, |S|={s}, with L2, f32: "
+              f"{ms_by_n[n]:.4f} ms a call back to back, device "
+              f"{dev_by_n[n]:.4f} ms; {flops / dev_by_n[n] / 1e9:.1f} "
+              f"TFLOP/s of 2 n s^2 = {flops / 1e9:.3f} GFLOP on the device "
+              f"time; bound {b3:.4f} ms ({b3_by}, 3xTF32; bytes "
+              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), f32 CUDA-core "
+              f"bound {bf32:.4f} ms", flush=True)
+    n = 256
+    Xq = (torch.rand((n, D), generator=gen, device="cuda") * 4 - 2) / 1.2
+    ms = ms_by_n[n]
+    plain = time_ms(lambda: ref.xcov_diag(Xq, Xk, L1, alpha, s2, L2), 10)
+    inv_ms = time_ms(lambda: (ops._embed_tri_inv(L1, s),
+                              ops._embed_tri_inv(L2, s)), 10)
+    flops = 2 * n * s * s
+    nbytes = xcov_bytes(n, s, True)
+    b_ms, b_by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    b_f32_ms, _ = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    print(f"  xcov_diag plain at n={n}: {plain:.4f} ms; both inverses "
+          f"(once per state): {inv_ms:.4f} ms", flush=True)
     return dict(name="xcov_diag", route="cuda",
                 source="src/repro_torch/kernels/rbf/csrc/xcov_diag.cu",
                 replaces="src/repro/kernels/rbf/xcov.py:103",
                 max_abs_err=worst_f32, tol=TOL_XCOV_F32_S2048, ms=ms,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, embed_tri_inv_ms=embed,
+                library_ms=None, bound_f32_ms=b_f32_ms,
+                tflops=flops / dev_by_n[n] / 1e9, device_ms=dev_by_n[n],
+                ms_by_n={str(k): v for k, v in ms_by_n.items()},
+                device_ms_by_n={str(k): v for k, v in dev_by_n.items()},
+                tri_inv_ms=inv_ms,
                 shape=f"n={n}, |S|={s}, d={D}, with L2, f32")
 
 
@@ -701,6 +849,7 @@ def main_path(torch, card: str):
     t3 = time.perf_counter()
     plan = model.plan(api.ServeSpec(max_batch=256)).warmup(D)
     t4 = time.perf_counter()
+    builds = ops.inverse_builds
     outs, lat_ms, off = [], [], 0
     for size in REQUEST_SIZES:
         idx = torch.arange(off, off + size, device="cuda") % N_TEST
@@ -713,12 +862,20 @@ def main_path(torch, card: str):
         outs.append((idx, mean, var))
         off = (off + size) % N_TEST
     launches = {"rbf": ops.rbf_launches, "xcov_diag": ops.xcov_launches}
+    tc, req_builds = ops.xcov_tc_launches, ops.inverse_builds - builds
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    print(f"  counts during the main path: {launches}", flush=True)
+    print(f"  counts during the main path: {launches}; xcov_diag on the "
+          f"tensor cores: {tc}; inverses built: {builds} before the "
+          f"requests, {req_builds} during them", flush=True)
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    if tc != launches["xcov_diag"]:
+        fail(f"{launches['xcov_diag'] - tc} xcov_diag launches did not "
+             f"take the tensor-core instance")
+    if req_builds:
+        fail(f"the requests built {req_builds} triangular inverses")
     for idx, mean, var in outs:
         if mean.shape != idx.shape or var.shape != idx.shape:
             fail(f"plan.diag shapes {tuple(mean.shape)}/{tuple(var.shape)} "
@@ -816,6 +973,15 @@ def main() -> int:
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"  {name}: {line.strip()}", flush=True)
+
+    # the float32 xcov_diag instances run their products on the tensor
+    # cores (HGMMA)
+    tc = {k: v for k, v in hgmma_counts(build.target("xcov_diag")).items()
+          if "xcov_tc_kernel" in k}
+    for name, c in sorted(tc.items()):
+        print(f"  xcov_diag SASS {name[-40:]}: {c} HGMMA", flush=True)
+    if not tc or not all(tc.values()):
+        fail("a float32 xcov_diag instance has no HGMMA")
 
     print("phase 3: kernel vs plain", flush=True)
     from repro_torch.kernels.attention import ops as attn_ops, ref as attn_ref

@@ -6,12 +6,16 @@ and only because they lie on the CPU. For CUDA tensors it checks device,
 dtype, shape and contiguity, allocates the outputs, launches the kernel on
 the current stream and raises if the launch failed; it never falls back.
 ``rbf_launches`` / ``xcov_launches`` count kernel launches (never the plain
-path), so a run can show that its main path went through the kernels.
+path), so a run can show that its main path went through the kernels;
+``xcov_tc_launches`` counts the launches of the tensor-core instance (as
+the C entry reports them), and ``inverse_builds`` the triangular inverses
+that ``tri_inv`` built (once per factor, see there).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import weakref
 
 import torch
 
@@ -20,18 +24,22 @@ from repro_torch.kernels.rbf import ref
 
 rbf_launches = 0
 xcov_launches = 0
+xcov_tc_launches = 0
+inverse_builds = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 _GRID_Y_MAX = 65535
 _RBF_BLOCK_M = 64         # output rows per block of rbf.cu
-_XCOV_TILES = (32, 16, 8)  # query tiles xcov_diag.cu is instantiated for
-_XCOV_PANEL = 64           # columns of V per block of xcov_diag.cu (BJ)
+# query tiles xcov_diag.cu is instantiated for: the float32 tensor-core
+# kernel (queries on the mma's N side) and the float64 FMA kernel
+_XCOV_TILES = {torch.float32: (64, 32, 16, 8), torch.float64: (32, 16, 8)}
+_XCOV_PANEL = 64          # rows of V^T (support points) per panel
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def reset_counts() -> None:
-    global rbf_launches, xcov_launches
-    rbf_launches = xcov_launches = 0
+    global rbf_launches, xcov_launches, xcov_tc_launches, inverse_builds
+    rbf_launches = xcov_launches = xcov_tc_launches = inverse_builds = 0
 
 
 @functools.cache
@@ -47,8 +55,8 @@ def _rbf_entry():
 def _xcov_entry():
     lib = build.library("xcov_diag")
     fn = lib.xcov_diag
-    fn.argtypes = [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                   _I, _I, _I, _P]
+    fn.argtypes = [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                   _I, _I, _I, _P, ctypes.POINTER(_I)]
     fn.restype = _I
     return lib, fn
 
@@ -109,8 +117,8 @@ def rbf_covariance(Xq: torch.Tensor, Xk: torch.Tensor, sig2) -> torch.Tensor:
 def pick_serve_block_q(n: int) -> int:
     """Query-tile size for the fused serving kernel at batch size n: the
     largest power of two in 16..256 not exceeding n, else 8 (the reference's
-    rule; the CUDA kernel then takes the largest of its 32/16/8-row tiles
-    that fits, see ``xcov_diag``)."""
+    rule; the CUDA kernel then takes the largest of its query tiles that
+    fits, see ``_kernel_tile``)."""
     for b in (256, 128, 64, 32, 16):
         if n >= b:
             return b
@@ -120,22 +128,87 @@ def pick_serve_block_q(n: int) -> int:
 def _embed_tri_inv(L: torch.Tensor, s_pad: int) -> torch.Tensor:
     """(s, s) Cholesky factor -> (s_pad, s_pad) lower-triangular INVERSE,
     embedded in an identity. Computed with a plain triangular solve outside
-    the kernel, as the reference leaves it to XLA; it is recomputed on every
-    dispatch, like the reference. The CUDA kernel masks ragged panels
-    itself, so ``xcov_diag`` embeds with ``s_pad = s`` (no padding)."""
+    the kernel, as the reference leaves it to XLA; ``tri_inv`` keeps it per
+    factor. The CUDA kernel masks ragged panels itself, so ``xcov_diag``
+    embeds with ``s_pad = s`` (no padding). Row-major, as the kernel reads
+    it (the solve returns the transposed layout)."""
     s = L.shape[0]
     eye = torch.eye(s, dtype=L.dtype, device=L.device)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     if s == s_pad:
-        return Linv
+        return Linv.contiguous()
     out = torch.eye(s_pad, dtype=L.dtype, device=L.device)
     out[:s, :s] = Linv
     return out
 
 
-def _kernel_tile(n: int, block_q: int | None) -> int:
+# id(factor) -> (weakref to the factor, its _version, its inverse)
+_INVERSES: dict[int, tuple[weakref.ref, int, torch.Tensor]] = {}
+
+
+def _forget(key: int, dead: weakref.ref) -> None:
+    entry = _INVERSES.get(key)
+    if entry is not None and entry[0] is dead:
+        del _INVERSES[key]
+
+
+def tri_inv(L: torch.Tensor) -> torch.Tensor:
+    """L^{-1} of a lower Cholesky factor, built once per factor.
+
+    A plan's factors live as long as its state, so the (s, s) inverse that
+    the fused kernel multiplies by is built on the first dispatch and kept:
+    keyed on the factor's identity through a weak reference (a freed factor
+    drops its inverse) and on its ``_version`` (an in-place edit rebuilds).
+    The reference inverts on every dispatch; the factors do not change
+    between dispatches, so the result is the same bits. ``inverse_builds``
+    counts the builds.
+    """
+    global inverse_builds
+    key = id(L)
+    entry = _INVERSES.get(key)
+    if entry is not None and entry[0]() is L and entry[1] == L._version:
+        return entry[2]
+    inv = _embed_tri_inv(L, L.shape[0])
+    inverse_builds += 1
+    _INVERSES[key] = (weakref.ref(L, functools.partial(_forget, key)),
+                      L._version, inv)
+    return inv
+
+
+def _kernel_tile(n: int, block_q: int | None, dtype: torch.dtype) -> int:
+    """The kernel's query tile for ``dtype``: the largest of its tiles not
+    above the serving tile (``block_q``, else the reference's rule)."""
     bq = block_q or pick_serve_block_q(n)
-    return next((t for t in _XCOV_TILES if t <= bq), _XCOV_TILES[-1])
+    tiles = _XCOV_TILES[dtype]
+    return next((t for t in tiles if t <= bq), tiles[-1])
+
+
+@functools.cache
+def _tc_units(s: int, kc: int) -> int:
+    """Blocks per query tile of the float32 kernel: panel p's k-range
+    [0, min(64 (p + 1), s)) in chunks of kc (xcov_diag.cu's tc_units)."""
+    return sum(-(-min((p + 1) * _XCOV_PANEL, s) // kc)
+               for p in range(-(-s // _XCOV_PANEL)))
+
+
+def _tc_chunk(n: int, s: int) -> int:
+    """k-range of one block of the float32 kernel. Small batches cut each
+    panel's k-range into chunks, so the card has blocks to fill it and no
+    block runs the longest panel's whole chain: at s = 2048, 272 blocks of
+    at most 4 steps of 32 for n <= 8, 144 of at most 8 for n <= 64, 4 x 80
+    of at most 16 for n <= 256 (the fastest of 128, 256, 512 and whole
+    panels at n = 8, 64 and 256 on the card, ``launch.xcov_sweep``). From
+    257 queries the query tiles alone fill the card and the panels stay
+    whole (no scratch, no second pass). The chunk doubles while the split
+    partials would pass 64 MiB."""
+    whole = -(-s // _XCOV_PANEL) * _XCOV_PANEL
+    if n > 256:
+        return whole
+    kc = 128 if n <= 8 else 256 if n <= 64 else 512
+    while kc < whole and \
+            _tc_units(s, kc) * 2 * _XCOV_PANEL * n * 4 > 64 * 2 ** 20:
+        kc *= 2
+    return min(kc, whole)
 
 
 def xcov_diag(Xq: torch.Tensor, Xk: torch.Tensor, L1: torch.Tensor,
@@ -150,9 +223,10 @@ def xcov_diag(Xq: torch.Tensor, Xk: torch.Tensor, L1: torch.Tensor,
     alpha: (s,) cached weights. On the card, queries are float32 or
     float64; the support set, factors and weights are cast to their dtype,
     which is also the accumulation type (the CPU plain path also takes
-    bfloat16, accumulating in float32).
+    bfloat16, accumulating in float32). The factors' inverses come from
+    ``tri_inv``: built on a factor's first dispatch, then kept.
     ``block_q`` is the serving tile; the kernel uses the largest of its
-    32/16/8-row query tiles not above it.
+    query tiles not above it (``_kernel_tile``).
     """
     args = (Xq, Xk, L1, alpha) + ((L2,) if L2 is not None else ())
     if build.on_cpu(*args):
@@ -162,18 +236,21 @@ def xcov_diag(Xq: torch.Tensor, Xk: torch.Tensor, L1: torch.Tensor,
         raise ValueError(f"need (s, s) factors for s={s}; got "
                          f"{tuple(L1.shape)}"
                          + ("" if L2 is None else f", {tuple(L2.shape)}"))
-    L1inv = _embed_tri_inv(L1, s)
-    L2inv = _embed_tri_inv(L2, s) if L2 is not None else None
-    return xcov_diag_inv(Xq, Xk, L1inv, alpha, sig2, L2inv, block_q=block_q)
+    L2inv = tri_inv(L2) if L2 is not None else None
+    return xcov_diag_inv(Xq, Xk, tri_inv(L1), alpha, sig2, L2inv,
+                         block_q=block_q)
 
 
 def xcov_diag_inv(Xq: torch.Tensor, Xk: torch.Tensor, L1inv: torch.Tensor,
                   alpha: torch.Tensor, sig2, L2inv: torch.Tensor | None = None,
-                  *, block_q: int | None = None):
+                  *, block_q: int | None = None, kc: int | None = None):
     """The fused kernel alone, on the lower-triangular INVERSES of the
-    cached factors (what ``xcov_diag`` passes it after ``_embed_tri_inv``);
-    CUDA tensors only. Entries above the diagonal are never read."""
-    global xcov_launches
+    cached factors (what ``xcov_diag`` passes it from ``tri_inv``); CUDA
+    tensors only. Entries above the diagonal are never read. float32 runs
+    on the tensor cores in 3xTF32 (``xcov_tc_launches``), float64 on the
+    FP64 units. ``kc``, a multiple of 64, is the float32 kernel's k-range
+    a block (default ``_tc_chunk``)."""
+    global xcov_launches, xcov_tc_launches
     args = (Xq, Xk, L1inv, alpha) + ((L2inv,) if L2inv is not None else ())
     if build.on_cpu(*args):
         raise ValueError("xcov_diag_inv launches the CUDA kernel and takes "
@@ -193,31 +270,47 @@ def xcov_diag_inv(Xq: torch.Tensor, Xk: torch.Tensor, L1inv: torch.Tensor,
     if dt not in (torch.float32, torch.float64):
         raise TypeError(f"xcov_diag's CUDA kernel takes float32 or float64 "
                         f"queries; got {dt}")
-    tile = _kernel_tile(n, block_q)
-    mean = torch.empty(n, dtype=dt, device=Xq.device)
-    var = torch.empty(n, dtype=dt, device=Xq.device)
+    tile = _kernel_tile(n, block_q, dt)
+    mean, var = torch.empty((2, n), dtype=dt, device=Xq.device)
     if n == 0:
         return mean, var
-    if s == 0 or -(-n // tile) > _GRID_Y_MAX:
-        raise ValueError(f"xcov_diag needs 0 < s and n <= "
-                         f"{_GRID_Y_MAX * tile}; got s={s}, n={n}")
+    tc = dt == torch.float32
+    if not tc:
+        kc = 0
+    elif kc is None:
+        kc = _tc_chunk(n, s) if s > 0 else 0
+    elif kc < _XCOV_PANEL or kc % _XCOV_PANEL:
+        raise ValueError(f"kc must be a positive multiple of {_XCOV_PANEL}; "
+                         f"got {kc}")
+    if s == 0 or d == 0 or -(-n // tile) > _GRID_Y_MAX \
+            or (tc and _tc_units(s, kc) > _GRID_Y_MAX):
+        raise ValueError(f"xcov_diag needs 0 < s, 0 < d and n <= "
+                         f"{_GRID_Y_MAX * tile}; got s={s}, d={d}, n={n}")
     with_l2 = L2inv is not None
     Xk = Xk.to(dt).contiguous()
     alpha = alpha.to(dt).contiguous()
     L1inv = L1inv.to(dt).contiguous()
     L2inv = L2inv.to(dt).contiguous() if with_l2 else L1inv
     _check_cuda(Xq=Xq, Xk=Xk, L1inv=L1inv, L2inv=L2inv, alpha=alpha)
+    # scratch: per-panel partial sums (3, panels, n), then the split
+    # panels' partial V^T tiles (units, 2, 64, n)
     n_panels = -(-s // _XCOV_PANEL)
-    part = torch.empty(3 * n_panels * n, dtype=dt, device=Xq.device)
+    split = tc and _tc_units(s, kc) > n_panels
+    part = torch.empty(3 * n_panels * n + (
+        _tc_units(s, kc) * 2 * _XCOV_PANEL * n if split else 0),
+        dtype=dt, device=Xq.device)
+    vpart = part[3 * n_panels * n:]
     s2 = torch.as_tensor(sig2, dtype=dt).to(Xq.device).reshape(1)
     lib, fn = _xcov_entry()
+    tensor_cores = _I(0)
     with torch.cuda.device(Xq.device):
         stream = torch.cuda.current_stream(Xq.device).cuda_stream
-        code = fn(_DTYPE_CODE[dt], tile, int(with_l2),
+        code = fn(_DTYPE_CODE[dt], tile, kc, int(with_l2),
                   Xq.data_ptr(), Xk.data_ptr(), L1inv.data_ptr(),
                   L2inv.data_ptr(), alpha.data_ptr(), s2.data_ptr(),
-                  part.data_ptr(), mean.data_ptr(), var.data_ptr(),
-                  n, s, d, stream)
+                  part.data_ptr(), vpart.data_ptr(), mean.data_ptr(),
+                  var.data_ptr(), n, s, d, stream, ctypes.byref(tensor_cores))
     build.check(lib, code, "xcov_diag launch")
     xcov_launches += 1
+    xcov_tc_launches += tensor_cores.value
     return mean, var

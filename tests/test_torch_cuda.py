@@ -99,17 +99,136 @@ def test_kernelspec_routes_cuda_tensors_through_the_kernels(cuda):
 
 
 def test_xcov_query_tiles_agree(cuda):
-    """The 8-, 16- and 32-row query tiles change the grid, not the numbers
-    (float64, so the sums agree to rounding)."""
+    """The query tiles change the grid, not the numbers: float64's 8-, 16-
+    and 32-row tiles agree to rounding, and float32's 8- to 64-row tiles
+    (queries on the mma's N side, the same k chunks) to the bit."""
     rng = np.random.default_rng(5)
-    Xq = torch.tensor(rng.normal(size=(64, 5))).to(cuda)
-    Xk = torch.tensor(rng.normal(size=(40, 5))).to(cuda)
-    L1, L2, alpha = _factors(40, torch.float64, cuda)
-    want = ops.xcov_diag(Xq, Xk, L1, alpha, 0.9, L2, block_q=32)
-    for bq in (8, 16):
-        got = ops.xcov_diag(Xq, Xk, L1, alpha, 0.9, L2, block_q=bq)
+    for dtype, tiles in ((torch.float64, (32, 8, 16)),
+                         (torch.float32, (64, 8, 16, 32))):
+        Xq = torch.tensor(rng.normal(size=(64, 5))).to(cuda, dtype)
+        Xk = torch.tensor(rng.normal(size=(40, 5))).to(cuda, dtype)
+        L1, L2, alpha = _factors(40, dtype, cuda)
+        want = ops.xcov_diag(Xq, Xk, L1, alpha, 0.9, L2, block_q=tiles[0])
+        for bq in tiles[1:]:
+            got = ops.xcov_diag(Xq, Xk, L1, alpha, 0.9, L2, block_q=bq)
+            for g, w in zip(got, want):
+                if dtype == torch.float64:
+                    assert float((g - w).abs().max()) < 1e-12
+                else:
+                    assert torch.equal(g, w)
+
+
+# float32 at the serving support size: the 1e-4 of chip_smoke.py's
+# TOL_XCOV_F32_S2048 (the kernel multiplies by explicit inverses in 3xTF32
+# where the plain version solves in float32, 2048 products an entry)
+XCOV_S2048_N = [1, 8, 257, 3328]
+
+
+@pytest.mark.parametrize("n", XCOV_S2048_N)
+def test_xcov_f32_at_s2048_takes_the_tensor_cores(cuda, n):
+    rng = np.random.default_rng(n)
+    Xq = torch.tensor(rng.uniform(-1.7, 1.7, size=(n, 5))).to(cuda,
+                                                               torch.float32)
+    Xk = torch.tensor(rng.uniform(-1.7, 1.7, size=(2048, 5))).to(
+        cuda, torch.float32)
+    L1, L2, alpha = _factors(2048, torch.float32, cuda)
+    for L2_ in (L2, None):
+        before = ops.xcov_tc_launches
+        got = ops.xcov_diag(Xq, Xk, L1, alpha, 1.3, L2_)
+        torch.cuda.synchronize()
+        assert ops.xcov_tc_launches == before + 1
+        want = ref.xcov_diag(Xq, Xk, L1, alpha, 1.3, L2_)
         for g, w in zip(got, want):
-            assert float((g - w).abs().max()) < 1e-12
+            assert float((g - w).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("n,s", [(8, 2048), (256, 2048), (3328, 2048),
+                                 (9, 2049), (257, 100)])
+def test_xcov_kernel_repeats_bitwise(cuda, n, s):
+    """No float atomics: split panels add their chunks in a fixed order."""
+    rng = np.random.default_rng(s + n)
+    Xq = torch.tensor(rng.normal(size=(n, 5))).to(cuda, torch.float32)
+    Xk = torch.tensor(rng.normal(size=(s, 5))).to(cuda, torch.float32)
+    L1, L2, alpha = _factors(s, torch.float32, cuda)
+    runs = [ops.xcov_diag(Xq, Xk, L1, alpha, 1.3, L2) for _ in range(3)]
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(a, b)
+
+
+def _fitted_ppitc(cuda, n_train, M, s_size):
+    """pPITC fitted in float32 on the card (AIMPEAK-like, seed 0; support by
+    select_support), the float64 evaluation of the same state, and test
+    queries: conditioned factors (cond Sdd ~1e8 at s_size 2048)."""
+    from repro_torch.core import api, covariance as cov, support
+    from repro_torch.data import synthetic
+    from repro_torch.parallel.runner import VmapRunner
+    ds = synthetic.standardize(synthetic.aimpeak_like(
+        n=n_train, n_test=512, seed=0, device=cuda))
+    spec = cov.make_spec("se")
+    params = cov.init_params(5, signal=1.0, noise=0.3, lengthscale=1.2,
+                             device=cuda)
+    S = support.select_support(spec, params, ds.X[:8 * s_size], s_size)
+    model = api.fit("ppitc", spec, params, ds.X, ds.y, S=S,
+                    runner=VmapRunner(M=M), device=cuda)
+    return model, ds.X_test
+
+
+def test_xcov_conditioned_state_needs_3xtf32(cuda):
+    """On a fitted state (cond Sdd ~1e8) the kernel stays within 1e-4 of
+    the plain float32 version, and the same products with TF32-truncated
+    operands (one TF32 product, emulated in float64) would not."""
+    from repro_torch.core import covariance as cov
+    model, U = _fitted_ppitc(cuda, 16384, 8, 2048)
+    p, st = model.params, model.state
+    args = (cov._scale(p, U), cov._scale(p, st.S), st.Kss_L, st.alpha,
+            cov.signal_var(p), st.Sdd_L)
+    got = ops.xcov_diag(*args)
+    want = ref.xcov_diag(*args)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    assert err <= 1e-4
+
+    def trunc(x):
+        return (x.view(torch.int32) & ~0x1fff).view(torch.float32).double()
+    Uq, Sk = args[0], args[1]
+    q2 = (Uq * Uq).sum(1)[:, None]
+    k2 = (Sk * Sk).sum(1)[None]
+    K = args[4] * torch.exp(-0.5 * torch.clamp(q2 + k2 - 2 * Uq @ Sk.T,
+                                               min=0))
+    v1 = trunc(K) @ trunc(ops.tri_inv(st.Kss_L)).T
+    v2 = trunc(K) @ trunc(ops.tri_inv(st.Sdd_L)).T
+    var1 = float(args[4]) - (v1 * v1).sum(1) + (v2 * v2).sum(1)
+    assert float((var1 - want[1].double()).abs().max()) > 1e-4
+
+
+def test_plan_diag_caches_the_inverses(cuda):
+    """plan.diag with the cached inverses equals the path that builds them
+    on every dispatch, bit for bit, and builds none after the first; a
+    rebind onto a perturbed state refreshes them."""
+    from repro_torch.core import api, covariance as cov
+    model, U = _fitted_ppitc(cuda, 4096, 4, 256)
+    plan = model.plan(api.ServeSpec(max_batch=256)).warmup(5)
+    ops.reset_counts()
+    cached = [plan.diag(U[:n]) for n in (8, 200, 512)]
+    assert ops.inverse_builds == 0 and ops.xcov_tc_launches == 3
+    for n, (m, v) in zip((8, 200, 512), cached):
+        ops._INVERSES.clear()
+        m2, v2 = plan.diag(U[:n])
+        assert torch.equal(m, m2) and torch.equal(v, v2)
+    assert ops.inverse_builds == 6
+    st = model.state
+    bumped = api.PITCState(st.S, st.Kss_L.clone(), st.Sdd_L * 1.05,
+                           st.alpha * 0.9)
+    moved = plan.rebind(bumped)
+    m_f, v_f = moved.diag(U)
+    compose = model.method.plan(cov.make_spec("se", fused=False),
+                                model.params, bumped)
+    m_c, v_c = compose.diag(U)
+    assert float((m_f - m_c).abs().max()) < 1e-4
+    assert float((v_f - v_c).abs().max()) < 1e-4
+    m_0, v_0 = plan.diag(U)
+    assert float((m_f - m_0).abs().max()) > 1e-2
+    assert float((v_f - v_0).abs().max()) > 1e-3
 
 
 def test_xcov_kernel_rejects_bfloat16(cuda):

@@ -162,10 +162,12 @@ def test_pick_serve_block_q_matches_reference():
 
 
 @pytest.mark.parametrize("n,block_q,tile", [
-    (1, None, 8), (15, None, 8), (16, None, 16), (31, None, 16),
-    (32, None, 32), (3200, None, 32), (100, 24, 16), (100, 4, 8),
-    (100, 64, 32)])
+    (1, None, (8, 8)), (15, None, (8, 8)), (16, None, (16, 16)),
+    (31, None, (16, 16)), (32, None, (32, 32)), (3200, None, (64, 32)),
+    (100, 24, (16, 16)), (100, 4, (8, 8)), (100, 64, (64, 32))])
 def test_kernel_query_tile(n, block_q, tile):
     """The serving tile (reference rule) picks the largest of the kernel's
-    32/16/8-row query tiles not above it."""
-    assert ops._kernel_tile(n, block_q) == tile
+    query tiles not above it: 64/32/16/8 rows for the float32 tensor-core
+    kernel, 32/16/8 for the float64 one."""
+    assert (ops._kernel_tile(n, block_q, torch.float32),
+            ops._kernel_tile(n, block_q, torch.float64)) == tile
