@@ -7,28 +7,35 @@ card. Run from the root of a checkout, with one card visible:
 Phases, in order; any failure exits non-zero before the last line:
 
 1. card: name and power limit (nvidia-smi);
-2. build: the four CUDA kernels (rbf, xcov_diag, flash_attention,
-   ssd_intra_chunk) from the checkout's sources (nvcc, sm_90a, one
+2. build: the five CUDA sources (rbf, rbf_icf, xcov_diag,
+   flash_attention, ssd_intra_chunk) from the checkout (nvcc, sm_90a, one
    compiler per source, started together) into build/kernels/; every
    float32 xcov_diag instance must hold wgmma (HGMMA) in its SASS;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and at edge cases, within the tolerances
    stated below, and each timed at its main path's shape (flash also
    against ``scaled_dot_product_attention``, a yardstick the port never
-   calls, with its TFLOP/s and the host cost of a decode launch; rbf also
-   at the shape of an ICF pivot step; SSD with both its bounds and, in
-   its prose line, the GFLOP its tiles execute as counted from them;
-   xcov_diag at four of the GP path's query buckets, with its 3xTF32,
-   bytes and f32 CUDA-core bounds, and on a fitted, conditioned pPITC
-   state). Each flash, SSD and xcov_diag case runs three times and every
-   run must equal the first; every float32 xcov_diag launch must take the
-   tensor-core instance;
+   calls, with its TFLOP/s and the host cost of a decode launch; rbf's
+   block instance by profiler device time, and its ICF instance (all of
+   select_support's pivot steps in one launch) against the plain loop in
+   float64 (pivots identical) and float32 (replayed along its pivots), with
+   its operations bound and a probe of R empty grid barriers, and in its
+   prose line the modelled time of streaming the GEMVs from HBM; SSD with
+   both its bounds and, in its prose line, the GFLOP its tiles execute as
+   counted from them; xcov_diag at four of the GP path's query buckets,
+   with its 3xTF32, bytes and f32 CUDA-core bounds, and on a fitted,
+   conditioned pPITC state). Each flash, SSD, xcov_diag and ICF case runs
+   three times and every run must equal the first (an ICF case also with
+   fewer factor rows kept on chip); every float32 xcov_diag launch must
+   take the tensor-core instance;
 4. GP main path: pPITC at the paper's AIMPEAK configuration (|D| = 32000,
    M = 20, |S| = 2048, d = 5, float32): support selection, fit, plan,
-   warm-up, 8 requests through ``plan.diag``; outputs must be finite, the
-   fused diag must agree with the compose path, the requests must build
-   no triangular inverse (the plan's are cached per state) and every
-   xcov_diag launch must take the float32 tensor-core instance;
+   warm-up, 8 requests through ``plan.diag``; support selection must be
+   one launch of the ICF kernel, outputs must be finite, the test RMSE
+   0.3040 +- 0.002 with no negative variance, the fused diag must agree
+   with the compose path, the requests must build no triangular inverse
+   (the plan's are cached per state) and every xcov_diag launch must take
+   the float32 tensor-core instance;
 5. LM main path, qwen3-1.7b at full width and depth (random weights from
    seed 0, bfloat16 compute): prefill of 4 x 4096 tokens through
    ``forward(logits_last_only=True)``, then ``prefill_then_decode`` (4
@@ -73,6 +80,22 @@ TF32_FLOPS_PER_S = 495e12
 #  kernel's products are 3xTF32 (float32-like error); one TF32 product would
 #  miss this limit on a fitted state, which check_xcov shows.
 TOL_RBF = {"float32": 1e-5, "bfloat16": 3e-2}
+#  ICF float32: the plain loop replayed along the kernel's pivots must find
+#  each of them within 1e-4 sig2 of its own largest residual. Both round
+#  each step's GEMV (i terms) in their own order, an error of ~sqrt(i) eps
+#  sig2 in f that the division by sqrt(d_p) amplifies and d accumulates:
+#  ~1e-5 sig2 late in a 2048-step run, so 1e-4 leaves 10x. Where the plain
+#  loop's two largest residuals are closer than that, the two may pick apart
+#  (printed: the steps they agree for). float64 pivots must be identical.
+TOL_ICF_TIE = 1e-4
+#  ICF float32 F against that replay, x sqrt(sig2) (F's largest entry): set
+#  from readings on the H100, ~13x the largest. They were 2.9e-5 on the
+#  AIMPEAK candidates (sig2 1) and 2.9e-5 to 3.9e-5 sqrt(sig2) at (8192,
+#  2048, 5) on random inputs, seeds 3-5 (tests/test_torch_cuda.py); late
+#  rows' entries are ~0.07 sqrt(sig2), so a wrong row or column errs by
+#  100x this limit.
+TOL_ICF_F32 = 5e-4
+ICF_REPEAT = 3           # launches of each ICF case (each equal)
 TOL_XCOV_F64 = 1e-10
 TOL_XCOV_F32_S2048 = 1e-4
 XCOV_REPEAT = 3          # launches of each xcov case (each equals the first)
@@ -128,6 +151,10 @@ def flash_row_err(got, want, r: float) -> float:
 
 
 M, N_TRAIN, N_TEST, S_SIZE, D = 20, 32000, 3200, 2048, 5
+# The fit's test RMSE at this configuration (standardized; every run since
+# the port's first, at the noise floor of 0.3): the support set selected on
+# the card must leave it there.
+RMSE_AIMPEAK, TOL_RMSE = 0.3040, 0.002
 ICF_CANDIDATES = 8192        # select_support's pool: ds.X[:8192]
 REQUEST_SIZES = (1, 7, 64, 200, 256, 256, 1000, 3200)
 
@@ -235,11 +262,13 @@ def max_err(a, b) -> float:
 
 
 def check_rbf(torch, ops, ref, gen):
-    """rbf vs plain at the fit shapes; times at K_{S,D_m} over M machines."""
+    """rbf vs plain at the fit shapes; timed at K_{S,D_m} over M machines by
+    profiler device time, with sig2 on the card as the path passes it."""
     cases = [("K_SDm", (S_SIZE, D), (M, N_TRAIN // M, D)),
              ("K_DmDm", (M, N_TRAIN // M, D), (M, N_TRAIN // M, D)),
              ("K_SS", (S_SIZE, D), (S_SIZE, D)),
-             ("ragged", (33, 7), (17, 7))]
+             ("ragged", (33, 7), (17, 7)),
+             ("m=1601", (S_SIZE, D), (1601, D))]     # rows not 16-byte aligned
     worst = {}
     for name, sq, sk in cases:
         for dt in (torch.float32, torch.bfloat16):
@@ -257,42 +286,172 @@ def check_rbf(torch, ops, ref, gen):
                 fail(f"rbf {name} {key} error {err} > {TOL_RBF[key]}")
             if name == "K_SDm" and key == "float32":
                 worst["err"] = err
-    # timing at the main path's largest launch: K_{S,D_m} for all machines
+    # timing at the main path's largest launch: K_{S,D_m} for all machines,
+    # sig2 on the card (a Python float is copied to the card, and the
+    # stream synchronized, on every call: timed too, to show what it cost)
     S = (torch.rand((S_SIZE, D), generator=gen, device="cuda") * 4 - 2) / 1.2
     Xb = (torch.rand((M, N_TRAIN // M, D), generator=gen, device="cuda")
           * 4 - 2) / 1.2
-    ms = time_ms(lambda: ops.rbf_covariance(S, Xb, 1.3), 20)
-    plain = time_ms(lambda: ref.rbf_covariance(S, Xb, 1.3), 5)
+    s2 = torch.tensor(1.3, device="cuda")
+    ms = kernel_device_ms(torch, lambda: ops.rbf_covariance(S, Xb, s2),
+                          "rbf_kernel", 20)
+    b2b = time_ms(lambda: ops.rbf_covariance(S, Xb, s2), 20)
+    b2b_float = time_ms(lambda: ops.rbf_covariance(S, Xb, 1.3), 20)
+    plain = time_ms(lambda: ref.rbf_covariance(S, Xb, s2), 5)
     n_out = M * S_SIZE * (N_TRAIN // M)
     b_ms, b_by = bound_ms((S.numel() + Xb.numel()) * 4 + n_out * 4,
                           n_out * (2 * D + 6))
-    # the shape of 2048 of the path's launches: one ICF pivot column,
-    # K(x_p, X) over the 8192 candidates of select_support
-    n_icf = ICF_CANDIDATES
-    Xc = (torch.rand((n_icf, D), generator=gen, device="cuda") * 4 - 2) / 1.2
-    xp = Xc[:1]
-    # back to back, a launch this small waits for the host: the wrapper's
-    # host time, and the kernel's own device time from the profiler
-    icf_step_ms = time_ms(lambda: ops.rbf_covariance(xp, Xc, 1.3), 200)
-    icf_plain = time_ms(lambda: ref.rbf_covariance(xp, Xc, 1.3), 200)
-    icf_ms = kernel_device_ms(torch, lambda: ops.rbf_covariance(xp, Xc, 1.3),
-                              "rbf_kernel", 200)
-    icf_b_ms, icf_by = bound_ms((D + n_icf * D) * 4 + n_icf * 4,
-                                n_icf * (2 * D + 6))
-    print(f"  rbf at the K_SDm shape: {ms:.4f} ms (bound {b_ms:.4f} ms, "
-          f"{b_by}); at the ICF step (1,{D})x({n_icf},{D}): device "
-          f"{icf_ms * 1e3:.2f} us a launch (bound {icf_b_ms * 1e3:.3f} us, "
-          f"{icf_by}), {icf_step_ms * 1e3:.2f} us a launch back to back "
-          f"(plain {icf_plain * 1e3:.2f} us)", flush=True)
+    print(f"  rbf at the K_SDm shape: device {ms:.4f} ms (bound {b_ms:.4f} "
+          f"ms, {b_by}; {100 * b_ms / ms:.0f}% of it); back to back "
+          f"{b2b:.4f} ms a call, {b2b_float:.4f} ms with a Python-float "
+          f"sig2; plain {plain:.4f} ms", flush=True)
     return dict(name="rbf", route="cuda",
                 source="src/repro_torch/kernels/rbf/csrc/rbf.cu",
                 replaces="src/repro/kernels/rbf/rbf.py:55",
                 max_abs_err=worst["err"], tol=TOL_RBF["float32"], ms=ms,
                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, icf_ms=icf_ms, icf_bound_ms=icf_b_ms,
-                icf_step_ms=icf_step_ms, icf_plain_ms=icf_plain,
+                library_ms=None, back_to_back_ms=b2b,
+                float_sig2_ms=b2b_float,
                 shape=f"K_SDm: ({S_SIZE},{D}) x ({M},{N_TRAIN // M},{D}) "
-                      f"f32; icf: (1,{D}) x ({n_icf},{D}) f32")
+                      f"f32")
+
+
+def icf_tolerance(F, piv, sig2: float) -> tuple[float, float, float]:
+    """Limits for the ICF kernel's F and residual against the plain loop
+    (same pivots). Each f sums i <= R products of factor entries bounded by
+    sig2 (|F[:, j]|^2 <= K_jj), rounded in another order than the plain
+    loop's, then divides by sqrt(d_p): R eps sig2 / sqrt(min d_p), times 64
+    for the errors earlier rows carry into later ones. The residual
+    sig2 - sum_i f_ij^2 moves by at most 2 sqrt(R sig2) times that. Returns
+    (tol F, tol residual, min d_p); min d_p = min_i F[i, p_i]^2, since
+    f_p = sqrt(d_p)."""
+    import torch
+    R = F.shape[0]
+    eps = torch.finfo(F.dtype).eps
+    min_dp = float(F[torch.arange(R, device=F.device), piv].pow(2).min())
+    tol_f = 64 * R * eps * sig2 / max(min_dp, 1e-300) ** 0.5
+    return tol_f, 2 * (R * sig2) ** 0.5 * tol_f, min_dp
+
+
+def _same_runs(torch, runs) -> bool:
+    return all(torch.equal(a, b) for run in runs[1:]
+               for a, b in zip(run, runs[0]))
+
+
+def _icf_case(torch, ops, ref, Xs, sig2: float, R: int, tag: str) -> None:
+    """float64: ICF_REPEAT launches bitwise equal (one more with no factor
+    rows cached in shared memory, equal too), pivots identical to the plain
+    loop's, F and residual within icf_tolerance."""
+    s2 = torch.tensor(sig2, dtype=Xs.dtype, device="cuda")
+    n0 = ops.icf_launches
+    runs = [ops.icf_factor(Xs, s2, R) for _ in range(ICF_REPEAT)]
+    runs.append(ops.icf_factor(Xs, s2, R, cached_rows=0))
+    F_w, piv_w, res_w = ref.icf_factor(Xs, s2, R)
+    torch.cuda.synchronize()
+    if ops.icf_launches - n0 != ICF_REPEAT + 1:
+        fail(f"ICF {tag}: {ops.icf_launches - n0} launches for "
+             f"{ICF_REPEAT + 1} calls")
+    if not _same_runs(torch, runs):
+        fail(f"ICF {tag}: repeated launches (or the uncached one) disagree")
+    F, piv, res = runs[0]
+    same = bool(torch.equal(piv, piv_w))
+    tol_f, tol_r, min_dp = icf_tolerance(F_w, piv_w, sig2)
+    err_f, err_r = max_err(F, F_w), max_err(res, res_w)
+    print(f"  ICF {tag} x{ICF_REPEAT} (+1 uncached): pivots identical "
+          f"{same}; min d_p {min_dp:.3e}; max|dF| {err_f:.3e} (tol "
+          f"{tol_f:.3e}), max|dresidual| {err_r:.3e} (tol {tol_r:.3e})",
+          flush=True)
+    if not (same and err_f <= tol_f and err_r <= tol_r):
+        fail(f"ICF {tag}: pivots identical {same}, errors {err_f}, {err_r}")
+
+
+def check_icf(torch, ops, ref, gen):
+    """The ICF kernel (select_support's pivot loop) vs the plain loop: f64 at
+    the path's shape (8192, 2048, 5), a ragged case and exact ties; f32 on
+    the AIMPEAK candidates, held by replaying the plain loop along the
+    kernel's pivots (each within TOL_ICF_TIE of the plain loop's largest
+    residual, F within TOL_ICF_F32), its launches with factor rows in
+    registers and shared memory, in shared memory only, and none on chip
+    bitwise equal. Timed there, beside its bound, the barrier probe and the
+    plain loop. Returns the rbf row's ICF fields."""
+    from repro_torch.core import covariance as cov
+    from repro_torch.data import synthetic
+    n, R = ICF_CANDIDATES, S_SIZE
+    X64 = (torch.rand((n, D), generator=gen, device="cuda",
+                      dtype=torch.float64) * 4 - 2) / 1.2
+    _icf_case(torch, ops, ref, X64, 1.3, R, f"f64 ({n}, {R}, {D})")
+    Xr = torch.rand((1000, 7), generator=gen, device="cuda",
+                    dtype=torch.float64) * 4 - 2
+    _icf_case(torch, ops, ref, Xr, 1.3, 120, "f64 ragged (1000, 120, 7)")
+    P = torch.randn((40, 3), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    _icf_case(torch, ops, ref, torch.cat([P, P]), 1.3, 30,
+              "f64 40 points twice (80, 30, 3)")
+
+    # float32 on select_support's candidates: the path's own inputs
+    ds = synthetic.standardize(synthetic.aimpeak_like(
+        n=N_TRAIN, n_test=N_TEST, seed=0))
+    params = cov.init_params(D, signal=1.0, noise=0.3, lengthscale=1.2)
+    Xs = cov._scale(params, ds.X[:n])
+    s2 = cov.signal_var(params)
+    sig2 = float(s2)
+    del ds
+    plan = ops.icf_plan(torch.float32, n, R, D)
+    runs = [ops.icf_factor(Xs, s2, R) for _ in range(ICF_REPEAT)]
+    runs.append(ops.icf_factor(Xs, s2, R, cached_rows=plan["smem_rows"]))
+    runs.append(ops.icf_factor(Xs, s2, R, cached_rows=0))
+    if not _same_runs(torch, runs):
+        fail("ICF f32: repeated launches, or those with fewer factor rows "
+             "on chip, disagree")
+    F, piv, _ = runs[0]
+    F_r, _, _ = ref.icf_factor(Xs, s2, R, pivots=piv)
+    slack = float(ref.icf_slack(F_r, piv, s2).max())
+    _, piv_w, _ = ref.icf_factor(Xs, s2, R)
+    differ = (piv != piv_w).nonzero()
+    prefix = int(differ[0]) if differ.numel() else R
+    tol_f = TOL_ICF_F32 * sig2 ** 0.5
+    err_f = max_err(F, F_r)
+    print(f"  ICF f32 AIMPEAK candidates ({n}, {R}, {D}) x{ICF_REPEAT} (+1 "
+          f"with shared memory only, +1 with no rows on chip): bitwise "
+          f"equal; pivots agree with the plain loop for {prefix} of {R} "
+          f"steps; the plain loop replayed along the kernel's pivots finds "
+          f"each within {slack:.3e} of its largest residual (tol "
+          f"{TOL_ICF_TIE * sig2:.1e}); max|dF| {err_f:.3e} (tol "
+          f"{tol_f:.1e})", flush=True)
+    if not (slack <= TOL_ICF_TIE * sig2 and err_f <= tol_f):
+        fail(f"ICF f32: slack {slack}, F error {err_f}")
+
+    icf_ms = kernel_device_ms(torch, lambda: ops.icf_factor(Xs, s2, R),
+                              "icf_kernel", 5)
+    uncached_ms = kernel_device_ms(
+        torch, lambda: ops.icf_factor(Xs, s2, R, cached_rows=0),
+        "icf_kernel", 5)
+    barrier_ms = kernel_device_ms(
+        torch, lambda: ops.icf_barrier_probe(torch.float32, n, R, D),
+        "icf_barrier_probe", 5)
+    plain = time_ms(lambda: ref.icf_factor(Xs, s2, R), 2, warmup=1)
+    flops = n * R * (R - 1)                  # the GEMVs: 2 i n at step i
+    nbytes = n * D * 4 + R * n * 4 + R * 8 + n * 4 + 4
+    b_ms, b_by = bound_ms(nbytes, flops)
+    stream_bytes = 4 * n * R * (R - 1) // 2  # F[:i] read from HBM each step
+    print(f"  ICF kernel f32 ({n}, {R}, {D}), {plan['blocks']} blocks of "
+          f"{plan['width']} columns, {plan['cached_rows']} factor rows a "
+          f"column on chip ({plan['smem_rows']} in shared memory, "
+          f"{plan['smem']} B, the rest in registers): device {icf_ms:.3f} "
+          f"ms ({icf_ms / R * 1e3:.2f} us a step; {uncached_ms:.3f} ms "
+          f"with no rows on chip); bound {b_ms:.3f} ms ({b_by}, "
+          f"{flops / 1e9:.1f} GFLOP); {R} empty grid barriers "
+          f"{barrier_ms:.3f} ms ({barrier_ms / R * 1e3:.2f} us each); the "
+          f"GEMVs would take {stream_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+          f"streamed from HBM ({stream_bytes / 1e9:.1f} GB, a model), the "
+          f"kernel reads them at {stream_bytes / icf_ms / 1e9:.2f} TB/s "
+          f"effective; plain loop {plain:.1f} ms", flush=True)
+    return dict(icf_source="src/repro_torch/kernels/rbf/csrc/rbf_icf.cu",
+                icf_ms=icf_ms, icf_uncached_ms=uncached_ms,
+                icf_plain_ms=plain, icf_bound_ms=b_ms, icf_bound_by=b_by,
+                icf_barrier_ms=barrier_ms, icf_prefix=prefix,
+                icf_slack=slack, icf_max_abs_err=err_f, icf_tol=tol_f,
+                icf_shape=f"({n}, {R}, {D}) f32, AIMPEAK candidates")
 
 
 def _factors(torch, s, gen, dtype):
@@ -861,16 +1020,21 @@ def main_path(torch, card: str):
         lat_ms.append((time.perf_counter() - ts) * 1e3)
         outs.append((idx, mean, var))
         off = (off + size) % N_TEST
-    launches = {"rbf": ops.rbf_launches, "xcov_diag": ops.xcov_launches}
+    block, icf_n = ops.rbf_launches, ops.icf_launches
+    launches = {"rbf": block + icf_n, "xcov_diag": ops.xcov_launches}
     tc, req_builds = ops.xcov_tc_launches, ops.inverse_builds - builds
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    print(f"  counts during the main path: {launches}; xcov_diag on the "
-          f"tensor cores: {tc}; inverses built: {builds} before the "
-          f"requests, {req_builds} during them", flush=True)
+    print(f"  counts during the main path: {launches} (rbf: {block} block "
+          f"launches, {icf_n} of the ICF kernel); xcov_diag on the tensor "
+          f"cores: {tc}; inverses built: {builds} before the requests, "
+          f"{req_builds} during them", flush=True)
     for name, n in launches.items():
         if n <= 0:
             fail(f"kernel {name} was not launched on the main path")
+    if icf_n != 1 or block <= 0:
+        fail(f"select_support took {icf_n} ICF launches (want 1) and the "
+             f"fit {block} rbf block launches")
     if tc != launches["xcov_diag"]:
         fail(f"{launches['xcov_diag'] - tc} xcov_diag launches did not "
              f"take the tensor-core instance")
@@ -934,7 +1098,11 @@ def main_path(torch, card: str):
     print(f"  [{card}] test RMSE {rmse:.4f} (standardized; "
           f"{rmse * float(ds.std_y):.3f} km/h), negative-variance share "
           f"{neg:.4f} of {N_TEST}", flush=True)
-    return launches
+    if not (abs(rmse - RMSE_AIMPEAK) <= TOL_RMSE and neg == 0.0):
+        fail(f"test RMSE {rmse} (want {RMSE_AIMPEAK} +- {TOL_RMSE}), "
+             f"negative-variance share {neg} (want 0)")
+    return launches, {"block_launches": block, "icf_launches": icf_n,
+                      "select_support_s": t2 - t1}
 
 
 def main() -> int:
@@ -990,10 +1158,12 @@ def main() -> int:
     rows = [check_rbf(torch, ops, ref, gen), check_xcov(torch, ops, ref, gen),
             check_flash(torch, attn_ops, attn_ref, gen),
             check_ssd(torch, ssd_ops, ssd_ref, gen)]
+    rows[0].update(check_icf(torch, ops, ref, gen))
     torch.cuda.empty_cache()
 
     print("phase 4: GP main path", flush=True)
-    launches = main_path(torch, card)
+    launches, gp = main_path(torch, card)
+    rows[0].update(gp)
 
     print("phase 5: LM main path, qwen3-1.7b", flush=True)
     launches["flash_attention"] = lm_path(

@@ -3,7 +3,9 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/rbf/rbf.py::rbf_pallas
 // (body _rbf_kernel): out[i, j] = sig2 * exp(-0.5 * max(|q_i|^2 + |k_j|^2
 // - 2 q_i.k_j, 0)) over lengthscale-scaled inputs, f32 accumulation for
-// every input type, output in the input type.
+// every input type, output in the input type. These are the covariance
+// blocks (K_SS, K_{S,D_m}, K_{D_m,D_m}, K_US); the ICF pivot columns of
+// select_support run inside rbf_icf.cu.
 //
 // What bounds it on the card: each output costs about 2d+6 flops (d = 5 for
 // AIMPEAK, 21 for SARCOS) against 4 bytes written (f32), so the kernel is
@@ -11,13 +13,22 @@
 // bandwidth. The inputs are (n+m)*d values and do not matter.
 //
 // What the design does about it:
-//  * one block per 64 x 128 output tile, 256 threads, 8 x 4 outputs each;
-//  * the Xq/Xk tiles are staged in shared memory in chunks of 8 features;
-//    the squared norms are computed once per row of the tile;
+//  * one block per 64 x 128 output tile, 256 threads, 8 rows x 4
+//    consecutive columns each;
+//  * the Xq/Xk tiles are staged in shared memory in chunks of 8 features
+//    (Xk read back as float4, a thread's 4 columns at once); the squared
+//    norms are computed once per row of the tile;
 //  * the cross term is an FMA loop over d in registers: d is far too small
 //    a reduction depth for the tensor cores;
-//  * the exp is the epilogue, and each warp stores 32 consecutive columns of
-//    one row, so every store is one coalesced 128-byte transaction (f32);
+//  * the epilogue is one exp2 an output: sig2 and both norms fold into
+//    a_i = log2(sig2) - log2(e)/2 |q_i|^2 and b_j = -log2(e)/2 |k_j|^2, so
+//    out = exp2(min(a_i + b_j + log2(e) q_i.k_j, log2(sig2))), the min
+//    keeping the clamp of the squared distance at 0 (ex2.approx: relative
+//    error ~2^-22, within the float32 tolerance of 1e-5);
+//  * each thread writes its 4 columns of a row as one vector store (16
+//    bytes in f32), a warp 512 contiguous bytes of one row; rows that are
+//    not 16-byte aligned (m % 4 != 0) and ragged column tiles store
+//    element by element;
 //  * the feature axis is NOT padded to 128 as on the TPU: zero-filled chunk
 //    entries add nothing, and ragged rows/columns are masked at the store;
 //  * a leading batch dimension with a per-operand batch stride (0 for a
@@ -26,6 +37,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -36,6 +49,30 @@ constexpr int TY = 8;            // threads along rows
 constexpr int RM = BM / TY;      // rows per thread
 constexpr int RN = BN / TX;      // columns per thread
 constexpr int DK = 8;            // features staged per chunk
+constexpr float L2E = 1.4426950408889634f;   // log2(e)
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// a thread's 4 consecutive outputs of one row as one vector store
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(double* p, const float (&v)[4]) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p,
+                                       const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                 *reinterpret_cast<const unsigned*>(&hi));
+}
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(double x) {
@@ -62,11 +99,11 @@ template <typename T>
 __global__ void __launch_bounds__(TX * TY)
 rbf_kernel(const T* __restrict__ xq, const T* __restrict__ xk,
            const float* __restrict__ sig2, T* __restrict__ out, int n, int m,
-           int d, long long q_bstride, long long k_bstride) {
+           int d, long long q_bstride, long long k_bstride, bool vec) {
   __shared__ float qs[DK][BM];
-  __shared__ float ks[DK][BN];
-  __shared__ float q2s[BM];
-  __shared__ float k2s[BN];
+  __shared__ __align__(16) float ks[DK][BN];
+  __shared__ float alpha[BM];     // log2(sig2) - log2(e)/2 |q_i|^2
+  __shared__ float beta[BN];      // -log2(e)/2 |k_j|^2
 
   const long long b = blockIdx.z;
   xq += b * q_bstride;
@@ -78,7 +115,9 @@ rbf_kernel(const T* __restrict__ xq, const T* __restrict__ xk,
   const int ty = threadIdx.y;
   const int tid = ty * TX + tx;
 
-  // squared norms, once per row (threads 0..BM-1) / column (BM..BM+BN-1)
+  // exponent terms a_i (with log2 sig2) and b_j, once per row (threads
+  // 0..BM-1) / column (BM..BM+BN-1)
+  const float l2s2 = log2f(sig2[0]);
   if (tid < BM) {
     const int r = row0 + tid;
     float acc = 0.f;
@@ -88,7 +127,7 @@ rbf_kernel(const T* __restrict__ xq, const T* __restrict__ xk,
         acc = fmaf(v, v, acc);
       }
     }
-    q2s[tid] = acc;
+    alpha[tid] = fmaf(-0.5f * L2E, acc, l2s2);
   } else if (tid < BM + BN) {
     const int c = col0 + tid - BM;
     float acc = 0.f;
@@ -98,7 +137,7 @@ rbf_kernel(const T* __restrict__ xq, const T* __restrict__ xk,
         acc = fmaf(v, v, acc);
       }
     }
-    k2s[tid - BM] = acc;
+    beta[tid - BM] = -0.5f * L2E * acc;
   }
 
   float cross[RM][RN];
@@ -125,11 +164,11 @@ rbf_kernel(const T* __restrict__ xq, const T* __restrict__ xk,
     __syncthreads();
 #pragma unroll
     for (int t = 0; t < DK; ++t) {
-      float a[RM], bk[RN];
+      float a[RM];
 #pragma unroll
       for (int i = 0; i < RM; ++i) a[i] = qs[t][ty + TY * i];
-#pragma unroll
-      for (int j = 0; j < RN; ++j) bk[j] = ks[t][tx + TX * j];
+      const float4 b4 = *reinterpret_cast<const float4*>(&ks[t][RN * tx]);
+      const float bk[RN] = {b4.x, b4.y, b4.z, b4.w};
 #pragma unroll
       for (int i = 0; i < RM; ++i)
 #pragma unroll
@@ -138,21 +177,26 @@ rbf_kernel(const T* __restrict__ xq, const T* __restrict__ xk,
     __syncthreads();
   }
 
-  const float s2 = sig2[0];
+  const int c0 = RN * tx;           // the thread's first column in the tile
+  float bj[RN];
+#pragma unroll
+  for (int j = 0; j < RN; ++j) bj[j] = beta[c0 + j];
 #pragma unroll
   for (int i = 0; i < RM; ++i) {
     const int r = ty + TY * i;
     const int gr = row0 + r;
     if (gr >= n) continue;
+    float o[RN];
 #pragma unroll
-    for (int j = 0; j < RN; ++j) {
-      const int c = tx + TX * j;
-      const int gc = col0 + c;
-      if (gc < m) {
-        const float d2 = fmaxf(q2s[r] + k2s[c] - 2.f * cross[i][j], 0.f);
-        out[static_cast<long long>(gr) * m + gc] =
-            from_f32<T>(s2 * expf(-0.5f * d2));
-      }
+    for (int j = 0; j < RN; ++j)
+      o[j] = ex2(fminf(fmaf(L2E, cross[i][j], alpha[r] + bj[j]), l2s2));
+    T* row = out + static_cast<long long>(gr) * m + col0 + c0;
+    if (vec && col0 + c0 < m) {
+      store4(row, o);
+    } else {
+#pragma unroll
+      for (int j = 0; j < RN; ++j)
+        if (col0 + c0 + j < m) row[j] = from_f32<T>(o[j]);
     }
   }
 }
@@ -163,10 +207,13 @@ void launch(const void* xq, const void* xk, const void* sig2, void* out,
             long long k_bstride, cudaStream_t stream) {
   const dim3 block(TX, TY);
   const dim3 grid((m + BN - 1) / BN, (n + BM - 1) / BM, batch);
+  // whole rows of 4-output vectors: m % 4 == 0 and an aligned base
+  const bool vec = m % RN == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % (RN * sizeof(T)) == 0;
   rbf_kernel<T><<<grid, block, 0, stream>>>(
       static_cast<const T*>(xq), static_cast<const T*>(xk),
       static_cast<const float*>(sig2), static_cast<T*>(out), n, m, d,
-      q_bstride, k_bstride);
+      q_bstride, k_bstride, vec);
 }
 
 }  // namespace

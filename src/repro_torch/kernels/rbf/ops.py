@@ -5,8 +5,9 @@ Each wrapper takes its kernel's plain version (``ref.py``) for CPU tensors,
 and only because they lie on the CPU. For CUDA tensors it checks device,
 dtype, shape and contiguity, allocates the outputs, launches the kernel on
 the current stream and raises if the launch failed; it never falls back.
-``rbf_launches`` / ``xcov_launches`` count kernel launches (never the plain
-path), so a run can show that its main path went through the kernels;
+``rbf_launches`` / ``icf_launches`` / ``xcov_launches`` count kernel
+launches (never the plain path), so a run can show that its main path went
+through the kernels;
 ``xcov_tc_launches`` counts the launches of the tensor-core instance (as
 the C entry reports them), and ``inverse_builds`` the triangular inverses
 that ``tri_inv`` built (once per factor, see there).
@@ -23,6 +24,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.rbf import ref
 
 rbf_launches = 0
+icf_launches = 0
 xcov_launches = 0
 xcov_tc_launches = 0
 inverse_builds = 0
@@ -38,8 +40,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def reset_counts() -> None:
-    global rbf_launches, xcov_launches, xcov_tc_launches, inverse_builds
-    rbf_launches = xcov_launches = xcov_tc_launches = inverse_builds = 0
+    global rbf_launches, icf_launches, xcov_launches, xcov_tc_launches, \
+        inverse_builds
+    rbf_launches = icf_launches = xcov_launches = xcov_tc_launches = \
+        inverse_builds = 0
 
 
 @functools.cache
@@ -49,6 +53,22 @@ def _rbf_entry():
     fn.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P]
     fn.restype = _I
     return lib, fn
+
+
+@functools.cache
+def _icf_entry():
+    lib = build.library("rbf_icf")
+    fn = lib.rbf_icf
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                   _P]
+    fn.restype = _I
+    plan = lib.rbf_icf_plan
+    plan.argtypes = [_I, _I, _I, _I, _I] + [ctypes.POINTER(_I)] * 7
+    plan.restype = _I
+    probe = lib.rbf_icf_barrier_probe
+    probe.argtypes = [_I, _I, _I, _I, _P, _P]
+    probe.restype = _I
+    return lib, fn, plan, probe
 
 
 @functools.cache
@@ -112,6 +132,102 @@ def rbf_covariance(Xq: torch.Tensor, Xk: torch.Tensor, sig2) -> torch.Tensor:
     build.check(lib, code, "rbf_covariance launch")
     rbf_launches += 1
     return out
+
+
+_ICF_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+def _icf_dtype_code(dtype: torch.dtype) -> int:
+    if dtype not in _ICF_DTYPES:
+        raise TypeError(f"the ICF kernel takes float32 or float64; got "
+                        f"{dtype}")
+    return _ICF_DTYPES[dtype]
+
+
+def icf_plan(dtype: torch.dtype, n: int, R: int, d: int,
+             cached_rows: int | None = None, device=None) -> dict:
+    """The ICF kernel's launch for ``n`` candidates, ``R`` pivots and ``d``
+    features on ``device`` (the current card): ``blocks`` (one an SM),
+    ``width`` (columns a block), ``cached_rows`` (leading entries of each
+    column's factor kept on chip: as many as fit, at most ``cached_rows``),
+    ``smem_rows`` (of them in shared memory; the rest in registers),
+    ``smem`` (bytes), ``row_stride`` (of the transposed factor) and
+    ``max_rank`` (the largest R its shared memory takes)."""
+    code = _icf_dtype_code(dtype)
+    lib, _, plan, _ = _icf_entry()
+    out = [_I(0) for _ in range(7)]
+    with torch.cuda.device(device):
+        code = plan(code, n, R, d,
+                    -1 if cached_rows is None else cached_rows,
+                    *(ctypes.byref(o) for o in out))
+    keys = ("blocks", "width", "cached_rows", "smem_rows", "smem",
+            "row_stride", "max_rank")
+    info = dict(zip(keys, (o.value for o in out)))
+    if R > info["max_rank"] > 0:
+        raise ValueError(
+            f"R={R} exceeds the ICF kernel's limit of {info['max_rank']} "
+            f"pivots for {dtype} at d={d}: the pivot's factor column "
+            f"F[:i, p] is staged in shared memory")
+    build.check(lib, code, "rbf_icf plan")
+    return info
+
+
+def icf_factor(Xs: torch.Tensor, sig2, R: int, *,
+               cached_rows: int | None = None):
+    """Pivoted incomplete Cholesky of the SE kernel matrix over pre-scaled
+    candidates Xs (n, d): all R pivot steps in one cooperative launch of
+    ``csrc/rbf_icf.cu``, with each step's kernel column computed in the
+    update (rbf's arithmetic). Returns (F (R, n), pivots (R,) int64,
+    residual (n,)) in Xs's dtype, float32 or float64, which is also the
+    accumulation type. ``cached_rows`` caps the factor entries each column
+    keeps on chip (default: as many as fit; the result does not depend on
+    it, which the checks on the card hold it to). Raises where the kernel
+    cannot run; never falls back to the step loop."""
+    global icf_launches
+    if build.on_cpu(Xs):
+        return ref.icf_factor(Xs, sig2, R)
+    if Xs.ndim != 2 or Xs.shape[0] < 1 or R < 0:
+        raise ValueError(f"need Xs (n, d) with n >= 1 and R >= 0; got "
+                         f"{tuple(Xs.shape)}, R={R}")
+    Xs = Xs.contiguous()
+    n, d = Xs.shape
+    dt, dev = Xs.dtype, Xs.device
+    plan = icf_plan(dt, n, R, d, cached_rows, dev)
+    F = torch.empty((R, n), dtype=dt, device=dev)
+    piv = torch.empty((R,), dtype=torch.long, device=dev)
+    resid = torch.empty((n,), dtype=dt, device=dev)
+    Ft = torch.zeros((n, plan["row_stride"]), dtype=dt, device=dev)
+    cand_v = torch.empty((2 * plan["blocks"],), dtype=dt, device=dev)
+    cand_i = torch.empty((2 * plan["blocks"],), dtype=torch.int32,
+                         device=dev)
+    sync = torch.zeros((1,), dtype=torch.int32, device=dev)
+    s2 = torch.as_tensor(sig2, dtype=dt).to(dev).reshape(1)
+    lib, fn, _, _ = _icf_entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(_icf_dtype_code(dt), Xs.data_ptr(), s2.data_ptr(),
+                  F.data_ptr(), Ft.data_ptr(), piv.data_ptr(),
+                  resid.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(),
+                  sync.data_ptr(), n, R, d,
+                  -1 if cached_rows is None else cached_rows, stream)
+    build.check(lib, code, "rbf_icf launch")
+    icf_launches += 1
+    return F, piv, resid
+
+
+def icf_barrier_probe(dtype: torch.dtype, n: int, R: int, d: int,
+                      device=None) -> None:
+    """R empty grid barriers on the grid ``icf_factor`` launches for (n, d):
+    the factorization's barrier floor (chip_smoke.py times it). Not counted
+    as an ICF launch."""
+    code = _icf_dtype_code(dtype)
+    lib, _, _, probe = _icf_entry()
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    sync = torch.zeros((1,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = probe(code, n, R, d, sync.data_ptr(), stream)
+    build.check(lib, code, "rbf_icf barrier probe")
 
 
 def pick_serve_block_q(n: int) -> int:

@@ -55,6 +55,25 @@ def test_rbf_kernel_matches_plain(cuda, sq, sk, dtype, tol):
     assert float((got.double() - want.double()).abs().max()) < tol
 
 
+@pytest.mark.parametrize("sq,sk", [((2048, 5), (1601, 5)),
+                                   ((70, 5), (3, 1601, 5)),
+                                   ((2048, 5), (1604, 5)),
+                                   ((3, 65, 5), (3, 130, 5))])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2),
+                                       (torch.float64, 1e-5)])
+def test_rbf_kernel_vector_and_scalar_stores(cuda, sq, sk, dtype, tol):
+    """Rows of m % 4 != 0 columns (not 16-byte aligned) store element by
+    element, aligned ones four at a time; both give the plain values."""
+    rng = np.random.default_rng(11)
+    Xq = torch.tensor(rng.uniform(-1.7, 1.7, size=sq)).to(cuda, dtype)
+    Xk = torch.tensor(rng.uniform(-1.7, 1.7, size=sk)).to(cuda, dtype)
+    got = ops.rbf_covariance(Xq, Xk, torch.tensor(1.3, device=cuda))
+    want = ref.rbf_covariance(Xq, Xk, 1.3)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert float((got.double() - want.double()).abs().max()) < tol
+
+
 @pytest.mark.parametrize("n", [1, 8, 16, 33, 256])
 @pytest.mark.parametrize("s,d", [(12, 3), (130, 21)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -236,6 +255,143 @@ def test_xcov_kernel_rejects_bfloat16(cuda):
     with pytest.raises(TypeError, match="float32 or float64"):
         ops.xcov_diag(X, X, torch.eye(4, device=cuda), torch.zeros(4,
                       device=cuda), 1.0)
+
+
+# --- the ICF kernel (select_support's pivot loop) ----------------------------
+
+# (n, R, d): select_support's shape on the GP main path, a ragged case, and
+# 40 distinct points each present twice (exact ties: the first-max rule)
+ICF_CASES = [(8192, 2048, 5), (1000, 120, 7), ("duplicates", 30, 3)]
+ICF_SIG2 = 1.3
+# float32: the plain loop replayed along the kernel's pivots must find each
+# of them within this (x sig2) of its own largest residual. Both loops round
+# each step's GEMV (i terms) in their own order, an error of ~sqrt(i) eps
+# sig2 in f that the division by sqrt(d_p) amplifies and d accumulates:
+# ~1e-5 sig2 late in a 2048-step run, so 1e-4 leaves 10x. Where the plain
+# loop's two largest residuals are that close, the two may pick apart.
+ICF_TIE_F32 = 1e-4
+# float32 F against that replay, x sqrt(sig2) (F's largest entry): ~13x the
+# largest reading on the H100 (2.9e-5 to 3.9e-5 sqrt(sig2) at (8192, 2048,
+# 5), seeds 3-5; 2.9e-5 on the AIMPEAK candidates in chip_smoke.py). Late
+# rows' entries are ~0.07 sqrt(sig2), so a wrong row or column errs by 100x
+# this limit.
+ICF_F32_TOL = 5e-4
+
+
+def _icf_inputs(n, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    if n == "duplicates":
+        P = rng.normal(size=(40, d))
+        X = np.concatenate([P, P])
+    else:
+        X = rng.uniform(-2.0, 2.0, size=(n, d)) / 1.2
+    return torch.tensor(X).to(device, dtype)
+
+
+def icf_tolerance(F, piv, sig2):
+    """Limits for the kernel's F and residual against the plain loop's
+    (same pivots). Each f sums i <= R products of factor entries bounded by
+    sig2 (|F[:, j]|^2 <= K_jj), rounded in another order than the plain
+    loop's, then divides by sqrt(d_p): R eps sig2 / sqrt(min d_p), times 64
+    for the errors earlier rows carry into later ones. The residual
+    sig2 - sum_i f_ij^2 moves by at most 2 sqrt(R sig2) times that.
+    min d_p = min_i F[i, p_i]^2, since f_p = sqrt(d_p)."""
+    R = F.shape[0]
+    eps = torch.finfo(F.dtype).eps
+    min_dp = float(F[torch.arange(R, device=F.device), piv].pow(2).min())
+    tol_f = 64 * R * eps * sig2 / max(min_dp, 1e-300) ** 0.5
+    return tol_f, 2 * (R * sig2) ** 0.5 * tol_f, min_dp
+
+
+@pytest.mark.parametrize("n,R,d", ICF_CASES)
+def test_icf_kernel_matches_plain_f64(cuda, n, R, d):
+    Xs = _icf_inputs(n, d, torch.float64, cuda)
+    sig2 = torch.tensor(ICF_SIG2, dtype=torch.float64, device=cuda)
+    before = ops.icf_launches
+    F, piv, resid = ops.icf_factor(Xs, sig2, R)
+    torch.cuda.synchronize()
+    assert ops.icf_launches == before + 1
+    Fw, pw, rw = ref.icf_factor(Xs, sig2, R)
+    assert torch.equal(piv, pw)
+    tol_f, tol_r, min_dp = icf_tolerance(Fw, pw, ICF_SIG2)
+    err_f = float((F - Fw).abs().max())
+    err_r = float((resid - rw).abs().max())
+    print(f"ICF f64 n={n} R={R} d={d}: min d_p {min_dp:.3e}; max|dF| "
+          f"{err_f:.3e} (tol {tol_f:.3e}), max|dresid| {err_r:.3e} (tol "
+          f"{tol_r:.3e})")
+    assert err_f <= tol_f and err_r <= tol_r
+
+
+@pytest.mark.parametrize("seed", [3, 4, 5])
+@pytest.mark.parametrize("n,R,d", ICF_CASES[:2])
+def test_icf_kernel_f32_pivots_are_near_ties_of_the_plain_loop(cuda, n, R, d,
+                                                               seed):
+    """float32: the plain loop replayed along the kernel's pivots finds every
+    one of them within ICF_TIE_F32 of its largest residual (so the two agree
+    up to the first such near-tie), with the same factor within
+    ICF_F32_TOL."""
+    Xs = _icf_inputs(n, d, torch.float32, cuda, seed=seed)
+    sig2 = torch.tensor(ICF_SIG2, device=cuda)
+    F, piv, _ = ops.icf_factor(Xs, sig2, R)
+    Fr, _, _ = ref.icf_factor(Xs, sig2, R, pivots=piv)
+    slack = ref.icf_slack(Fr, piv, sig2)
+    _, pw, _ = ref.icf_factor(Xs, sig2, R)
+    differ = (piv != pw).nonzero()
+    prefix = int(differ[0]) if differ.numel() else R
+    tol_f = ICF_F32_TOL * ICF_SIG2 ** 0.5
+    err_f = float((F - Fr).abs().max())
+    print(f"ICF f32 n={n} R={R} seed {seed}: pivots agree with the plain "
+          f"loop for {prefix} steps; max slack {float(slack.max()):.3e} (tol "
+          f"{ICF_TIE_F32 * ICF_SIG2:.1e}); max|dF| {err_f:.3e} "
+          f"({err_f / ICF_SIG2 ** 0.5:.2e} sqrt(sig2); tol {tol_f:.1e})")
+    assert float(slack.max()) <= ICF_TIE_F32 * ICF_SIG2
+    assert err_f <= tol_f
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_icf_kernel_repeats_bitwise_and_cache_changes_nothing(cuda, dtype):
+    """No atomics: three launches are bitwise equal, and keeping fewer
+    factor rows on chip (none in registers: cached_rows=smem_rows; none at
+    all: cached_rows=0) gives the same bits, since the on-chip and the
+    global entries are the same numbers summed in the same order."""
+    Xs = _icf_inputs(8192, 5, dtype, cuda)
+    sig2 = torch.tensor(ICF_SIG2, dtype=dtype, device=cuda)
+    plan = ops.icf_plan(dtype, 8192, 2048, 5)
+    assert plan["blocks"] * plan["width"] >= 8192
+    assert 0 < plan["cached_rows"] < 2048
+    runs = [ops.icf_factor(Xs, sig2, 2048) for _ in range(3)]
+    runs.append(ops.icf_factor(Xs, sig2, 2048,
+                               cached_rows=plan["smem_rows"]))
+    runs.append(ops.icf_factor(Xs, sig2, 2048, cached_rows=0))
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert torch.equal(a, b)
+
+
+def test_icf_kernel_rejects_what_it_cannot_run(cuda):
+    X = torch.zeros(16, 3, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        ops.icf_factor(X, 1.0, 4)
+    limit = ops.icf_plan(torch.float64, 16, 4, 3)["max_rank"]
+    with pytest.raises(ValueError, match=f"limit of {limit} pivots"):
+        ops.icf_factor(X.double(), 1.0, limit + 1)
+
+
+def test_select_support_runs_one_icf_launch(cuda):
+    """select_support with an SE spec on the card: one ICF launch, no rbf
+    launch, and the support the plain loop selects (float64)."""
+    from repro_torch.core import covariance as cov, support
+    rng = np.random.default_rng(7)
+    C = torch.tensor(rng.uniform(-2.0, 2.0, size=(1000, 5)), device=cuda)
+    params = cov.init_params(5, signal=1.3, noise=0.3, lengthscale=1.2,
+                             dtype=torch.float64, device=cuda)
+    ops.reset_counts()
+    S = support.select_support(cov.make_spec("se"), params, C, 100)
+    torch.cuda.synchronize()
+    assert (ops.icf_launches, ops.rbf_launches) == (1, 0)
+    _, piv, _ = ref.icf_factor(cov._scale(params, C), cov.signal_var(params),
+                               100)
+    assert torch.equal(S, C.index_select(0, piv))
 
 
 # --- flash attention and SSD (the LM serving slice) ---------------------------
