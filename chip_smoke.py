@@ -36,6 +36,15 @@ Phases, in order; any failure exits non-zero before the last line:
    with the compose path, the requests must build no triangular inverse
    (the plan's are cached per state) and every xcov_diag launch must take
    the float32 tensor-core instance;
+4b. GP pPIC routed: phase 4's data, support set and hyperparameters,
+   co-clustered (Remark 2), ``api.fit("ppic")`` in float32, then the same
+   8 requests through ``plan(ServeSpec(routed=True)).routed_diag`` after
+   warming the whole overflow ladder; the test RMSE must be at most
+   0.3040 + 0.002 with no negative variance, the error against a float64
+   fit of the same data within 10 x pPITC's own + 1e-4, a permuted request
+   bitwise equal, a skewed request must overflow (g > 0) and agree with
+   the capacity-|U| layout, the cached C^-1 with the trsm path, and a dead
+   block's rows must be served by xcov_diag from the global posterior;
 5. LM main path, qwen3-1.7b at full width and depth (random weights from
    seed 0, bfloat16 compute): prefill of 4 x 4096 tokens through
    ``forward(logits_last_only=True)``, then ``prefill_then_decode`` (4
@@ -1101,8 +1110,229 @@ def main_path(torch, card: str):
     if not (abs(rmse - RMSE_AIMPEAK) <= TOL_RMSE and neg == 0.0):
         fail(f"test RMSE {rmse} (want {RMSE_AIMPEAK} +- {TOL_RMSE}), "
              f"negative-variance share {neg} (want 0)")
+    data = {"ds": ds, "spec": spec, "params": params, "S": S}
     return launches, {"block_launches": block, "icf_launches": icf_n,
-                      "select_support_s": t2 - t1}
+                      "select_support_s": t2 - t1}, data
+
+
+# pPIC routed serving (phase 4b). Tolerances:
+#  the permuted request must be bitwise equal (same shapes, same programs);
+#  skewed traffic against the capacity-|U| layout, in units of 1 + |value|:
+#  SKEW_TOL, fixed. The layouts run batched products and solves of other
+#  shapes; on the H100 they differed by 7.3e-5 at one skew target, where
+#  1e-5 failed. The limit leaves that reading room, and a wrong block or
+#  slot errs by O(0.1). The check runs at SKEW_TARGETS blocks' centroids and
+#  prints each reading. The CPU tests hold the layouts bitwise;
+#  cached C^-1 against the trsm path: the reference's 1e-3
+#  (tests/test_plan.py), a different float path of the same math;
+#  f32 against an f64 fit of the same data: <= 10 x pPITC's own f32-vs-f64
+#  error on the same queries + 1e-4, the shape of phase 4's limit;
+#  degraded rows against global_diag: 1e-6 (1 + |value|) (same call).
+PPIC_F64_QUERIES = 1024
+SKEW_ROWS, SKEW_SCALE = 256, 0.01
+SKEW_TARGETS, SKEW_TOL = (0, 5, 10, 15), 3e-4
+
+
+def max_rel(a, b) -> float:
+    return float(((a.double() - b.double()).abs()
+                  / (1.0 + b.double().abs())).max())
+
+
+def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
+    """Fit pPIC on the co-clustered AIMPEAK data (phase 4's support set and
+    hyperparameters) and serve it routed through the plan API; returns the
+    kernels' launch counts during the fit and requests."""
+    import numpy as np
+    from repro_torch.core import api, clustering, covariance as cov, linalg, \
+        ppic
+    from repro_torch.kernels.rbf import ops
+    from repro_torch.parallel.runner import VmapRunner
+
+    dev = ds.X.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    Xc, yc, _, _, _ = clustering.cocluster(
+        ds.X.cpu().numpy(), ds.y.cpu().numpy(), ds.X_test.cpu().numpy(), M,
+        np.random.default_rng(0))
+    Xc, yc = torch.as_tensor(Xc).to(dev), torch.as_tensor(yc).to(dev)
+    t1 = time.perf_counter()
+    model = api.fit("ppic", spec, params, Xc, yc, S=S,
+                    runner=VmapRunner(M=M))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    t_fit = t2 - t1
+    # B and beta are fields of the reference's state that the port's
+    # serving does not read: their share of the fit, as the fit solves them
+    st = model.state
+    t_bb = time.perf_counter()
+    linalg.chol_solve(st.Kss_L, st.Sdot)
+    linalg.chol_solve(st.Kss_L, st.ydot[..., None])
+    torch.cuda.synchronize()
+    t_bb = time.perf_counter() - t_bb
+    del st
+    t2 = time.perf_counter()
+    plan = model.plan(api.ServeSpec(routed=True, max_batch=256))
+    torch.cuda.synchronize()
+    t_plan = time.perf_counter() - t2
+    plan.warmup(D)
+    t3 = time.perf_counter()
+    outs, lat_ms, gs, off = [], [], [], 0
+    for size in REQUEST_SIZES:
+        idx = torch.arange(off, off + size, device=dev) % N_TEST
+        U = ds.X_test.index_select(0, idx)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        mean, var = plan.routed_diag(U)
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - ts) * 1e3)
+        gs.append(plan.stats.last_g)
+        outs.append((idx, mean, var))
+        off = (off + size) % N_TEST
+    launches = {"rbf": ops.rbf_launches + ops.icf_launches,
+                "xcov_diag": ops.xcov_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  counts during the fit and requests: {launches} (xcov_diag: "
+          f"the degraded programs' warm-up)", flush=True)
+    if launches["rbf"] <= 0:
+        fail("kernel rbf was not launched on the pPIC path")
+    for idx, mean, var in outs:
+        if mean.shape != idx.shape or var.shape != idx.shape:
+            fail(f"routed_diag shapes {tuple(mean.shape)}/"
+                 f"{tuple(var.shape)} for {idx.numel()} queries")
+        if not (torch.isfinite(mean).all() and torch.isfinite(var).all()):
+            fail(f"non-finite routed_diag output at batch {idx.numel()}")
+    idx_all, mean_all, var_all = outs[-1]     # the 3200-row request
+    y_all = ds.y_test.index_select(0, idx_all)
+    rmse = float(torch.sqrt(torch.mean((mean_all - y_all) ** 2)))
+    neg = float((var_all < 0).double().mean())
+    p50 = sorted(lat_ms)[len(lat_ms) // 2]
+    print(f"  [{card}] cocluster {t1 - t0:.3f} s, fit {t_fit:.3f} s (of "
+          f"which the B and beta solves, timed alone: {t_bb:.4f} s), plan "
+          f"(Q = L^-1 K_SD) {t_plan:.4f} s, warmup {t3 - t2 - t_plan:.3f} s "
+          f"({plan.stats.n_traces} programs), peak {peak_gb:.2f} GB",
+          flush=True)
+    print(f"  [{card}] requests {list(REQUEST_SIZES)}: latency ms "
+          f"{[round(x, 3) for x in lat_ms]}, p50 {p50:.3f} ms, last_g "
+          f"{gs}", flush=True)
+    print(f"  [{card}] test RMSE {rmse:.4f} (standardized; "
+          f"{rmse * float(ds.std_y):.3f} km/h), negative-variance share "
+          f"{neg:.4f} of {N_TEST}", flush=True)
+    if not (rmse <= RMSE_AIMPEAK + TOL_RMSE and neg == 0.0):
+        fail(f"pPIC test RMSE {rmse} (want <= {RMSE_AIMPEAK + TOL_RMSE}), "
+             f"negative-variance share {neg} (want 0)")
+
+    # float32 against a float64 fit of the same data (plain kernels: the
+    # rbf kernel accumulates in float32 whatever its input type)
+    spec64 = cov.make_spec("se", impl="torch")
+    p64 = {k: v.double() for k, v in params.items()}
+    t4 = time.perf_counter()
+    model64 = api.fit("ppic", spec64, p64, Xc.double(), yc.double(),
+                      S=S.double(), runner=VmapRunner(M=M))
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    U = ds.X_test[:PPIC_F64_QUERIES]
+    m32, v32 = plan.routed_diag(U)
+    m64, v64 = model64.plan(api.ServeSpec(routed=True, max_batch=256)) \
+        .routed_diag(U.double())
+    g32 = ppic.global_diag(plan.kfn, params, model.state, U)
+    g64 = ppic.global_diag(spec64, p64, model64.state, U.double())
+    e_pic = max(max_err(m32, m64), max_err(v32, v64))
+    e_pitc = max(max_err(g32[0], g64[0]), max_err(g32[1], g64[1]))
+    fields = {f: max_err(getattr(model.state, f),
+                         getattr(model64.state, f))
+              / float(getattr(model64.state, f).abs().max())
+              for f in ("Sdd_L", "alpha", "C_L", "Wy", "beta", "B")}
+    lim = 10 * e_pitc + 1e-4
+    print(f"  f32 vs f64 fit ({t5 - t4:.3f} s), {PPIC_F64_QUERIES} routed "
+          f"queries: pPIC {e_pic:.3e}, pPITC (global_diag) {e_pitc:.3e}; "
+          f"limit {lim:.3e} = 10 x pPITC + 1e-4; state fields' max error "
+          f"over max |f64|: "
+          f"{ {k: float(f'{v:.2e}') for k, v in fields.items()} }",
+          flush=True)
+    del model64, m64, v64, g64
+    torch.cuda.empty_cache()
+    if not e_pic <= lim:
+        fail(f"pPIC f32 error against the f64 fit {e_pic} > {lim}")
+
+    # invariants on the card
+    gen = torch.Generator(device=dev).manual_seed(0)
+    U = ds.X_test[:256]
+    m, v = plan.routed_diag(U)
+    perm = torch.randperm(256, device=dev, generator=gen)
+    mp, vp = plan.routed_diag(U[perm])
+    bitwise = bool(torch.equal(mp, m[perm]) and torch.equal(vp, v[perm]))
+    print(f"  permuted 256-row request bitwise equal: {bitwise}", flush=True)
+    if not bitwise:
+        fail("a permuted request is not bitwise equal row by row")
+
+    st64 = api.PICState(*(t.double() for t in model.state))
+    skew = []
+    for blk in SKEW_TARGETS:
+        c = model.state.centroids[blk]
+        Us = c[None, :] + SKEW_SCALE * torch.randn(SKEW_ROWS, D, device=dev,
+                                                   generator=gen)
+        ms, vs = plan.routed_diag(Us)
+        g_skew = plan.stats.last_g
+        mc, vc = ppic.predict_routed_diag_capacity(plan.kfn, params,
+                                                   model.state, Us)
+        mt, vt = ppic.predict_routed_diag_capacity(spec64, p64, st64,
+                                                   Us.double())
+        e_skew = max(max_rel(ms, mc), max_rel(vs, vc))
+        e_cap = max(max_rel(mc, mt), max_rel(vc, vt))
+        e_two = max(max_rel(ms, mt), max_rel(vs, vt))
+        skew.append((g_skew, e_skew))
+        print(f"  skewed request ({SKEW_ROWS} rows around block {blk}'s "
+              f"centroid): g {g_skew}, against the capacity layout "
+              f"{e_skew:.3e} of 1 + |value| (limit {SKEW_TOL:.0e}); each "
+              f"layout against an f64 evaluation of the state: capacity "
+              f"{e_cap:.3e}, two-bucket {e_two:.3e}", flush=True)
+    del st64
+    if not all(g > 0 and e <= SKEW_TOL for g, e in skew):
+        fail(f"skewed requests (g, error): {skew}")
+
+    t6 = time.perf_counter()
+    cplan = model.plan(api.ServeSpec(routed=True, max_batch=256,
+                                     cached_cinv=True))
+    torch.cuda.synchronize()
+    t7 = time.perf_counter()
+    mi, vi = cplan.routed_diag(U)
+    e_cinv = max(max_err(mi, m), max_err(vi, v))
+    print(f"  cached C^-1 (built in {t7 - t6:.3f} s) against the trsm path: "
+          f"{e_cinv:.3e} (limit 1e-3)", flush=True)
+    if not e_cinv <= 1e-3:
+        fail(f"cached C^-1 disagrees with the trsm path: {e_cinv}")
+
+    dead_blk = int(np.bincount(clustering.nearest_center_np(
+        U.cpu().numpy(), plan._centroids_host), minlength=M).argmax())
+    alive = np.ones(M, bool)
+    alive[dead_blk] = False
+    x0, n0 = ops.xcov_launches, plan.stats.n_degraded_rows
+    md, vd = plan.routed_diag(U, block_alive=alive)
+    torch.cuda.synchronize()
+    deg = torch.as_tensor(plan.stats.last_degraded, device=dev)
+    n_deg, x_deg = plan.stats.n_degraded_rows - n0, ops.xcov_launches - x0
+    mg, vg = ppic.global_diag(plan.kfn, params, model.state, U)
+    e_deg = max(max_rel(md[deg], mg[deg]), max_rel(vd[deg], vg[deg]))
+    same = bool(torch.equal(md[~deg], m[~deg])
+                and torch.equal(vd[~deg], v[~deg]))
+    print(f"  block {dead_blk} dead: {n_deg} degraded rows (stats), "
+          f"{int(deg.sum())} in the mask; xcov_diag launches {x_deg}; "
+          f"against global_diag {e_deg:.3e} (limit 1e-6), bitwise "
+          f"{bool(torch.equal(md[deg], mg[deg]))}; other rows unchanged "
+          f"{same}", flush=True)
+    if not (n_deg == int(deg.sum()) > 0 and x_deg >= 1 and e_deg <= 1e-6
+            and same and torch.isfinite(md).all()):
+        fail("bounded degradation: degraded rows, xcov_diag launch or "
+             "agreement with global_diag wrong")
+
+    # where a request's time goes: one 256-row routed request, traced
+    from repro_torch.launch.profile import report
+    report("  one 256-row routed request", lambda: plan.routed_diag(U))
+    print(f"  [{card}] phase peak device memory (the f64 fit included) "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -1162,8 +1392,18 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("phase 4: GP main path", flush=True)
-    launches, gp = main_path(torch, card)
+    launches, gp, data = main_path(torch, card)
     rows[0].update(gp)
+    del gp
+    torch.cuda.empty_cache()
+
+    print("phase 4b: GP pPIC routed", flush=True)
+    ppic_launches = ppic_path(torch, card, **data)
+    for row in rows:
+        if row["name"] in ppic_launches:
+            row["launches_ppic"] = ppic_launches[row["name"]]
+    del data
+    torch.cuda.empty_cache()
 
     print("phase 5: LM main path, qwen3-1.7b", flush=True)
     launches["flash_attention"] = lm_path(

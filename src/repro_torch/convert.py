@@ -4,8 +4,9 @@ the port's tensors.
 All take arrays (numpy, or anything ``numpy.asarray`` reads) so that this
 module needs nothing of the JAX package: the caller hands over
 ``{"log_signal", "log_noise", "log_lengthscale"}`` or a fitted
-``PITCState``/``FGPState`` (any object with those fields, such as the JAX
-NamedTuple itself), and gets the same model on ``device`` in ``dtype``.
+``PITCState``/``PICState``/``FGPState`` (any object with those fields,
+such as the JAX NamedTuple itself), and gets the same model on ``device``
+in ``dtype``.
 ``lm_params_from_arrays`` takes an LM's parameter tree with numpy leaves
 (``jax.tree.map(np.asarray, params)`` on the caller's side).
 """
@@ -20,7 +21,7 @@ from repro_torch.core import api
 from repro_torch.models import transformer as tf
 
 _PARAM_KEYS = ("log_signal", "log_noise", "log_lengthscale")
-_STATES = (api.PITCState, api.FGPState)
+_STATES = (api.PITCState, api.PICState, api.FGPState)
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -37,8 +38,8 @@ def params_from_arrays(params: Mapping, *, device, dtype=None) -> dict:
 
 
 def state_from_arrays(state, *, device, dtype=None):
-    """A fitted ``PITCState`` or ``FGPState`` (matched by its field names)
-    as the port's state of the same name on ``device``."""
+    """A fitted ``PITCState``, ``PICState`` or ``FGPState`` (matched by its
+    field names) as the port's state of the same name on ``device``."""
     fields = tuple(getattr(state, "_fields", ()))
     for cls in _STATES:
         if fields == cls._fields:

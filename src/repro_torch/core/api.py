@@ -1,5 +1,5 @@
 """Unified GP method API: ``fit -> PosteriorState -> plan -> serve`` — port of
-``repro.core.api`` (the FGP/PITC part).
+``repro.core.api`` (the FGP, PITC and PIC part).
 
 Everything that is O((|D|/M)^3) or O(|S|^3) happens once at fit time and is
 cached in a per-method state (a NamedTuple of tensors); a query then costs
@@ -12,9 +12,8 @@ entry point and shared across ``rebind``) and bucket ladder. Phase 2:
 per entry point; PyTorch runs eagerly, so a plan's "executables" are plain
 callables and ``PlanStats.n_traces`` counts how many were built.
 
-Not ported yet: pPIC/PIC/pICF states and plans, the routed path
-(``ServeSpec(routed=True)``), the per-block C⁻¹ cache (``cached_cinv``), the
-incremental ``StateStore`` protocol and the multi-tenant ``compat_key``.
+Not ported yet: the pICF state, the incremental ``StateStore`` protocol
+(``init_store``) and the multi-tenant ``compat_key``.
 """
 from __future__ import annotations
 
@@ -45,6 +44,30 @@ class PITCState(NamedTuple):
     Kss_L: torch.Tensor    # (s, s) chol K_SS
     Sdd_L: torch.Tensor    # (s, s) chol Sigma-dot_DD  (eq. 6)
     alpha: torch.Tensor    # (s,)   Sdd^{-1} ydd       (eq. 7 weights)
+
+
+class PICState(NamedTuple):
+    """PIC/pPIC: PITC globals + per-block caches for the local correction
+    (eqs. 12-14). Leading axis of the block fields is the machine axis M.
+
+    ``centroids`` realizes Remark 2 on the serving side: the per-block data
+    centroids fixed at fit time let ``ppic.predict_routed`` assign each query
+    to the block whose local data best explains it, independent of how the
+    query batch happens to be composed."""
+    S: torch.Tensor          # (s, d)
+    Kss_L: torch.Tensor      # (s, s)
+    Sdd_L: torch.Tensor      # (s, s)
+    alpha: torch.Tensor      # (s,)    Sdd^{-1} ydd
+    Xb: torch.Tensor         # (M, b, d) data blocks
+    yb: torch.Tensor         # (M, b)
+    Ksd: torch.Tensor        # (M, s, b) cached K_S,Dm
+    C_L: torch.Tensor        # (M, b, b) chol Sigma_{DmDm|S}
+    Wy: torch.Tensor         # (M, b)    C^{-1} y_m
+    ydot: torch.Tensor       # (M, s)    local summaries (eq. 3)
+    beta: torch.Tensor       # (M, s)    Kss^{-1} ydot_m
+    B: torch.Tensor          # (M, s, s) Kss^{-1} Sdot_m
+    Sdot: torch.Tensor       # (M, s, s) local summaries (eq. 4)
+    centroids: torch.Tensor  # (M, d)  block centroids (query routing)
 
 
 # ---------------------------------------------------------------------------
@@ -82,9 +105,16 @@ class ServeSpec:
       Explicit ``buckets`` win; otherwise ``default_buckets``; with neither
       the plan serves every batch at its exact size. Oversized batches round
       up to a multiple of the top bucket.
-    * ``routed`` / ``alpha`` / ``max_overflow_groups`` / ``cached_cinv`` —
-      the PIC family's routed serving; not ported yet: ``routed=True`` and
-      ``cached_cinv=True`` raise rather than serve the diag path.
+    * ``routed``   — serve through the batch-composition-invariant
+      centroid-routed path (PIC family only).
+    * ``alpha``    — routed main-bucket capacity multiplier (headroom vs
+      skew, see ``runner.scatter_two_bucket``).
+    * ``max_overflow_groups`` — bounds the routed overflow-program ladder:
+      group counts snap up within {0, 1, 2, 4, ...}; a demand above this
+      cap runs the worst-case-G program. ``None`` = the full ladder.
+    * ``cached_cinv`` — precompute per-block ``C⁻¹ = (C_L C_Lᵀ)⁻¹`` at plan
+      build, so the per-request batched triangular solve becomes one
+      batched matmul. Off by default: a different float path.
     * ``dtype``    — query dtype policy: ``"preserve"``, ``"state"`` or
       ``"float32"``.
     """
@@ -100,11 +130,7 @@ class ServeSpec:
     dtype: str = "preserve"
 
     def __post_init__(self):
-        if self.routed or self.cached_cinv:
-            raise NotImplementedError(
-                "ServeSpec(routed=True) / ServeSpec(cached_cinv=True): the "
-                "routed PIC-family serving path is not yet ported to "
-                "repro_torch (it comes with the pPIC slice)")
+        # fail at construction, not inside routed_capacity at request time
         if self.alpha < 1:
             raise ValueError(f"ServeSpec.alpha must be >= 1; got "
                              f"{self.alpha}")
@@ -112,6 +138,12 @@ class ServeSpec:
                 and self.max_overflow_groups < 0:
             raise ValueError(f"ServeSpec.max_overflow_groups must be >= 0; "
                              f"got {self.max_overflow_groups}")
+        if self.cached_cinv and not self.routed:
+            # the C^-1 cache serves the routed programs only; building it
+            # for a diag-only plan would pay O(M b^3) per rebind for nothing
+            raise ValueError(
+                "ServeSpec(cached_cinv=True) serves the routed flush path; "
+                "set routed=True as well")
 
     def resolve_kfn(self, kfn: Callable) -> Callable:
         served = self.kernel if self.kernel is not None else kfn
@@ -159,8 +191,15 @@ class PlanStats:
     counters describe the plan lineage."""
     n_traces: int = 0          # serving callables built across the lineage
     n_diag_batches: int = 0
+    n_routed_batches: int = 0
     n_full_batches: int = 0
     n_padded_rows: int = 0
+    n_g0_batches: int = 0      # routed requests served by the G=0 program
+    last_g: int | None = None  # overflow-group count of the last routed call
+    # bounded degradation (PIC family): rows answered from the global
+    # S-space posterior because their routed block was marked dead
+    n_degraded_rows: int = 0
+    last_degraded: Any = None  # (u,) bool of the last routed call, or None
 
 
 def _state_device(state) -> torch.device:
@@ -171,13 +210,19 @@ def _state_device(state) -> torch.device:
 class ServePlan:
     """Serving program for ONE (method, kernel, spec, state).
 
-    * ``diag(U)``       — (mean, var) for any |U|: pad to the bucket ladder
-      on the state's device, one dispatch, trim;
-    * ``full(U)``       — the method's native posterior, un-padded;
-    * ``rebind(state)`` — same plan, new posterior: the callables and stats
-      are shared, so nothing is rebuilt;
-    * ``warmup(d)``     — run every bucket once (kernel builds and first
+    * ``diag(U)``        — (mean, var) for any |U|: pad to the bucket
+      ladder on the state's device, one dispatch, trim;
+    * ``routed_diag(U)`` — the batch-composition-invariant path (PIC family;
+      raises for methods without a routed program);
+    * ``full(U)``        — the method's native posterior, un-padded;
+    * ``rebind(state)``  — same plan, new posterior: the callables and stats
+      are shared, so nothing is rebuilt; ``caches`` are rebuilt for it;
+    * ``warmup(d)``      — run every bucket once (kernel builds and first
       launches are not charged to serving latency).
+
+    ``caches`` is method-specific state precomputed per posterior (``None``
+    here; pPIC's plan carries the blocks' whitened cross-covariances and,
+    on request, the per-block ``C⁻¹``).
     """
     method: "GPMethod"
     kfn: Callable
@@ -186,6 +231,7 @@ class ServePlan:
     spec: ServeSpec
     block_q: int
     buckets: tuple[int, ...] | None
+    caches: Any = None
     stats: PlanStats = dataclasses.field(default_factory=PlanStats)
     _exec: dict = dataclasses.field(default_factory=dict)
 
@@ -227,17 +273,20 @@ class ServePlan:
         self.stats.n_padded_rows += bucket - u
         return buf, u
 
-    def _callable(self, key: str, impl: Callable) -> Callable:
-        """The serving callable ``key`` over the method's raw ``impl``,
-        built once and shared across rebinds; ``stats.n_traces`` counts the
-        builds."""
+    def _program(self, key, build: Callable[[], Callable]) -> Callable:
+        """The serving callable ``key``, made by ``build`` once and shared
+        across rebinds; ``stats.n_traces`` counts the builds."""
         fn = self._exec.get(key)
         if fn is None:
-            kfn = self.kfn
-            fn = self._exec[key] = lambda params, state, U: impl(
-                kfn, params, state, U)
+            fn = self._exec[key] = build()
             self.stats.n_traces += 1
         return fn
+
+    def _callable(self, key: str, impl: Callable) -> Callable:
+        """The serving callable ``key`` over the method's raw ``impl``."""
+        kfn = self.kfn
+        return self._program(key, lambda: lambda params, state, U: impl(
+            kfn, params, state, U))
 
     def diag(self, U) -> tuple[torch.Tensor, torch.Tensor]:
         """(mean, var) over a (u, d) batch — THE serving hot path."""
@@ -245,6 +294,34 @@ class ServePlan:
         mean, var = self._callable("diag", self.method.predict_diag_fn)(
             self.params, self.state, Up)
         self.stats.n_diag_batches += 1
+        return mean[:u], var[:u]
+
+    def routed_diag(self, U, block_alive=None):
+        """Generic routed path: the method's raw routed impl with the plan's
+        tile. The PIC family's ``PICServePlan`` overrides this with backend
+        caches, the overflow-program ladder and bounded degradation
+        (``block_alive``); methods with no routed impl raise — their
+        posterior is composition-invariant already, use ``diag``."""
+        impl, tile = self.method.predict_routed_diag_fn, self.block_q
+        if block_alive is not None:
+            raise ValueError(
+                f"method {self.method.name!r}'s generic routed plan has no "
+                f"bounded-degradation path (block_alive); only the PIC "
+                f"family's PICServePlan serves dead-block traffic from the "
+                f"global posterior")
+        self.stats.last_degraded = None
+        if impl is None:
+            raise ValueError(
+                f"method {self.method.name!r} has no routed serving "
+                f"program; its posterior does not depend on query-block "
+                f"assignment — use plan.diag")
+        Up, u = self._padded(U)
+        kfn = self.kfn
+        fn = self._program("routed", lambda: lambda params, state, U: impl(
+            kfn, params, state, U, tile=tile))
+        mean, var = fn(self.params, self.state, Up)
+        self.stats.n_routed_batches += 1
+        self.stats.last_g = None
         return mean[:u], var[:u]
 
     def full(self, U):
@@ -257,16 +334,25 @@ class ServePlan:
 
     def rebind(self, state) -> "ServePlan":
         """Hot-swap the posterior: a new plan over ``state`` sharing this
-        plan's callables and stats."""
-        return dataclasses.replace(self, state=state)
+        plan's callables and stats, with its caches rebuilt for ``state``."""
+        return dataclasses.replace(self, state=state,
+                                   caches=self._rebuild_caches(state))
+
+    def _rebuild_caches(self, state):
+        """Recompute backend caches for a new state (none here)."""
+        return None
 
     def warmup(self, d: int, *, dtype=torch.float32) -> "ServePlan":
-        """Serve one zero batch per bucket, so kernel builds and first
+        """Serve one zero batch per bucket (through the routed program for
+        a routed spec of a method that has one), so kernel builds and first
         launches are paid before traffic; a no-op under identity
         bucketing. ``d`` is the query feature dimension."""
         dev = _state_device(self.state)
+        routed = (self.spec.routed
+                  and self.method.predict_routed_diag_fn is not None)
+        serve = self.routed_diag if routed else self.diag
         for b in self.buckets or ():
-            self.diag(torch.zeros((b, d), dtype=dtype, device=dev))
+            serve(torch.zeros((b, d), dtype=dtype, device=dev))
         if self.buckets and dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return self
@@ -284,19 +370,36 @@ class GPMethod:
     """One GP regression method behind the uniform state API.
 
     ``fit(kfn, params, X, y, **kw) -> state`` where ``kw`` is the subset of
-    (S=, M=, runner=) the method needs; ``predict_fn(kfn, params, state, U)``
-    -> native posterior; ``predict_diag_fn(kfn, params, state, U)`` ->
-    (mean, var) vectors.
+    (S=, M=, runner=) the method needs. The ``*_fn`` fields are the raw
+    prediction implementations (what plans call):
+
+    * ``predict_fn(kfn, params, state, U)``      -> native posterior;
+    * ``predict_diag_fn(kfn, params, state, U)`` -> (mean, var) vectors;
+    * ``predict_routed_diag_fn(..., tile=)``     -> the batch-composition-
+      invariant path (PIC family; ``None`` for methods whose posterior does
+      not depend on query-block assignment);
+    * ``plan_fn(method, kfn, params, state, spec)`` — method-owned
+      ``ServePlan`` factory (``None`` -> the generic plan); pPIC/PIC install
+      one with per-block ``C⁻¹`` caches and the overflow-program ladder.
     """
     name: str
     fit: Callable[..., Any]
     predict_fn: Callable[..., Any]
     predict_diag_fn: Callable[..., Any]
+    predict_routed_diag_fn: Callable[..., Any] | None = None
+    plan_fn: Callable[..., ServePlan] | None = None
 
     def plan(self, kfn, params, state, spec: ServeSpec | None = None
              ) -> ServePlan:
         """Build the serving program for ``state`` under ``spec``."""
         spec = spec if spec is not None else _DEFAULT_SPEC
+        if spec.cached_cinv and self.plan_fn is None:
+            raise ValueError(
+                f"ServeSpec(cached_cinv=True) but method {self.name!r} has "
+                f"no backend-cache plan (only the PIC family serves from "
+                f"per-block C factors)")
+        if self.plan_fn is not None:
+            return self.plan_fn(self, kfn, params, state, spec)
         return ServePlan(self, spec.resolve_kfn(kfn), params, state, spec,
                          spec.resolve_block_q(kfn),
                          spec.resolve_buckets(kfn))
@@ -313,7 +416,7 @@ def register(method: GPMethod) -> GPMethod:
 def get(name: str) -> GPMethod:
     if name not in REGISTRY:
         # methods self-register at module import; pull the core modules in
-        from repro_torch.core import gp, ppitc  # noqa: F401
+        from repro_torch.core import gp, pitc, ppic, ppitc  # noqa: F401
     try:
         return REGISTRY[name]
     except KeyError:
@@ -352,6 +455,15 @@ class FittedGP:
 
     def predict_diag(self, U):
         return self.plan().diag(U)
+
+    def predict_routed_diag(self, U):
+        """Centroid-routed (mean, var) — batch-composition-invariant."""
+        if self.method.predict_routed_diag_fn is None:
+            raise ValueError(
+                f"method {self.method.name!r} has no routed prediction path; "
+                f"its posterior does not depend on query-block assignment — "
+                f"use predict_diag")
+        return self.plan().routed_diag(U)
 
     def with_state(self, state) -> "FittedGP":
         """Hot-swap the cached posterior; plans already built are rebound."""

@@ -58,11 +58,17 @@ def chol_solve(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(B, L, upper=False)
 
 
+def tri_solve_right(L: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """Solve X Lᵀ = A for lower triangular L — A L⁻ᵀ with A's ROWS as the
+    batch axis (= ``tri_solve(L, A.T).T`` mathematically)."""
+    return torch.linalg.solve_triangular(L.mT, A, upper=True, left=False)
+
+
 def chol_solve_right(L: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     """Solve X (L Lᵀ) = A given lower Cholesky L — A (L Lᵀ)⁻¹ with A's ROWS
     as the batch axis (= ``chol_solve(L, A.T).T`` mathematically)."""
-    t = torch.linalg.solve_triangular(L.mT, A, upper=True, left=False)
-    return torch.linalg.solve_triangular(L, t, upper=False, left=False)
+    return torch.linalg.solve_triangular(L, tri_solve_right(L, A),
+                                         upper=False, left=False)
 
 
 def psd_solve(K: torch.Tensor, B: torch.Tensor,

@@ -1,20 +1,23 @@
-"""Summary store of the pPITC fit (Sec. 5.2 algebra) — port of the fit half
-of ``repro.core.online``.
+"""Summary store of the pPITC and pPIC fits (Sec. 5.2 algebra) — port of
+the fit half of ``repro.core.online``.
 
 The pPITC global summary (eqs. 5-6) is an algebraic SUM of per-machine local
 summaries. ``SummaryStore`` holds the stacked summaries, the low-rank factors
 F_m (Σ-dot^m = F_m F_mᵀ) and the cached global factors; ``ppitc.fit`` is
-``to_state(build(...))``, as in the reference. The streaming half (assimilate,
-retire, revive and the ``PITCStore``/``PICStore`` containers) comes with the
-rank-update slice.
+``to_state(build(...))``, as in the reference. ``PICStore`` adds pPIC's
+per-block caches (eqs. 12-14); ``ppic.fit`` is ``init_pic_store(...)
+.to_state()``. The streaming half (assimilate, retire, revive and the
+``PITCStore``) needs the rank-b Cholesky updates and comes with them
+(ROADMAP §1 item 6).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
-from repro_torch.core import api, linalg
+from repro_torch.core import api, clustering, linalg
 from repro_torch.core.ppitc import GlobalSummary, LocalSummary, local_summary
 from repro_torch.parallel.runner import Runner
 
@@ -99,3 +102,87 @@ def to_state(store: SummaryStore, S: torch.Tensor) -> api.PITCState:
     O(|S|²) weight solve against the store's ``Sdd_L``."""
     alpha = linalg.chol_solve(store.Sdd_L, store.ydd[:, None])[:, 0]
     return api.PITCState(S, store.Kss_L, store.Sdd_L, alpha)
+
+
+class PICBlocks(NamedTuple):
+    """Per-block caches for the pPIC local correction (eqs. 12-14); the
+    global algebra lives in the shared SummaryStore. Leading axis M."""
+    Xb: torch.Tensor      # (M, b, d)
+    yb: torch.Tensor      # (M, b)
+    Ksd: torch.Tensor     # (M, s, b)
+    C_L: torch.Tensor     # (M, b, b)
+    Wy: torch.Tensor      # (M, b)
+    beta: torch.Tensor    # (M, s)
+    B: torch.Tensor       # (M, s, s)
+
+
+def _summarize_pic(kfn, params, S, X, y, runner: Runner):
+    """Per-machine summaries + the eqs. (12)-(14) caches, one map."""
+    Xb, yb = runner.shard_blocks(X), runner.shard_blocks(y)
+
+    def fn(Xm, ym, params, S):
+        Kss_L = linalg.chol(kfn(params, S, S))
+        loc, (Ksd, C_L, Wy) = local_summary(kfn, params, S, Kss_L, Xm, ym)
+        F = linalg.tri_solve(C_L, Ksd.mT).mT
+        beta = linalg.chol_solve(Kss_L, loc.ydot[..., None])[..., 0]
+        B = linalg.chol_solve(Kss_L, loc.Sdot)
+        return loc, F, Ksd, C_L, Wy, beta, B
+
+    loc, F, Ksd, C_L, Wy, beta, B = runner.map(fn, (Xb, yb), (params, S))
+    return loc, F, PICBlocks(Xb, yb, Ksd, C_L, Wy, beta, B)
+
+
+_STREAMING = ("the pPIC store's {} needs the rank-b Cholesky updates, "
+              "which are not yet ported to repro_torch (ROADMAP §1 item 6: "
+              "streaming stores)")
+
+
+@dataclasses.dataclass(frozen=True)
+class PICStore:
+    """pPIC's store: the PITC global algebra + per-block local caches;
+    ``to_state`` emits an ``api.PICState`` over the ALIVE blocks with
+    refreshed centroids (routing targets are exactly the blocks that can
+    serve a local correction). ``assimilate``/``retire``/``revive`` wait for
+    the rank-b updates (ROADMAP §1 item 6) and raise."""
+    kfn: object
+    params: dict
+    S: torch.Tensor
+    runner: Runner
+    store: SummaryStore
+    blocks: PICBlocks
+
+    @property
+    def block_size(self) -> int:
+        return int(self.blocks.Xb.shape[1])
+
+    def assimilate(self, X_new, y_new, runner: Runner | None = None):
+        raise NotImplementedError(_STREAMING.format("assimilate"))
+
+    def retire(self, machine: int):
+        raise NotImplementedError(_STREAMING.format("retire"))
+
+    def revive(self, machine: int):
+        raise NotImplementedError(_STREAMING.format("revive"))
+
+    def to_state(self) -> api.PICState:
+        st = self.store
+        glob = to_state(st, self.S)      # shared O(|S|²) global-factor path
+        if bool(st.alive.all()):
+            # common case: no gather, every block cache passed by reference
+            blk, loc = self.blocks, st.locals_
+        else:
+            idx = torch.nonzero(st.alive).flatten()
+            blk = PICBlocks(*(a[idx] for a in self.blocks))
+            loc = LocalSummary(st.locals_.ydot[idx], st.locals_.Sdot[idx])
+        return api.PICState(
+            self.S, glob.Kss_L, glob.Sdd_L, glob.alpha, blk.Xb, blk.yb,
+            blk.Ksd, blk.C_L, blk.Wy, loc.ydot, blk.beta, blk.B, loc.Sdot,
+            clustering.block_centroids(blk.Xb))
+
+
+def init_pic_store(kfn, params, X, y, *, S, runner: Runner) -> PICStore:
+    """The pPIC store of a cold fit; its Sdd factor is the QR of the
+    stacked square root (``_cold_store``), as pPITC's."""
+    loc, F, blocks = _summarize_pic(kfn, params, S, X, y, runner)
+    return PICStore(kfn, params, S, runner,
+                    _cold_store(kfn, params, S, loc, F), blocks)

@@ -617,3 +617,110 @@ def test_lm_on_the_card_matches_the_cpu(cuda, name, counter):
     assert launches[counter] == cfg.n_layers
     want = tf.forward(params, toks, cfg, compute_dtype=torch.float32)
     assert float((got.cpu() - want).abs().max()) < 1e-3
+
+
+# --- routed pPIC serving (scatter, invariants, overflow) ---------------------
+
+@pytest.mark.parametrize("kind", ["random", "skewed"])
+@pytest.mark.parametrize("n,M,tile,max_groups", [(24, 4, 1, None),
+                                                 (256, 20, 8, None),
+                                                 (64, 8, 8, 1)])
+def test_scatter_indices_on_the_card_equal_the_cpu(cuda, kind, n, M, tile,
+                                                   max_groups):
+    from repro_torch.parallel import runner
+    rng = np.random.default_rng(n + M)
+    X = torch.tensor(rng.normal(size=(n, 5)), dtype=torch.float32)
+    a = torch.tensor(rng.integers(0, M, size=n) if kind == "random"
+                     else np.full(n, M - 1))
+    kw = dict(tile=tile, max_groups=max_groups)
+    lay = runner.scatter_two_bucket(X, a, M, **kw)
+    lay_c = runner.scatter_two_bucket(X.to(cuda), a.to(cuda), M, **kw)
+    for f in lay._fields:
+        want, got = getattr(lay, f), getattr(lay_c, f)
+        assert (want is None) == (got is None), f
+        if want is not None:
+            assert torch.equal(got.cpu(), want), f
+    got = runner.gather_two_bucket(lay_c.Xb, lay_c.Xo, lay_c)
+    assert torch.equal(got.cpu(),
+                       runner.gather_two_bucket(lay.Xb, lay.Xo, lay))
+    by = runner.scatter_by_block(X, a, M)
+    by_c = runner.scatter_by_block(X.to(cuda), a.to(cuda), M)
+    for want, got in zip(by, by_c):
+        assert torch.equal(got.cpu(), want)
+
+
+def _fitted_ppic(cuda, n_train=4096, M=8, s_size=256):
+    """pPIC fitted in float32 on the card from co-clustered AIMPEAK-like
+    data (seed 0), through the kernels; its routed plan and test queries."""
+    from repro_torch.core import api, clustering, covariance as cov, support
+    from repro_torch.data import synthetic
+    from repro_torch.parallel.runner import VmapRunner
+    ds = synthetic.standardize(synthetic.aimpeak_like(
+        n=n_train, n_test=512, seed=0, device=cuda))
+    Xc, yc, Uc, _, _ = clustering.cocluster(
+        ds.X.cpu().numpy(), ds.y.cpu().numpy(), ds.X_test.cpu().numpy(), M,
+        0)
+    spec = cov.make_spec("se")
+    params = cov.init_params(5, signal=1.0, noise=0.3, lengthscale=1.2,
+                             device=cuda)
+    S = support.select_support(spec, params, ds.X[:8 * s_size], s_size,
+                               device=cuda)
+    model = api.fit("ppic", spec, params, torch.as_tensor(Xc),
+                    torch.as_tensor(yc), S=S, runner=VmapRunner(M=M),
+                    device=cuda)
+    return model, torch.as_tensor(Uc).to(cuda)
+
+
+def test_routed_permutation_is_bitwise_on_the_card(cuda):
+    from repro_torch.core import api
+    model, U = _fitted_ppic(cuda)
+    plan = model.plan(api.ServeSpec(max_batch=256, routed=True)).warmup(5)
+    ops.reset_counts()
+    m, v = plan.routed_diag(U[:256])
+    assert ops.rbf_launches > 0
+    for seed in range(3):
+        perm = torch.as_tensor(np.random.default_rng(seed).permutation(256),
+                               device=cuda)
+        mp, vp = plan.routed_diag(U[:256][perm])
+        assert torch.equal(mp, m[perm]) and torch.equal(vp, v[perm])
+    assert bool(torch.isfinite(m).all()) and bool((v > 0).all())
+
+
+def test_routed_skewed_batch_overflows_and_matches_capacity_on_the_card(cuda):
+    """Skewed traffic takes g > 0 and agrees with the capacity-|U| layout
+    within 1e-5 (1 + |value|): the two layouts run batched products of
+    other shapes, for which cuBLAS may pick other kernels."""
+    from repro_torch.core import api, ppic
+    model, _ = _fitted_ppic(cuda)
+    plan = model.plan(api.ServeSpec(max_batch=256, routed=True))
+    c = model.state.centroids[0]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    U = c[None, :] + 0.05 * torch.randn(256, 5, device=cuda, generator=gen)
+    m, v = plan.routed_diag(U)
+    assert plan.stats.last_g > 0
+    m_c, v_c = ppic.predict_routed_diag_capacity(plan.kfn, model.params,
+                                                 model.state, U)
+    for a, b in ((m, m_c), (v, v_c)):
+        assert bool(((a - b).abs() <= 1e-5 * (1 + b.abs())).all())
+
+
+def test_routed_cinv_and_degraded_rows_on_the_card(cuda):
+    from repro_torch.core import api, ppic
+    model, U = _fitted_ppic(cuda)
+    base = model.plan(api.ServeSpec(max_batch=256, routed=True))
+    cinv = model.plan(api.ServeSpec(max_batch=256, routed=True,
+                                    cached_cinv=True))
+    m0, v0 = base.routed_diag(U[:256])
+    m1, v1 = cinv.routed_diag(U[:256])
+    assert float((m1 - m0).abs().max()) < 1e-3
+    assert float((v1 - v0).abs().max()) < 1e-3
+    alive = np.ones(8, bool)
+    alive[3] = False
+    ops.reset_counts()
+    m, v = base.routed_diag(U[:256], block_alive=alive)
+    deg = torch.as_tensor(base.stats.last_degraded, device=cuda)
+    assert bool(deg.any()) and ops.xcov_launches == 1
+    m_g, v_g = ppic.global_diag(base.kfn, model.params, model.state,
+                                U[:256])
+    assert torch.equal(m[deg], m_g[deg]) and torch.equal(v[deg], v_g[deg])
+    assert torch.equal(m[~deg], m0[~deg]) and torch.equal(v[~deg], v0[~deg])

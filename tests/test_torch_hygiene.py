@@ -24,7 +24,9 @@ def _port_modules() -> list[str]:
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     mods = _port_modules()
-    assert {"repro_torch.core.ppitc", "repro_torch.kernels.rbf.ops",
+    assert {"repro_torch.core.ppitc", "repro_torch.core.ppic",
+            "repro_torch.core.pitc", "repro_torch.core.clustering",
+            "repro_torch.kernels.rbf.ops",
             "repro_torch.kernels.attention.ops", "repro_torch.kernels.ssd.ops",
             "repro_torch.models.transformer", "repro_torch.launch.serve",
             "repro_torch.configs.registry"} <= set(mods)

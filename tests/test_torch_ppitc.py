@@ -230,8 +230,19 @@ def test_unknown_dtype_policy_raises(prob):
 @pytest.mark.parametrize("kw", [dict(routed=True), dict(cached_cinv=True),
                                 dict(routed=True, cached_cinv=True)])
 def test_routed_serving_is_not_yet_ported(kw):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        api.ServeSpec(**kw)
+    """Routed ``ServeSpec`` rules, as the reference's: ``routed=True``
+    (alone or with ``cached_cinv``) constructs, and ``cached_cinv``
+    without ``routed`` raises."""
+    jax_raises = kw == dict(cached_cinv=True)
+    if jax_raises:
+        with pytest.raises(ValueError, match="cached_cinv"):
+            japi.ServeSpec(**kw)
+        with pytest.raises(ValueError, match="cached_cinv"):
+            api.ServeSpec(**kw)
+    else:
+        spec, jspec = api.ServeSpec(**kw), japi.ServeSpec(**kw)
+        assert (spec.routed, spec.cached_cinv) == (jspec.routed,
+                                                   jspec.cached_cinv)
 
 
 def test_serve_spec_validation_matches_reference():
@@ -248,7 +259,7 @@ def test_serve_spec_validation_matches_reference():
 
 
 def test_registry():
-    assert {"fgp", "ppitc"} <= set(api.names())
+    assert {"fgp", "pic", "pitc", "ppic", "ppitc"} <= set(api.names())
     assert api.get("ppitc").name == "ppitc"
     with pytest.raises(ValueError, match="unknown GP method"):
-        api.get("ppic")
+        api.get("picf")
