@@ -43,8 +43,26 @@ Phases, in order; any failure exits non-zero before the last line:
    0.3040 + 0.002 with no negative variance, the error against a float64
    fit of the same data within 10 x pPITC's own + 1e-4, a permuted request
    bitwise equal, a skewed request must overflow (g > 0) and agree with
-   the capacity-|U| layout, the cached C^-1 with the trsm path, and a dead
-   block's rows must be served by xcov_diag from the global posterior;
+   the capacity-|U| layout (the first is also run stage by stage in both
+   layouts, printing the first stage of the per-block program where they
+   part), the cached C^-1 with the trsm path, and a dead block's rows must
+   be served by xcov_diag from the global posterior;
+4c. GP pICF and MLE, on phase 4's data and hyperparameters, M = 20,
+   R = 2048: the ICF kernel at pICF's instance (32000, 2048, 5) against
+   the plain loop in float64 (pivots identical; F, residual and pivot
+   values within icf_tolerance) and float32 (near ties), timed beside its
+   operations bound and the streaming model of its plan; then
+   ``api.fit("picf")`` in float32 (exactly one ICF launch, rbf block
+   launches for K_{U,D_m}) and the 8 requests through ``plan.diag``; the
+   kernel path against the plain path (``impl="torch"``) in float64:
+   pivots, F, Phi_L and ydd, and the served mean and variance within
+   limits derived from rbf.cu's float32 accumulation; float32 against
+   float64 (RMSE within 10%, negative-variance shares within 0.05; the
+   method's instability at low rank is reproduced, with no RMSE gate);
+   then ``hyper.fit`` (exact likelihood, 10 Adam steps on the paper's
+   10000-point subset) in float64 (losses must fall) and float32 (step 0
+   within its stated limit), and ``hyper.fit_parallel`` on all 32000 rows
+   in float32 (3 steps, finite: Sdd factored from its square root);
 5. LM main path, qwen3-1.7b at full width and depth (random weights from
    seed 0, bfloat16 compute): prefill of 4 x 4096 tokens through
    ``forward(logits_last_only=True)``, then ``prefill_then_decode`` (4
@@ -1138,6 +1156,61 @@ def max_rel(a, b) -> float:
                   / (1.0 + b.double().abs())).max())
 
 
+LAYOUT_STAGES = ("K_US", "K_UD", "A = K_US L^-T", "R = K_UD - A Q",
+                 "W = R C^-1", "mean", "var")
+
+
+def layout_stages(torch, plan, state, U, layout: str) -> list:
+    """The per-block program of a routed request (``ppic._block_posterior_
+    diag``), stage by stage, in the two-bucket layout the plan serves
+    (``layout="two"``, its host assignment and group count) or in the
+    capacity-|U| layout (``"capacity"``), each stage's rows gathered back
+    to the caller's order: LAYOUT_STAGES."""
+    from repro_torch.core import linalg, ppic
+    from repro_torch.parallel import runner as rn
+    kfn, params = plan.kfn, plan.params
+    M = state.Xb.shape[0]
+    assign, g = plan._route(U.cpu().numpy(), U.shape[0])
+    assign = torch.as_tensor(assign).to(U.device)
+    fields = ppic._block_fields(state, plan.caches.Q)
+
+    def stages(Ub, f):
+        Kus = kfn(params, Ub, state.S)
+        Kud = kfn(params, Ub, f.Xb)
+        A = ppic._rows(linalg.tri_solve_right, state.Kss_L, Kus)
+        R = Kud - A @ f.Q
+        W = linalg.chol_solve_right(f.C_L, R)
+        mean, var = ppic._diag_terms(kfn, params, state, Ub, f, Kus, A, R,
+                                     W)
+        return [Kus, Kud, A, R, W, mean, var]
+
+    if layout == "capacity":
+        Ub, order, block_of, slot = rn.scatter_by_block(U, assign, M)
+        return [rn.gather_by_block(t, order, block_of, slot)
+                for t in stages(Ub, fields)]
+    lay = rn.scatter_two_bucket(U, assign, M, alpha=plan.spec.alpha,
+                                tile=plan.block_q, max_groups=g)
+    main = stages(lay.Xb, fields)
+    over = [None] * len(main) if lay.Xo is None else stages(
+        lay.Xo, ppic.BlockFields(*(a[lay.o_blk] for a in fields)))
+    return [rn.gather_two_bucket(a, b, lay) for a, b in zip(main, over)]
+
+
+def layout_divergence(torch, plan, state, U) -> str:
+    """Where the two-bucket and capacity layouts part for request U: each
+    stage's max |difference| / (1 + |value|) and whether it is bitwise
+    equal, and the first stage that is not."""
+    two = layout_stages(torch, plan, state, U, "two")
+    cap = layout_stages(torch, plan, state, U, "capacity")
+    parts, first = [], None
+    for name, a, b in zip(LAYOUT_STAGES, two, cap):
+        same = bool(torch.equal(a, b))
+        if not same and first is None:
+            first = name
+        parts.append(f"{name} {'bitwise' if same else f'{max_rel(a, b):.2e}'}")
+    return f"first stage that differs: {first}; " + ", ".join(parts)
+
+
 def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
     """Fit pPIC on the co-clustered AIMPEAK data (phase 4's support set and
     hyperparameters) and serve it routed through the plan API; returns the
@@ -1288,6 +1361,10 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
               f"{e_skew:.3e} of 1 + |value| (limit {SKEW_TOL:.0e}); each "
               f"layout against an f64 evaluation of the state: capacity "
               f"{e_cap:.3e}, two-bucket {e_two:.3e}", flush=True)
+        if blk == SKEW_TARGETS[0]:
+            print(f"  the layouts' per-block program, stage by stage: "
+                  f"{layout_divergence(torch, plan, model.state, Us)}",
+                  flush=True)
     del st64
     if not all(g > 0 and e <= SKEW_TOL for g, e in skew):
         fail(f"skewed requests (g, error): {skew}")
@@ -1333,6 +1410,413 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
     print(f"  [{card}] phase peak device memory (the f64 fit included) "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     return launches
+
+
+# pICF and MLE (phase 4c), on phase 4's data and hyperparameters. R = |S|:
+# AIMPEAK's rank_multiplier is 1 (configs/gp_experiments.py).
+PICF_RANK = S_SIZE
+#  float32 against the float64 fit of the same data: RMSE within 10% of the
+#  float64 fit's, negative-variance shares within 0.05 (the method's own
+#  instability sets both shares; on the CPU probes of (n, R) = (4000, 1024)
+#  and (8000, 1024) the two dtypes were 0.6% / 0.002 and 3.7% / 0.017
+#  apart, and pivots chosen differently at near ties add some).
+PICF_RMSE_REL, PICF_NEG_SHARE = 0.10, 0.05
+MLE_SUBSET = 10000           # the paper's MLE subset (mle_subset)
+MLE_STEPS, MLE_PARALLEL_STEPS = 10, 3
+F32_EPS = 2.0 ** -24         # unit roundoff of float32
+
+
+def _icf_stream_bytes(plan: dict, n: int, R: int, itemsize: int) -> int:
+    """Bytes the ICF kernel's GEMVs read from L2 or device memory over the
+    run, from its plan: column j keeps its first c_j factor entries on chip
+    (``smem_rows`` in shared memory; the first NC = 8 columns of each
+    warp also the register rows, ``cached_rows`` in all), and step i reads
+    the other max(i - c_j, 0) of the i it sums (rbf_icf.cu, step 3)."""
+    W, K, C = plan["width"], plan["smem_rows"], plan["cached_rows"]
+    cw = W // 8                                   # columns a warp (NWARPS)
+    total = 0
+    for j in range(n):
+        c = C if (j % W) % cw < 8 else K
+        c = min(c, R)
+        total += (R - c) * (R - c - 1) // 2
+    return total * itemsize
+
+
+def check_icf_picf(torch, ops, ref, ds, params) -> dict:
+    """The ICF kernel at pICF's instance, (|D|, R, d) = (32000, 2048, 5),
+    the AIMPEAK training inputs: float64 against the plain loop (pivots
+    identical; F, residual and pivot values within icf_tolerance) and
+    float32 (the plain loop replayed along the kernel's pivots finds each
+    within TOL_ICF_TIE of its largest residual; F within TOL_ICF_F32, the
+    pivot values within TOL_ICF_F32 sig2). Timed in both dtypes beside the
+    operations bound and the modelled streaming time from its plan."""
+    from repro_torch.core import covariance as cov
+    n, R = N_TRAIN, PICF_RANK
+    s2 = cov.signal_var(params)
+    sig2 = float(s2)
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        Xs = cov._scale(params, ds.X).to(dt)
+        s2d = s2.to(dt)
+        plan = ops.icf_plan(dt, n, R, D)
+        n0 = ops.icf_launches
+        runs = [ops.icf_factor(Xs, s2d, R, pivot_values=True)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        if ops.icf_launches - n0 != 2 or not _same_runs(torch, runs):
+            fail(f"ICF at pICF's instance {dt}: launches "
+                 f"{ops.icf_launches - n0} for 2 calls, or they disagree")
+        F, piv, res, dp = runs[0]
+        key = str(dt).split(".")[1]
+        if dt == torch.float64:
+            Fw, pw, rw, dw = ref.icf_factor(Xs, s2d, R, pivot_values=True)
+            same = bool(torch.equal(piv, pw))
+            tol_f, tol_r, min_dp = icf_tolerance(Fw, pw, sig2)
+            errs = (max_err(F, Fw), max_err(res, rw), max_err(dp, dw))
+            ok = same and errs[0] <= tol_f and max(errs[1:]) <= tol_r
+            print(f"  ICF ({n}, {R}, {D}) {key} x2: pivots identical "
+                  f"{same}; min d_p {min_dp:.3e}; max|dF| {errs[0]:.3e} (tol "
+                  f"{tol_f:.3e}), max|dresidual| {errs[1]:.3e}, max|dd_p| "
+                  f"{errs[2]:.3e} (tol {tol_r:.3e})", flush=True)
+            del Fw, rw
+        else:
+            Fr, _, _, dr = ref.icf_factor(Xs, s2d, R, piv,
+                                          pivot_values=True)
+            slack = float(ref.icf_slack(Fr, piv, s2d).max())
+            _, pw, _ = ref.icf_factor(Xs, s2d, R)
+            differ = (piv != pw).nonzero()
+            prefix = int(differ[0]) if differ.numel() else R
+            tol_f = TOL_ICF_F32 * sig2 ** 0.5
+            errs = (max_err(F, Fr), max_err(dp, dr))
+            ok = slack <= TOL_ICF_TIE * sig2 and errs[0] <= tol_f \
+                and errs[1] <= TOL_ICF_F32 * sig2
+            print(f"  ICF ({n}, {R}, {D}) {key} x2: bitwise equal; pivots "
+                  f"agree with the plain loop for {prefix} of {R} steps; "
+                  f"replayed along the kernel's pivots each within "
+                  f"{slack:.3e} of the largest residual (tol "
+                  f"{TOL_ICF_TIE * sig2:.1e}); max|dF| {errs[0]:.3e} (tol "
+                  f"{tol_f:.1e}); max|dd_p| {errs[1]:.3e} (tol "
+                  f"{TOL_ICF_F32 * sig2:.1e})", flush=True)
+            out.update(picf_icf_prefix=prefix, picf_icf_slack=slack,
+                       picf_icf_max_abs_err=errs[0])
+            del Fr
+        if not ok:
+            fail(f"ICF at pICF's instance {key}: {errs}")
+        del runs, F
+        torch.cuda.empty_cache()
+        ms = kernel_device_ms(torch, lambda: ops.icf_factor(Xs, s2d, R),
+                              "icf_kernel", 3)
+        isz = torch.finfo(dt).bits // 8
+        flops = n * R * (R - 1)
+        peak = F32_FLOPS_PER_S if dt == torch.float32 else 67e12
+        b_ms, b_by = bound_ms(n * D * isz + R * n * isz + n * isz
+                              + R * (8 + isz), flops, peak)
+        stream = _icf_stream_bytes(plan, n, R, isz)
+        full = isz * n * R * (R - 1) // 2
+        print(f"  ICF ({n}, {R}, {D}) {key} plan: {plan}; device {ms:.3f} "
+              f"ms ({ms / R * 1e3:.2f} us a step); bound {b_ms:.3f} ms "
+              f"({b_by}, {flops / 1e9:.1f} GFLOP); the GEMVs stream "
+              f"{stream / 1e9:.1f} GB of {full / 1e9:.1f} GB from L2/HBM "
+              f"({100 * (1 - stream / full):.1f}% on chip): "
+              f"{stream / HBM_BYTES_PER_S * 1e3:.2f} ms at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s (a model), read at "
+              f"{stream / ms / 1e9:.2f} TB/s effective", flush=True)
+        out.update({f"picf_icf_{key}_ms": ms, f"picf_icf_{key}_bound_ms":
+                    b_ms, f"picf_icf_{key}_stream_ms":
+                    stream / HBM_BYTES_PER_S * 1e3,
+                    f"picf_icf_{key}_plan": plan})
+        del Xs
+    out["picf_icf_shape"] = f"({n}, {R}, {D}), AIMPEAK training inputs"
+    return out
+
+
+def picf_state_limits(torch, st_p, dF: float, y, s2: float) -> dict:
+    """Limits for the kernel path's pICF state against the plain path's,
+    from the measured factor difference dF = |F_k - F_p|_F (F itself is
+    held to icf_tolerance). Phi = I + F Fᵀ / s2 moves by |dPhi|_F <=
+    (2 |F|_2 dF + dF^2) / s2, and yF = F y by |dF|_F |y|; to first order
+    the Cholesky factor moves by |dL|_F <= kappa |dPhi|_F / |Phi|_2 |L|_2
+    and the solve ydd = Phi⁻¹ yF by kappa (|dPhi| / |Phi| + |dyF| / |yF|)
+    |ydd|, kappa = cond(Phi) (Sun 1991; standard perturbation of a linear
+    system). Each gets a float64 rounding floor of kappa R eps in the same
+    units, and the limits are on max|.| <= |.|_F."""
+    F = st_p.F.permute(1, 0, 2).reshape(st_p.F.shape[1], -1)
+    R = F.shape[0]
+    F2 = float(torch.linalg.matrix_norm(F, 2))
+    sv = torch.linalg.svdvals(st_p.Phi_L)
+    kappa = float((sv.max() / sv.min()) ** 2)
+    L2, Phi2 = float(sv.max()), float(sv.max()) ** 2
+    dPhi = (2 * F2 * dF + dF * dF) / s2
+    yF = float(torch.linalg.vector_norm(F @ y))
+    rel_phi = dPhi / Phi2
+    floor = kappa * R * torch.finfo(torch.float64).eps
+    ydd = float(torch.linalg.vector_norm(st_p.ydd))
+    return dict(kappa=kappa,
+                Phi_L=(kappa * rel_phi + floor) * L2,
+                ydd=(kappa * (rel_phi + dF * float(
+                    torch.linalg.vector_norm(y)) / max(yF, 1e-300))
+                     + floor) * ydd)
+
+
+def rbf_served_limit(torch, st, params, U):
+    """Per-query limits (mean, var) on the served pICF output's change when
+    K_{U,D} comes from rbf.cu instead of the float64 plain covariance.
+
+    rbf.cu computes each entry in float32 from the inputs rounded to
+    float32 (rbf.cu:5): out = exp2(a_i + b_j + log2(e) q_i.k_j), a_i =
+    log2(sig2) - log2(e)/2 |q_i|^2, b_j = -log2(e)/2 |k_j|^2. The rounding
+    of the inputs moves |q|^2, |k|^2 and q.k by <= 2 eps times their size,
+    the d-term FMA chains by <= d eps, the two sums by 2 eps, all of
+    T_uj = log2(e) (|q_u| + |k_j|)^2 + |log2 sig2|: the exponent errs by
+    <= (d + 5) eps T_uj, so the entry by a relative rho_uj = ln 2 (d + 5)
+    eps T_uj, plus 2^-22 (ex2.approx) and eps (its float32 result), eps =
+    2^-24. Eqs. 24-27 are linear in K_U: mean_u = K_u w, w = y / s2 -
+    Fᵀ ydd / s2^2, and var_u = sig2 - K_u B K_uᵀ, B = (FᵀF + s2 I)⁻¹, so
+    to first order |dmean_u| <= sum_j rho_uj K_uj |w_j| and |dvar_u| <= 2
+    sum_j rho_uj K_uj |(B K_uᵀ)_j| + |dK_u|^2 |B|_2, |B|_2 <= 1 / s2 (the
+    second-order term). Worst-case signs: a bound, not an estimate.
+    Computed in float64 from the plain path's state, 400 queries at a
+    time."""
+    import math
+    from repro_torch.core import covariance as cov
+    s2, sig2 = float(cov.noise_var(params)), float(cov.signal_var(params))
+    ls = torch.exp(params["log_lengthscale"])
+    Xf = st.Xb.reshape(-1, D)
+    F = st.F.permute(1, 0, 2).reshape(st.F.shape[1], -1)
+    y = st.yb.reshape(-1)
+    w = y / s2 - F.T @ st.ydd / s2 ** 2
+    k = (Xf / ls).norm(dim=1)
+    L2E = 1.4426950408889634
+    alpha = 2.0 ** -22 + F32_EPS
+    beta = math.log(2.0) * (D + 5) * F32_EPS
+    lim_m, lim_v = [], []
+    for i in range(0, U.shape[0], 400):
+        Uc = U[i:i + 400]
+        q = (Uc / ls).norm(dim=1)
+        d2 = torch.cdist(Uc / ls, Xf / ls).pow(2)
+        K = sig2 * torch.exp(-0.5 * d2)                   # (u, n)
+        T = L2E * (q[:, None] + k[None, :]) ** 2 + abs(math.log2(sig2))
+        rho = alpha + beta * T
+        Sdot = F @ K.T                                     # (R, u)
+        V = K / s2 - (torch.cholesky_solve(Sdot, st.Phi_L).T @ F) / s2 ** 2
+        dK2 = ((rho * K) ** 2).sum(1)
+        lim_m.append((rho * K * w.abs()[None, :]).sum(1))
+        lim_v.append(2 * (rho * K * V.abs()).sum(1) + dK2 / s2)
+    return torch.cat(lim_m), torch.cat(lim_v)
+
+
+def picf_path(torch, card: str, ds, spec, params, S) -> dict:
+    """pICF through the ICF kernel at AIMPEAK (phase 4's data and
+    hyperparameters, M = 20, R = 2048): fit and serve in float32, the
+    kernel path against the plain path in float64, float32 against
+    float64, then hyperparameter MLE (exact on the 10000-point subset,
+    PITC on all the data from the square-root factorization). Returns the
+    kernels' launch counts during the float32 fit and requests."""
+    from repro_torch.core import api, covariance as cov, hyper, linalg, picf
+    from repro_torch.kernels.rbf import ops
+    from repro_torch.parallel.runner import VmapRunner
+
+    runner = VmapRunner(M=M)
+    dev = ds.X.device
+    torch.cuda.synchronize()
+    peaks = [torch.cuda.max_memory_allocated()]   # the ICF checks'
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    model = api.fit("picf", spec, params, ds.X, ds.y, rank=PICF_RANK,
+                    runner=runner)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    icf_fit, block_fit = ops.icf_launches, ops.rbf_launches
+    plan = model.plan(api.ServeSpec(max_batch=256)).warmup(D)
+    outs, lat_ms, off = [], [], 0
+    for size in REQUEST_SIZES:
+        idx = torch.arange(off, off + size, device=dev) % N_TEST
+        U = ds.X_test.index_select(0, idx)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        mean, var = plan.diag(U)
+        torch.cuda.synchronize()
+        lat_ms.append((time.perf_counter() - ts) * 1e3)
+        outs.append((idx, mean, var))
+        off = (off + size) % N_TEST
+    launches = {"rbf": ops.rbf_launches + ops.icf_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  counts during the fit and requests: {launches} (the fit: "
+          f"{icf_fit} ICF, {block_fit} rbf block launches; the requests: "
+          f"{ops.rbf_launches - block_fit} rbf block launches)", flush=True)
+    if icf_fit != 1 or ops.rbf_launches < 1:
+        fail(f"pICF: the fit took {icf_fit} ICF launches (want 1) and the "
+             f"path {ops.rbf_launches} rbf block launches (want >= 1)")
+    for idx, mean, var in outs:
+        if mean.shape != idx.shape or var.shape != idx.shape:
+            fail(f"pICF plan.diag shapes {tuple(mean.shape)}/"
+                 f"{tuple(var.shape)} for {idx.numel()} queries")
+        if not (torch.isfinite(mean).all() and torch.isfinite(var).all()):
+            fail(f"non-finite pICF output at batch {idx.numel()}")
+    idx_all, mean32, var32 = outs[-1]          # the 3200-row request
+    y_all = ds.y_test.index_select(0, idx_all)
+    rmse32 = float(torch.sqrt(torch.mean((mean32 - y_all) ** 2)))
+    neg32 = float((var32 < 0).double().mean())
+    p50 = sorted(lat_ms)[len(lat_ms) // 2]
+    print(f"  [{card}] pICF fit {t_fit:.3f} s, peak {peak_gb:.2f} GB; "
+          f"requests {list(REQUEST_SIZES)}: latency ms "
+          f"{[round(x, 3) for x in lat_ms]}, p50 {p50:.3f} ms, max "
+          f"{max(lat_ms):.3f} ms", flush=True)
+    print(f"  [{card}] pICF float32: test RMSE {rmse32:.4f}, negative-"
+          f"variance share {neg32:.4f} of {N_TEST}", flush=True)
+    del model, plan, outs
+    torch.cuda.empty_cache()
+
+    # the kernel path against the plain path, float64: the stores (pivot
+    # inputs, F, the pivot triangle's basis) and the state, then the served
+    # output; the served difference splits into the state's part (the
+    # kernel path's state served by the plain covariance) and K_UD's
+    p64 = {k: v.double() for k, v in params.items()}
+    X64, y64, U64 = ds.X.double(), ds.y.double(), ds.X_test.double()
+    plain = cov.make_spec("se", impl="torch")
+    t1 = time.perf_counter()
+    st_k = picf.init_picf_store(spec, p64, X64, y64, rank=PICF_RANK,
+                                runner=runner)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    st_p = picf.init_picf_store(plain, p64, X64, y64, rank=PICF_RANK,
+                                runner=runner)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    same_piv = bool(torch.equal(st_k.Xp, st_p.Xp))
+    Fk = st_k.F.permute(1, 0, 2).reshape(PICF_RANK, -1)
+    Fp = st_p.F.permute(1, 0, 2).reshape(PICF_RANK, -1)
+    sig2 = float(cov.signal_var(params))
+    eps64 = torch.finfo(torch.float64).eps
+    min_dp = float(torch.diagonal(st_p.Lp).pow(2).min())
+    tol_f = 64 * PICF_RANK * eps64 * sig2 / max(min_dp, 1e-300) ** 0.5
+    err_f = max_err(Fk, Fp)
+    dF = float(torch.linalg.matrix_norm(Fk - Fp))
+    state_k, state_p = st_k.to_state(), st_p.to_state()
+    lim = picf_state_limits(torch, state_p, dF, y64,
+                            float(cov.noise_var(p64)))
+    e_L = max_err(state_k.Phi_L, state_p.Phi_L)
+    e_y = max_err(state_k.ydd, state_p.ydd)
+    print(f"  pICF f64 stores: kernel path {t2 - t1:.3f} s, plain path "
+          f"{t3 - t2:.3f} s; pivots identical {same_piv}; max|dF| "
+          f"{err_f:.3e} (tol {tol_f:.3e}); cond(Phi) {lim['kappa']:.3e}; "
+          f"max|dPhi_L| {e_L:.3e} (limit {lim['Phi_L']:.3e}), max|dydd| "
+          f"{e_y:.3e} (limit {lim['ydd']:.3e})", flush=True)
+    if not (same_piv and err_f <= tol_f and e_L <= lim["Phi_L"]
+            and e_y <= lim["ydd"]):
+        fail("pICF kernel-path state disagrees with the plain path")
+    del st_k, st_p, Fk, Fp
+    kk = picf.predict_batch_diag(spec, p64, state_k, U64)
+    kp = picf.predict_batch_diag(plain, p64, state_k, U64)
+    pp = picf.predict_batch_diag(plain, p64, state_p, U64)
+    lim_m, lim_v = rbf_served_limit(torch, state_p, p64, U64)
+    d_state = [(a - b).abs() for a, b in zip(kp, pp)]
+    d_k = [(a - b).abs() for a, b in zip(kk, kp)]
+    d_all = [(a - b).abs() for a, b in zip(kk, pp)]
+    floor = [1e-12 * (1 + b.abs()) for b in pp]
+    ok_k = all(bool((d <= lm + f).all())
+               for d, lm, f in zip(d_k, (lim_m, lim_v), floor))
+    ok_all = all(bool((d <= lm + 2 * ds_ + f).all())
+                 for d, lm, ds_, f in zip(d_all, (lim_m, lim_v), d_state,
+                                          floor))
+    ratio = max(float((d / (lm + f)).max())
+                for d, lm, f in zip(d_k, (lim_m, lim_v), floor))
+    print(f"  pICF f64 served, {N_TEST} queries: kernel vs plain path "
+          f"max|dmean| {float(d_all[0].max()):.3e}, max|dvar| "
+          f"{float(d_all[1].max()):.3e}; of which the state's part "
+          f"{float(d_state[0].max()):.3e} / {float(d_state[1].max()):.3e} "
+          f"and K_UD's {float(d_k[0].max()):.3e} / {float(d_k[1].max()):.3e}"
+          f" against rbf.cu's derived per-query limits (largest "
+          f"{float(lim_m.max()):.3e} / {float(lim_v.max()):.3e}; the K_UD "
+          f"part reaches {ratio:.3f} of its limit)", flush=True)
+    if not (ok_k and ok_all):
+        fail("pICF kernel-path serving disagrees with the plain path")
+    y_t = ds.y_test.double()
+    rmse64 = float(torch.sqrt(torch.mean((kk[0] - y_t) ** 2)))
+    neg64 = float((kk[1] < 0).double().mean())
+    rmse_p = float(torch.sqrt(torch.mean((pp[0] - y_t) ** 2)))
+    neg_p = float((pp[1] < 0).double().mean())
+    print(f"  [{card}] pICF float64 (kernel path): test RMSE {rmse64:.4f}, "
+          f"negative-variance share {neg64:.4f}; plain path {rmse_p:.4f} / "
+          f"{neg_p:.4f}; float32 {rmse32:.4f} / {neg32:.4f} (limits: RMSE "
+          f"within {PICF_RMSE_REL:.0%}, shares within {PICF_NEG_SHARE})",
+          flush=True)
+    if not (abs(rmse32 - rmse64) <= PICF_RMSE_REL * rmse64
+            and abs(neg32 - neg64) <= PICF_NEG_SHARE):
+        fail(f"pICF float32 vs float64: RMSE {rmse32} vs {rmse64}, shares "
+             f"{neg32} vs {neg64}")
+    del kk, kp, pp, state_k, state_p
+    torch.cuda.empty_cache()
+
+    # MLE: the exact likelihood on the paper's 10000-point subset, float32
+    # and float64, then the PITC likelihood on all the data (float32)
+    kfn = cov.make_kernel("se")
+    Xm, ym = ds.X[:MLE_SUBSET], ds.y[:MLE_SUBSET]
+    mle = {}
+    for dt in (torch.float64, torch.float32):
+        p0 = {k: v.to(dt) for k, v in params.items()}
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        _, losses = hyper.fit(kfn, p0, Xm.to(dt), ym.to(dt), steps=MLE_STEPS)
+        torch.cuda.synchronize()
+        mle[dt] = (losses.double(), (time.perf_counter() - t4) / MLE_STEPS)
+    l64, s64 = mle[torch.float64]
+    l32, s32 = mle[torch.float32]
+    # step 0 float32 against float64: chol(K + s2 I) in float32 at
+    # n = 10000 has cond <= 1 + n sig2 / s2; its quadratic form and
+    # log-determinant (each of size ~n) err by ~cond x eps relative: the
+    # loss by <= n cond eps / 2 nats
+    kappa = 1 + MLE_SUBSET * sig2 / float(cov.noise_var(params))
+    tol0 = MLE_SUBSET * kappa * F32_EPS / 2
+    d0 = abs(float(l32[0] - l64[0]))
+    print(f"  [{card}] MLE exact, n = {MLE_SUBSET}, {MLE_STEPS} Adam steps: "
+          f"float64 {s64:.4f} s a step, losses {float(l64[0]):.3f} -> "
+          f"{float(l64[-1]):.3f}; float32 {s32:.4f} s a step, "
+          f"{float(l32[0]):.3f} -> {float(l32[-1]):.3f}; step 0 apart by "
+          f"{d0:.3e} (limit {tol0:.3e} = n cond eps / 2)", flush=True)
+    if not (bool(torch.isfinite(l64).all() and torch.isfinite(l32).all())
+            and float(l64[-1]) < float(l64[0]) and d0 <= tol0):
+        fail(f"MLE: float64 {l64.tolist()}, float32 {l32.tolist()}")
+
+    # the reference's form of the PITC likelihood (Sdd formed, then a
+    # float32 Cholesky with 1e-6 x its mean diagonal) at this scale
+    with torch.no_grad():
+        Kss = kfn(params, S, S)
+        Ksd = kfn(params, S, runner.shard_blocks(ds.X))
+        V = linalg.tri_solve(linalg.chol(Kss), Ksd)
+        Kdd = cov.add_noise(kfn(params, runner.shard_blocks(ds.X),
+                                runner.shard_blocks(ds.X)), params)
+        C_L = linalg.chol(Kdd - V.mT @ V)
+        G = linalg.tri_solve(C_L, Ksd.mT)
+        Sdd = Kss + torch.einsum("mbs,mbt->st", G, G)
+        info = int(torch.linalg.cholesky_ex(linalg.add_jitter(Sdd))[1])
+        del Ksd, V, Kdd, C_L, G, Sdd
+    torch.cuda.synchronize()
+    peaks.append(torch.cuda.max_memory_allocated())
+    torch.cuda.reset_peak_memory_stats()
+    t5 = time.perf_counter()
+    _, lp = hyper.fit_parallel(kfn, params, S, ds.X, ds.y, runner,
+                               steps=MLE_PARALLEL_STEPS)
+    torch.cuda.synchronize()
+    sp = (time.perf_counter() - t5) / MLE_PARALLEL_STEPS
+    peak_mle = torch.cuda.max_memory_allocated() / 1e9
+    peak_phase = max(peaks + [torch.cuda.max_memory_allocated()]) / 1e9
+    print(f"  [{card}] MLE PITC, all {N_TRAIN} rows, M = {M}, |S| = "
+          f"{S_SIZE}, float32, {MLE_PARALLEL_STEPS} steps: {sp:.4f} s a "
+          f"step, losses {[round(float(x), 3) for x in lp]}, peak "
+          f"{peak_mle:.2f} GB; the reference's form (Sdd formed, float32 "
+          f"Cholesky) {'fails (info %d)' % info if info else 'succeeds'} "
+          f"at the start", flush=True)
+    print(f"  [{card}] phase 4c peak device memory (the ICF checks, the f64 "
+          f"fits and the exact MLE included) {peak_phase:.2f} GB",
+          flush=True)
+    if not bool(torch.isfinite(lp).all()):
+        fail(f"fit_parallel in float32: losses {lp.tolist()}")
+    return dict(launches=launches, fit_s=t_fit, p50_ms=p50,
+                lat_ms=lat_ms, rmse32=rmse32, neg32=neg32, rmse64=rmse64,
+                neg64=neg64, mle64_s=s64, mle32_s=s32, mle_parallel_s=sp,
+                peak_gb=peak_phase)
 
 
 def main() -> int:
@@ -1402,7 +1886,20 @@ def main() -> int:
     for row in rows:
         if row["name"] in ppic_launches:
             row["launches_ppic"] = ppic_launches[row["name"]]
-    del data
+    torch.cuda.empty_cache()
+
+    print("phase 4c: GP pICF and MLE", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    rows[0].update(check_icf_picf(torch, ops, ref, data["ds"],
+                                  data["params"]))
+    torch.cuda.empty_cache()
+    picf = picf_path(torch, card, **data)
+    for row in rows:
+        if row["name"] in picf["launches"]:
+            row["launches_picf"] = picf["launches"][row["name"]]
+    rows[0].update({f"picf_{k}": v for k, v in picf.items()
+                    if k != "launches"})
+    del data, picf
     torch.cuda.empty_cache()
 
     print("phase 5: LM main path, qwen3-1.7b", flush=True)

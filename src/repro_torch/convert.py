@@ -3,9 +3,10 @@ the port's tensors.
 
 All take arrays (numpy, or anything ``numpy.asarray`` reads) so that this
 module needs nothing of the JAX package: the caller hands over
-``{"log_signal", "log_noise", "log_lengthscale"}`` or a fitted
-``PITCState``/``PICState``/``FGPState`` (any object with those fields,
-such as the JAX NamedTuple itself), and gets the same model on ``device``
+``{"log_signal", "log_noise", "log_lengthscale"}``, a fitted
+``PITCState``/``PICState``/``FGPState``/``PICFState`` or pICF's
+``ICFLocal`` factor (any object with those fields, such as the JAX
+NamedTuple itself), or an ``AdamState``, and gets the same on ``device``
 in ``dtype``.
 ``lm_params_from_arrays`` takes an LM's parameter tree with numpy leaves
 (``jax.tree.map(np.asarray, params)`` on the caller's side).
@@ -17,11 +18,13 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from repro_torch.core import api
+from repro_torch.core import api, picf
 from repro_torch.models import transformer as tf
+from repro_torch.optim.adam import AdamState
 
 _PARAM_KEYS = ("log_signal", "log_noise", "log_lengthscale")
-_STATES = (api.PITCState, api.PICState, api.FGPState)
+_STATES = (api.PITCState, api.PICState, api.FGPState, api.PICFState,
+           picf.ICFLocal)
 
 
 def _tensor(a, device, dtype) -> torch.Tensor:
@@ -38,8 +41,9 @@ def params_from_arrays(params: Mapping, *, device, dtype=None) -> dict:
 
 
 def state_from_arrays(state, *, device, dtype=None):
-    """A fitted ``PITCState``, ``PICState`` or ``FGPState`` (matched by its
-    field names) as the port's state of the same name on ``device``."""
+    """A fitted ``PITCState``, ``PICState``, ``FGPState`` or ``PICFState``,
+    or an ``ICFLocal`` (matched by its field names), as the port's tuple
+    of the same name on ``device``."""
     fields = tuple(getattr(state, "_fields", ()))
     for cls in _STATES:
         if fields == cls._fields:
@@ -47,6 +51,18 @@ def state_from_arrays(state, *, device, dtype=None):
                          for f in cls._fields))
     raise TypeError(f"no port state has the fields {fields}; have "
                     f"{[c._fields for c in _STATES]}")
+
+
+def adam_state_from_arrays(state, *, device, dtype=None) -> AdamState:
+    """The reference's ``AdamState`` (step, mu, nu; mu and nu dicts of
+    arrays keyed like the parameters) as the port's on ``device``; the
+    step stays int32, the moments take ``dtype`` (None keeps theirs)."""
+    if tuple(getattr(state, "_fields", ())) != AdamState._fields:
+        raise TypeError(f"need an AdamState {AdamState._fields}; got "
+                        f"{type(state).__name__}")
+    return AdamState(_tensor(state.step, device, torch.int32),
+                     _tree(state.mu, device, dtype),
+                     _tree(state.nu, device, dtype))
 
 
 _NORM_KEYS = ("ln1", "ln2", "norm", "q_norm", "k_norm")

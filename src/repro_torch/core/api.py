@@ -1,5 +1,5 @@
 """Unified GP method API: ``fit -> PosteriorState -> plan -> serve`` — port of
-``repro.core.api`` (the FGP, PITC and PIC part).
+``repro.core.api`` (the FGP, PITC, PIC and pICF part).
 
 Everything that is O((|D|/M)^3) or O(|S|^3) happens once at fit time and is
 cached in a per-method state (a NamedTuple of tensors); a query then costs
@@ -12,8 +12,8 @@ entry point and shared across ``rebind``) and bucket ladder. Phase 2:
 per entry point; PyTorch runs eagerly, so a plan's "executables" are plain
 callables and ``PlanStats.n_traces`` counts how many were built.
 
-Not ported yet: the pICF state, the incremental ``StateStore`` protocol
-(``init_store``) and the multi-tenant ``compat_key``.
+Not ported yet: the incremental ``StateStore`` protocol (``init_store``)
+and the multi-tenant ``compat_key``.
 """
 from __future__ import annotations
 
@@ -68,6 +68,16 @@ class PICState(NamedTuple):
     B: torch.Tensor          # (M, s, s) Kss^{-1} Sdot_m
     Sdot: torch.Tensor       # (M, s, s) local summaries (eq. 4)
     centroids: torch.Tensor  # (M, d)  block centroids (query routing)
+
+
+class PICFState(NamedTuple):
+    """pICF-based GP: distributed ICF factor + cached R-space solves
+    (eqs. 19-23)."""
+    Xb: torch.Tensor       # (M, b, d)
+    yb: torch.Tensor       # (M, b)
+    F: torch.Tensor        # (M, R, b) per-machine factor columns
+    Phi_L: torch.Tensor    # (R, R)   chol(I + sum_m F_m F_m^T / s2)
+    ydd: torch.Tensor      # (R,)     Phi^{-1} sum_m F_m y_m  (eq. 22)
 
 
 # ---------------------------------------------------------------------------
@@ -370,8 +380,8 @@ class GPMethod:
     """One GP regression method behind the uniform state API.
 
     ``fit(kfn, params, X, y, **kw) -> state`` where ``kw`` is the subset of
-    (S=, M=, runner=) the method needs. The ``*_fn`` fields are the raw
-    prediction implementations (what plans call):
+    (S=, M=, rank=, runner=) the method needs. The ``*_fn`` fields are the
+    raw prediction implementations (what plans call):
 
     * ``predict_fn(kfn, params, state, U)``      -> native posterior;
     * ``predict_diag_fn(kfn, params, state, U)`` -> (mean, var) vectors;
@@ -416,7 +426,7 @@ def register(method: GPMethod) -> GPMethod:
 def get(name: str) -> GPMethod:
     if name not in REGISTRY:
         # methods self-register at module import; pull the core modules in
-        from repro_torch.core import gp, pitc, ppic, ppitc  # noqa: F401
+        from repro_torch.core import gp, picf, pitc, ppic, ppitc  # noqa: F401
     try:
         return REGISTRY[name]
     except KeyError:
@@ -475,19 +485,21 @@ class FittedGP:
         return new
 
 
-def _method_kwargs(S=None, M=None, runner=None) -> dict:
+def _method_kwargs(S=None, M=None, rank=None, runner=None) -> dict:
     kw = {}
     if S is not None:
         kw["S"] = S
     if M is not None:
         kw["M"] = M
+    if rank is not None:
+        kw["rank"] = rank
     if runner is not None:
         kw["runner"] = runner
     return kw
 
 
-def fit(name: str, kfn, params, X, y, *, S=None, M=None, runner=None,
-        device=None) -> FittedGP:
+def fit(name: str, kfn, params, X, y, *, S=None, M=None, rank=None,
+        runner=None, device=None) -> FittedGP:
     """Registry front door: fit method ``name`` on ``device`` (the CUDA card
     unless named) and return a FittedGP. Data, support set and
     hyperparameters are moved there first."""
@@ -496,5 +508,6 @@ def fit(name: str, kfn, params, X, y, *, S=None, M=None, runner=None,
     params = {k: v.to(dev) for k, v in params.items()}
     X, y = X.to(dev), y.to(dev)
     S = S.to(dev) if S is not None else None
-    state = method.fit(kfn, params, X, y, **_method_kwargs(S, M, runner))
+    state = method.fit(kfn, params, X, y,
+                       **_method_kwargs(S, M, rank, runner))
     return FittedGP(method, kfn, params, state)

@@ -3,7 +3,7 @@ port of ``repro.core.gp``.
 
 FGP is the O(|D|^3) centralized baseline: ``fit`` caches the |D|x|D|
 Cholesky in an ``api.FGPState`` and ``predict_batch`` costs O(|U||D|) per
-query batch.
+query batch; ``predict`` is the one-shot wrapper over the two.
 """
 from __future__ import annotations
 
@@ -64,18 +64,48 @@ def predict_batch_diag(kfn, params, state: api.FGPState, X_test):
     return mean, var
 
 
+def predict(kfn: cov.KernelFn, params: dict, X_train: torch.Tensor,
+            y_train: torch.Tensor, X_test: torch.Tensor, mean_fn=None, *,
+            diag_only: bool = False) -> GPPosterior:
+    """One-shot eqs. (1)-(2): fit + predict_batch, or, with a prior
+    ``mean_fn`` (not state-cacheable), the reference's inline path."""
+    if mean_fn is None:
+        state = fit(kfn, params, X_train, y_train)
+        return predict_batch(kfn, params, state, X_test, diag_only=diag_only)
+
+    mu_d = _mean(mean_fn, X_train, y_train.dtype)
+    mu_u = _mean(mean_fn, X_test, y_train.dtype)
+    K_dd = cov.add_noise(kfn(params, X_train, X_train), params)
+    K_ud = kfn(params, X_test, X_train)
+    L = linalg.chol(K_dd)
+    alpha = linalg.chol_solve(L, (y_train - mu_d)[:, None])[:, 0]
+    mean = mu_u + K_ud @ alpha
+    V = linalg.tri_solve(L, K_ud.T)           # L^{-1} K_du
+    if diag_only:
+        var = cov.kdiag(kfn, params, X_test) - torch.sum(V * V, dim=0)
+        return GPPosterior(mean, torch.diag(var))
+    K_uu = kfn(params, X_test, X_test)
+    return GPPosterior(mean, K_uu - V.T @ V)
+
+
 def nlml(kfn: cov.KernelFn, params: dict, X_train: torch.Tensor,
          y_train: torch.Tensor, mean_fn=None) -> torch.Tensor:
     """Negative log marginal likelihood -log p(y_D | theta) for MLE."""
     n = X_train.shape[0]
-    mu_d = (torch.zeros_like(y_train) if mean_fn is None
-            else mean_fn(X_train))
+    mu_d = _mean(mean_fn, X_train, y_train.dtype)
     K = cov.add_noise(kfn(params, X_train, X_train), params)
     L = linalg.chol(K)
     r = (y_train - mu_d)[:, None]
     alpha = linalg.chol_solve(L, r)
     return 0.5 * (r.T @ alpha)[0, 0] + 0.5 * linalg.logdet_from_chol(L) \
         + 0.5 * n * math.log(2.0 * math.pi)
+
+
+def _mean(mean_fn, X: torch.Tensor, dtype) -> torch.Tensor:
+    """The prior mean at X: ``mean_fn(X)``, or zeros in ``dtype``."""
+    if mean_fn is None:
+        return torch.zeros((X.shape[0],), dtype=dtype, device=X.device)
+    return mean_fn(X)
 
 
 api.register(api.GPMethod("fgp", fit, predict_fn=predict_batch,

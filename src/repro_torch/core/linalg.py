@@ -77,12 +77,35 @@ def psd_solve(K: torch.Tensor, B: torch.Tensor,
     return chol_solve(chol(K, jitter), B)
 
 
+def psd_inv(K: torch.Tensor, jitter: float | None = None) -> torch.Tensor:
+    """K⁻¹ for PSD K via jittered Cholesky (batched over leading axes)."""
+    eye = torch.eye(K.shape[-1], dtype=K.dtype, device=K.device)
+    return psd_solve(K, eye.expand(K.shape), jitter)
+
+
 def tri_solve(L: torch.Tensor, B: torch.Tensor, *, lower: bool = True,
               trans: bool = False) -> torch.Tensor:
     """Solve L X = B (or Lᵀ X = B with ``trans``) for triangular L."""
     if trans:
         return torch.linalg.solve_triangular(L.mT, B, upper=lower)
     return torch.linalg.solve_triangular(L, B, upper=not lower)
+
+
+def chol_from_root(L0: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of L0 L0ᵀ + Σ_m F_m F_mᵀ for lower L0 (s, s)
+    and F (M, s, b) (or (s, b)), from its square root, never forming the
+    sum: Rᵀ of the QR of A = [L0ᵀ; F_1ᵀ; ...; F_Mᵀ], rows signed so that
+    the diagonal is positive (then Rᵀ is the Cholesky factor of AᵀA). A's
+    condition number is the square root of the sum's, which is what keeps
+    the factor of an ill-conditioned sum accurate in float32. Autograd
+    goes through the QR when an input requires grad (``mode="reduced"``:
+    its backward needs Q); otherwise Q is not formed."""
+    s = L0.shape[-1]
+    A = torch.cat([L0.mT, F.mT.reshape(-1, s)])
+    mode = "reduced" if torch.is_grad_enabled() and A.requires_grad else "r"
+    R = torch.linalg.qr(A, mode=mode).R
+    sign = torch.where(torch.diagonal(R) < 0, -1.0, 1.0).to(R.dtype)
+    return (R * sign[:, None]).mT
 
 
 def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:

@@ -43,17 +43,14 @@ def _sdd_chol(Kss_L: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
         Sdd + jitter·I = Kss_L Kss_Lᵀ + Σ_m F_m F_mᵀ = Aᵀ A,
         A = [Kss_Lᵀ; F_1ᵀ; ...; F_Mᵀ]   ((|S| + M b) x |S|),
 
-    and the factor is Rᵀ of A's QR, rows signed so the diagonal is positive:
-    the batched form of the reference's own rank-b fold-in
+    and the factor is ``linalg.chol_from_root``'s (Rᵀ of A's QR): the
+    batched form of the reference's own rank-b fold-in
     (``linalg.chol_update_rank`` over every machine). Why not form Sdd: at
     the paper's scale (|D| = 32000, M = 20, |S| = 2048) its eigenvalues span
     about 1e-3 to 2e6, and the float32 sum and Cholesky break down (NaN);
     A's condition number is the square root of Sdd's.
     """
-    A = torch.cat([Kss_L.mT, F.mT.reshape(-1, F.shape[-2])])
-    R = torch.linalg.qr(A, mode="r").R
-    sign = torch.where(torch.diagonal(R) < 0, -1.0, 1.0).to(R.dtype)
-    return (R * sign[:, None]).mT
+    return linalg.chol_from_root(Kss_L, F)
 
 
 def _summarize(kfn, params, S, X, y, runner: Runner):

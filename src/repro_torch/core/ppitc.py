@@ -12,8 +12,11 @@ machine axis (``parallel.runner.VmapRunner``):
 
 ``fit`` runs steps 1-3 and caches ``api.PITCState`` (Kss_L, Sdd_L, alpha =
 Sdd^{-1} ydd); ``predict_batch``/``predict_batch_diag`` are then
-O(|U||S| + |S|^2) per query batch. Zero prior mean assumed (the data
-pipeline centers y). The streaming ``init_store`` comes with the stores.
+O(|U||S| + |S|^2) per query batch; ``predict`` is the one-shot wrapper
+(fit + ``predict_blocks``). Zero prior mean assumed (the data pipeline
+centers y). The streaming ``init_store`` comes with the stores; the
+collective per-machine program (``machine_step``, ``predict_distributed``)
+with the multi-device slice.
 """
 from __future__ import annotations
 
@@ -76,6 +79,43 @@ def global_summary(kfn, params, S, local: LocalSummary) -> GlobalSummary:
     return GlobalSummary(local.ydot.sum(0), Kss + local.Sdot.sum(0))
 
 
+_COLLECTIVE = ("ppitc.{} runs an all-reduce inside each machine's program; "
+               "the collective programs are not yet ported to repro_torch "
+               "(ROADMAP §1 item 12: multi-device, via torch.distributed). "
+               "On one device, fit + predict_blocks computes the same "
+               "posterior (ppitc.predict)")
+
+
+def machine_step(*args, **kwargs):
+    """The fully-collective per-machine program (steps 2-4): waits for the
+    multi-device slice (ROADMAP §1 item 12) and raises."""
+    raise NotImplementedError(_COLLECTIVE.format("machine_step"))
+
+
+def predict_distributed(*args, **kwargs):
+    """Fully-collective pPITC: waits for the multi-device slice (ROADMAP §1
+    item 12) and raises; ``predict`` gives the same posterior."""
+    raise NotImplementedError(_COLLECTIVE.format("predict_distributed"))
+
+
+def predict_from_summary(kfn, params, S, Kss_L, glob: GlobalSummary, Um):
+    """Eqs. (7)-(8) from the global summary, as the reference writes them:
+    Sdd is the formed ``glob.Sdd``, factored by Cholesky with its own
+    jitter (default jitter x its mean diagonal).
+
+    In float32 at the paper's scale (|D| = 32000, M = 20, |S| = 2048) that
+    Cholesky breaks down (cond Sdd ~2.4e9; ROADMAP §3): the result is NaN.
+    What serves is the fitted state (``fit`` -> ``predict_batch``/the plan),
+    whose Sdd factor is the QR of its square root."""
+    Sdd_L = linalg.chol(glob.Sdd)
+    Kus = kfn(params, Um, S)
+    mean = Kus @ linalg.chol_solve(Sdd_L, glob.ydd[:, None])[:, 0]
+    Kuu = kfn(params, Um, Um)
+    covm = Kuu - Kus @ (linalg.chol_solve(Kss_L, Kus.mT)
+                        - linalg.chol_solve(Sdd_L, Kus.mT))
+    return mean, covm
+
+
 def fit(kfn, params, X, y, *, S, runner: Runner) -> api.PITCState:
     """Steps 1-3 over a Runner, cached as an ``api.PITCState`` through the
     summary store (``online.build``/``online.to_state``), as the reference
@@ -122,6 +162,13 @@ def predict_blocks(kfn, params, state: api.PITCState, U,
     Ub = U.reshape(M, u // M, -1)
     post = predict_batch(kfn, params, state, Ub)
     return ParallelPosterior(post.mean.reshape(u), post.cov)
+
+
+def predict(kfn, params, S, X, y, U, runner: Runner) -> ParallelPosterior:
+    """End-to-end pPITC: fit + predict_blocks (U's length must divide among
+    the runner's machines)."""
+    state = fit(kfn, params, X, y, S=S, runner=runner)
+    return predict_blocks(kfn, params, state, U, runner.num_machines)
 
 
 def summaries(kfn, params, S, X, y, runner: Runner):

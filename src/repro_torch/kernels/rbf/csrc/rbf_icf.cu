@@ -12,7 +12,9 @@
 //   p      = the first index of max(d)              (argmax's tie rule)
 //   col_j  = sig2 exp(-0.5 max(|x_p|^2 + |x_j|^2 - 2 x_p.x_j, 0))
 //   f      = (col - F[:i]^T F[:i, p]) / sqrt(max(d_p, 1e-30))
-//   F[i]   = f,   d = max(d - f^2, 0),   d_p = 0,   piv[i] = p
+//   F[i]   = f,   d = max(d - f^2, 0),   d_p = 0,   piv[i] = p,
+//   dpv[i] = d_p   (the pivot value; pICF's pivot triangle has sqrt(d_p)
+//                   on its diagonal)
 //
 // col is the rbf kernel's function computed with fmaf norms and cross term,
 // max and expf (rbf.cu folds the same function into one approximate exp2,
@@ -163,6 +165,7 @@ struct IcfArgs {
   T* Ft;              // (n, Rp) scratch, zeroed: Ft[j, k] = F[k, j]
   long long* piv;     // (R,) output
   T* resid;           // (n,) output: the residual diagonal
+  T* dpv;             // (R,) output: each step's pivot value d_p
   T* cand_v;          // (2, blocks) candidates: max d of a slice
   int* cand_i;        // (2, blocks) and its first index
   unsigned* sync;     // the grid barrier's arrival count, zeroed
@@ -325,7 +328,8 @@ __global__ void __launch_bounds__(NT, 1) icf_kernel(IcfArgs<T> a) {
     }
     __syncthreads();
     const int p = p_s;
-    const T rdp = Num<T>::sqrt(Num<T>::max(dp_s, T(1e-30)));
+    const T dp = dp_s;
+    const T rdp = Num<T>::sqrt(Num<T>::max(dp, T(1e-30)));
 
     // 2. stage F[:i, p] = Ft[p, :i] (zero up to the next vector) and x_p:
     //    16-byte loads, FP_UNROLL a thread issued before the first store, so
@@ -456,7 +460,10 @@ __global__ void __launch_bounds__(NT, 1) icf_kernel(IcfArgs<T> a) {
 
     // 4. this slice's candidate for step i + 1; the pivot's record
     if (warp == 0) post_candidate(a, dres, wn, j0, (buf ^ 1) * nb + b, lane);
-    if (b == 0 && tid == 0) a.piv[i] = p;
+    if (b == 0 && tid == 0) {
+      a.piv[i] = p;
+      a.dpv[i] = dp;
+    }
     grid_barrier(a.sync, static_cast<unsigned>(nb) * (i + 2));
   }
   for (int c = tid; c < wn; c += NT) a.resid[j0 + c] = dres[c];
@@ -535,7 +542,8 @@ cudaError_t make_plan(int n, int R, int d, int max_cached, Plan* pl) {
 
 template <typename T>
 cudaError_t launch_icf(const void* x, const void* sig2, void* F, void* Ft,
-                       void* piv, void* resid, void* cand_v, void* cand_i,
+                       void* piv, void* resid, void* dpv, void* cand_v,
+                       void* cand_i,
                        void* sync, int n, int R, int d, int max_cached,
                        cudaStream_t stream) {
   Plan pl;
@@ -561,6 +569,7 @@ cudaError_t launch_icf(const void* x, const void* sig2, void* F, void* Ft,
   a.Ft = static_cast<T*>(Ft);
   a.piv = static_cast<long long*>(piv);
   a.resid = static_cast<T*>(resid);
+  a.dpv = static_cast<T*>(dpv);
   a.cand_v = static_cast<T*>(cand_v);
   a.cand_i = static_cast<int*>(cand_i);
   a.sync = static_cast<unsigned*>(sync);
@@ -613,25 +622,27 @@ extern "C" int rbf_icf_plan(int dtype, int n, int R, int d, int max_cached,
 }
 
 // All R pivot steps in one cooperative launch on `stream`. x (n, d) and
-// sig2 (one value) in dtype; F (R, n), resid (n,) and cand_v (2 x blocks)
-// in dtype; Ft (n, row_stride) zeroed and 16-byte aligned; piv (R,) int64;
-// cand_i (2 x blocks) int32; sync one zeroed uint32. max_cached < 0 keeps
-// as many rows on chip as fit.
+// sig2 (one value) in dtype; F (R, n), resid (n,), dpv (R,: each step's
+// pivot value d_p) and cand_v (2 x blocks) in dtype; Ft (n, row_stride)
+// zeroed and 16-byte aligned; piv (R,) int64; cand_i (2 x blocks) int32;
+// sync one zeroed uint32. max_cached < 0 keeps as many rows on chip as
+// fit.
 // Returns the launch's error, else cudaGetLastError().
 extern "C" int rbf_icf(int dtype, const void* x, const void* sig2, void* F,
-                       void* Ft, void* piv, void* resid, void* cand_v,
-                       void* cand_i, void* sync, int n, int R, int d,
+                       void* Ft, void* piv, void* resid, void* dpv,
+                       void* cand_v, void* cand_i, void* sync, int n, int R,
+                       int d,
                        int max_cached, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (dtype) {
     case 0:
-      err = launch_icf<float>(x, sig2, F, Ft, piv, resid, cand_v, cand_i,
-                              sync, n, R, d, max_cached, st);
+      err = launch_icf<float>(x, sig2, F, Ft, piv, resid, dpv, cand_v,
+                              cand_i, sync, n, R, d, max_cached, st);
       break;
     case 1:
-      err = launch_icf<double>(x, sig2, F, Ft, piv, resid, cand_v, cand_i,
-                               sync, n, R, d, max_cached, st);
+      err = launch_icf<double>(x, sig2, F, Ft, piv, resid, dpv, cand_v,
+                               cand_i, sync, n, R, d, max_cached, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -10,7 +10,9 @@ launches (never the plain path), so a run can show that its main path went
 through the kernels;
 ``xcov_tc_launches`` counts the launches of the tensor-core instance (as
 the C entry reports them), and ``inverse_builds`` the triangular inverses
-that ``tri_inv`` built (once per factor, see there).
+that ``tri_inv`` built (once per factor, see there). No kernel has a
+backward: a wrapper given CUDA tensors that require grad, in grad mode,
+raises (``refuse_grad``) rather than return a tensor cut from the graph.
 """
 from __future__ import annotations
 
@@ -59,8 +61,8 @@ def _rbf_entry():
 def _icf_entry():
     lib = build.library("rbf_icf")
     fn = lib.rbf_icf
-    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                   _P]
+    fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                   _I, _P]
     fn.restype = _I
     plan = lib.rbf_icf_plan
     plan.argtypes = [_I, _I, _I, _I, _I] + [ctypes.POINTER(_I)] * 7
@@ -79,6 +81,25 @@ def _xcov_entry():
                    _I, _I, _I, _P, ctypes.POINTER(_I)]
     fn.restype = _I
     return lib, fn
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record ``what`` on these tensors (other
+    arguments, such as a Python-float sig2, are ignored): grad mode is on
+    and one of them requires grad. The kernels return fresh
+    tensors with no ``grad_fn`` (none has a backward kernel, as none of the
+    reference's Pallas kernels has one), so a graph through them would be
+    cut without a word: an MLE objective would lose dK/dθ and keep the
+    noise term's gradient. The plain ``"se"`` kernel
+    (``covariance.make_kernel("se")``, what ``core.hyper`` takes) is
+    differentiable."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and an input "
+            f"requires grad; differentiate through the plain kernel "
+            f"(covariance.make_kernel('se'), as core.hyper does) or run "
+            f"under torch.no_grad()")
 
 
 def _check_cuda(**tensors) -> None:
@@ -101,6 +122,7 @@ def rbf_covariance(Xq: torch.Tensor, Xk: torch.Tensor, sig2) -> torch.Tensor:
     global rbf_launches
     if build.on_cpu(Xq, Xk):
         return ref.rbf_covariance(Xq, Xk, sig2)
+    refuse_grad("rbf_covariance", Xq, Xk, sig2)
     _check_cuda(Xq=Xq, Xk=Xk)
     if Xq.dtype != Xk.dtype:
         raise TypeError(f"Xq and Xk dtypes differ: {Xq.dtype} vs {Xk.dtype}")
@@ -173,19 +195,22 @@ def icf_plan(dtype: torch.dtype, n: int, R: int, d: int,
 
 
 def icf_factor(Xs: torch.Tensor, sig2, R: int, *,
-               cached_rows: int | None = None):
+               cached_rows: int | None = None, pivot_values: bool = False):
     """Pivoted incomplete Cholesky of the SE kernel matrix over pre-scaled
     candidates Xs (n, d): all R pivot steps in one cooperative launch of
     ``csrc/rbf_icf.cu``, with each step's kernel column computed in the
     update (rbf's arithmetic). Returns (F (R, n), pivots (R,) int64,
     residual (n,)) in Xs's dtype, float32 or float64, which is also the
-    accumulation type. ``cached_rows`` caps the factor entries each column
-    keeps on chip (default: as many as fit; the result does not depend on
-    it, which the checks on the card hold it to). Raises where the kernel
-    cannot run; never falls back to the step loop."""
+    accumulation type; with ``pivot_values`` also (R,) d_p, each step's
+    pivot value (the residual it pivoted on, before the step), which the
+    kernel writes as it goes. ``cached_rows`` caps the factor entries each
+    column keeps on chip (default: as many as fit; the result does not
+    depend on it, which the checks on the card hold it to). Raises where
+    the kernel cannot run; never falls back to the step loop."""
     global icf_launches
     if build.on_cpu(Xs):
-        return ref.icf_factor(Xs, sig2, R)
+        return ref.icf_factor(Xs, sig2, R, pivot_values=pivot_values)
+    refuse_grad("icf_factor", Xs, sig2)
     if Xs.ndim != 2 or Xs.shape[0] < 1 or R < 0:
         raise ValueError(f"need Xs (n, d) with n >= 1 and R >= 0; got "
                          f"{tuple(Xs.shape)}, R={R}")
@@ -196,6 +221,7 @@ def icf_factor(Xs: torch.Tensor, sig2, R: int, *,
     F = torch.empty((R, n), dtype=dt, device=dev)
     piv = torch.empty((R,), dtype=torch.long, device=dev)
     resid = torch.empty((n,), dtype=dt, device=dev)
+    dpv = torch.empty((R,), dtype=dt, device=dev)
     Ft = torch.zeros((n, plan["row_stride"]), dtype=dt, device=dev)
     cand_v = torch.empty((2 * plan["blocks"],), dtype=dt, device=dev)
     cand_i = torch.empty((2 * plan["blocks"],), dtype=torch.int32,
@@ -207,12 +233,13 @@ def icf_factor(Xs: torch.Tensor, sig2, R: int, *,
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = fn(_icf_dtype_code(dt), Xs.data_ptr(), s2.data_ptr(),
                   F.data_ptr(), Ft.data_ptr(), piv.data_ptr(),
-                  resid.data_ptr(), cand_v.data_ptr(), cand_i.data_ptr(),
+                  resid.data_ptr(), dpv.data_ptr(), cand_v.data_ptr(),
+                  cand_i.data_ptr(),
                   sync.data_ptr(), n, R, d,
                   -1 if cached_rows is None else cached_rows, stream)
     build.check(lib, code, "rbf_icf launch")
     icf_launches += 1
-    return F, piv, resid
+    return (F, piv, resid, dpv) if pivot_values else (F, piv, resid)
 
 
 def icf_barrier_probe(dtype: torch.dtype, n: int, R: int, d: int,
@@ -347,6 +374,7 @@ def xcov_diag(Xq: torch.Tensor, Xk: torch.Tensor, L1: torch.Tensor,
     args = (Xq, Xk, L1, alpha) + ((L2,) if L2 is not None else ())
     if build.on_cpu(*args):
         return ref.xcov_diag(Xq, Xk, L1, alpha, sig2, L2)
+    refuse_grad("xcov_diag", *args, sig2)
     s = Xk.shape[0]
     if L1.shape != (s, s) or (L2 is not None and L2.shape != (s, s)):
         raise ValueError(f"need (s, s) factors for s={s}; got "
@@ -371,6 +399,7 @@ def xcov_diag_inv(Xq: torch.Tensor, Xk: torch.Tensor, L1inv: torch.Tensor,
     if build.on_cpu(*args):
         raise ValueError("xcov_diag_inv launches the CUDA kernel and takes "
                          "CUDA tensors; the plain path is xcov_diag")
+    refuse_grad("xcov_diag_inv", *args, sig2)
     n, d = Xq.shape
     s = Xk.shape[0]
     if Xk.shape != (s, d) or L1inv.shape != (s, s) or alpha.shape != (s,) \

@@ -28,11 +28,14 @@ def rbf_covariance(Xq: torch.Tensor, Xk: torch.Tensor, sig2) -> torch.Tensor:
 
 
 def icf_factor(Xs: torch.Tensor, sig2, R: int,
-               pivots: torch.Tensor | None = None):
+               pivots: torch.Tensor | None = None, *,
+               pivot_values: bool = False):
     """Pivoted incomplete Cholesky of the SE kernel matrix over pre-scaled
     candidates Xs (n, d), step by step: ``repro.core.icf.icf_factor``'s
     loop for the SE kernel, in Xs's dtype (the column too). Returns
-    (F (R, n), pivots (R,) int64, residual (n,)). Given ``pivots`` (R,), it
+    (F (R, n), pivots (R,) int64, residual (n,)), and with
+    ``pivot_values`` also (R,) d_p, the residual each step pivoted on
+    (before the step). Given ``pivots`` (R,), it
     takes them in place of the argmax (to replay another implementation's
     choices). The pivot stays on the device (index_select/index_fill with a
     one-element index tensor), so the loop never waits for the card; F is
@@ -45,6 +48,7 @@ def icf_factor(Xs: torch.Tensor, sig2, R: int,
     d = sig2.expand(n).clone()                          # diag of K
     F = torch.zeros((R, n), dtype=dt, device=dev)
     piv = torch.zeros((R,), dtype=torch.long, device=dev)
+    dpv = torch.zeros((R,), dtype=dt, device=dev)
     for i in range(R):
         p = torch.argmax(d).reshape(1) if pivots is None \
             else pivots[i:i + 1]                        # first max, as jnp
@@ -60,7 +64,8 @@ def icf_factor(Xs: torch.Tensor, sig2, R: int,
         d = torch.clamp(d - f * f, min=0.0)
         d.index_fill_(0, p, 0.0)
         piv[i] = p[0]
-    return F, piv, d
+        dpv[i] = dp[0]
+    return (F, piv, d, dpv) if pivot_values else (F, piv, d)
 
 
 def icf_slack(F: torch.Tensor, pivots: torch.Tensor, sig2) -> torch.Tensor:

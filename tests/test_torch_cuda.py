@@ -394,6 +394,91 @@ def test_select_support_runs_one_icf_launch(cuda):
     assert torch.equal(S, C.index_select(0, piv))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_icf_kernel_ragged_warp_columns_and_pivot_values(cuda, dtype):
+    """n = 32000 (pICF's |D|) at R = 256: 130 blocks of 248 columns, 31 a
+    warp, so each warp's last group of NC = 8 holds 7 (W / 8 not a multiple
+    of NC). float64: pivots equal the plain loop's, F, the residual and the
+    pivot values d_p within icf_tolerance; float32: the same pivot values
+    along its own pivots as the plain loop replayed on them."""
+    n, R, d = 32000, 256, 5
+    plan = ops.icf_plan(dtype, n, R, d)
+    assert plan["width"] % 64 != 0 and plan["width"] // 8 % 8 != 0
+    Xs = _icf_inputs(n, d, dtype, cuda, seed=6)
+    sig2 = torch.tensor(ICF_SIG2, dtype=dtype, device=cuda)
+    F, piv, resid, dp = ops.icf_factor(Xs, sig2, R, pivot_values=True)
+    torch.cuda.synchronize()
+    if dtype == torch.float64:
+        Fw, pw, rw, dw = ref.icf_factor(Xs, sig2, R, pivot_values=True)
+        assert torch.equal(piv, pw)
+        tol_f, tol_r, _ = icf_tolerance(Fw, pw, ICF_SIG2)
+        assert float((F - Fw).abs().max()) <= tol_f
+        assert float((resid - rw).abs().max()) <= tol_r
+        assert float((dp - dw).abs().max()) <= tol_r
+    else:
+        Fr, _, _, dr = ref.icf_factor(Xs, sig2, R, piv, pivot_values=True)
+        assert float((F - Fr).abs().max()) <= ICF_F32_TOL * ICF_SIG2 ** 0.5
+        assert float((dp - dr).abs().max()) <= ICF_F32_TOL * ICF_SIG2
+    # d_p is each step's pivot entry squared, f_p = sqrt(d_p), to rounding
+    fpp = F[torch.arange(R, device=cuda), piv]
+    assert float((fpp.pow(2) - dp).abs().max()) <= 1e-3 * ICF_SIG2
+
+
+def test_picf_plan_on_the_card_matches_the_plain_path(cuda):
+    """pICF fitted and served through the kernels (one ICF launch, rbf for
+    K_{U,D_m}) against the plain path (impl="torch": the plain loop and
+    covariance) in float64: same pivots, state and served output within
+    limits set by rbf's float32 accumulation (K_UD's entries err by
+    ~1e-7 of sig2, which eqs. 24-27 amplify by |D| / s2 ~ 1e4)."""
+    from repro_torch.core import api, covariance as cov
+    from repro_torch.parallel.runner import VmapRunner
+    rng = np.random.default_rng(8)
+    X = torch.tensor(rng.uniform(-2, 2, size=(2048, 5)), device=cuda)
+    y = torch.sin(2 * X[:, 0]) + X[:, 1] * torch.cos(X[:, 2])
+    U = torch.tensor(rng.uniform(-2, 2, size=(300, 5)), device=cuda)
+    params = cov.init_params(5, signal=1.0, noise=0.3, lengthscale=1.2,
+                             dtype=torch.float64, device=cuda)
+    ops.reset_counts()
+    k = api.fit("picf", cov.make_spec("se"), params, X, y, rank=256,
+                runner=VmapRunner(M=8), device=cuda)
+    assert ops.icf_launches == 1
+    p = api.fit("picf", cov.make_spec("se", impl="torch"), params, X, y,
+                rank=256, runner=VmapRunner(M=8), device=cuda)
+    assert ops.icf_launches == 1
+    for f in ("F", "Phi_L", "ydd"):
+        a, b = getattr(k.state, f), getattr(p.state, f)
+        assert float((a - b).abs().max()) <= 1e-8 * float(b.abs().max()), f
+    mk, vk = k.plan(api.ServeSpec(max_batch=256)).diag(U)
+    assert ops.rbf_launches >= 1          # K_{U,D_m}, all machines at once
+    mp, vp = p.plan(api.ServeSpec(max_batch=256)).diag(U)
+    scale = 1.0 + float(torch.cat([mp, vp]).abs().max())
+    assert float((mk - mp).abs().max()) <= 1e-2 * scale
+    assert float((vk - vp).abs().max()) <= 1e-2 * scale
+    assert bool(torch.isfinite(mk).all() and torch.isfinite(vk).all())
+
+
+@pytest.mark.parametrize("call", ["rbf", "icf", "xcov"])
+def test_kernel_wrappers_refuse_a_graph(cuda, call):
+    """Asked for a gradient, each CUDA wrapper raises (it would return a
+    tensor cut from the graph); under no_grad, or with no input requiring
+    grad, it launches."""
+    X = torch.randn(64, 3, device=cuda, dtype=torch.float64)
+    s2 = torch.tensor(1.3, device=cuda, dtype=torch.float64,
+                      requires_grad=True)
+    L1, _, alpha = _factors(16, torch.float64, cuda)
+    run = {"rbf": lambda x: ops.rbf_covariance(x, X[:16], s2),
+           "icf": lambda x: ops.icf_factor(x, s2, 8),
+           "xcov": lambda x: ops.xcov_diag(x, X[:16], L1, alpha, s2)}[call]
+    with pytest.raises(RuntimeError, match="no backward"):
+        run(X)
+    with torch.no_grad():
+        run(X)
+    s2.requires_grad_(False)
+    with pytest.raises(RuntimeError, match="no backward"):
+        run(X.clone().requires_grad_(True))
+    run(X)
+
+
 # --- flash attention and SSD (the LM serving slice) ---------------------------
 
 # the reference's tolerances: flash 2e-3 f32 / 3e-2 bf16

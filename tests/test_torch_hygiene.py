@@ -26,6 +26,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     mods = _port_modules()
     assert {"repro_torch.core.ppitc", "repro_torch.core.ppic",
             "repro_torch.core.pitc", "repro_torch.core.clustering",
+            "repro_torch.core.picf", "repro_torch.core.hyper",
+            "repro_torch.optim.adam",
             "repro_torch.kernels.rbf.ops",
             "repro_torch.kernels.attention.ops", "repro_torch.kernels.ssd.ops",
             "repro_torch.models.transformer", "repro_torch.launch.serve",

@@ -120,6 +120,31 @@ def test_uses_kernel_only_for_the_se_family_on_the_card(kfn, device, dtype,
     assert icf.uses_kernel(kfn, device, dtype) is want
 
 
+@pytest.mark.parametrize("n,R,d", ICF_CASES[:2])
+def test_pivot_values_are_each_steps_largest_residual(n, R, d):
+    """``pivot_values``: d_p of step i is the largest residual before the
+    step (the loop's d replayed with its own operations, bit for bit), the
+    same from the kernel's plain version and the generic loop, and
+    F[i, p_i] = sqrt(d_p) to rounding."""
+    X, _, params, Xs, sig2 = _problem(n, d, seed=4)
+    F, piv, resid, dp = ref.icf_factor(Xs, sig2, R, pivot_values=True)
+    assert all(torch.equal(a, b) for a, b in
+               zip((F, piv, resid), ref.icf_factor(Xs, sig2, R)))
+    dd = torch.as_tensor(sig2, dtype=F.dtype).expand(F.shape[1]).clone()
+    for i in range(R):
+        assert dp[i] == dd.max() == dd[piv[i]]
+        dd = torch.clamp(dd - F[i] * F[i], min=0.0)
+        dd[piv[i]] = 0.0
+    fac, dp2 = icf.icf_factor(cov.make_spec("se"), params, torch.tensor(X),
+                              R, pivot_values=True)
+    assert torch.equal(fac.pivots, piv)
+    assert float((dp2 - dp).abs().max()) < 1e-10
+    fpp = F[torch.arange(R), piv]
+    assert float((fpp * fpp - dp).abs().max()) < 1e-10
+    got = ops.icf_factor(Xs, sig2, R, pivot_values=True)
+    assert len(got) == 4 and torch.equal(got[3], dp)
+
+
 def test_cpu_wrapper_takes_the_plain_path_and_counts_nothing():
     _, _, _, Xs, sig2 = _problem(64, 3)
     ops.icf_launches = 5
