@@ -7,10 +7,11 @@ card. Run from the root of a checkout, with one card visible:
 Phases, in order; any failure exits non-zero before the last line:
 
 1. card: name and power limit (nvidia-smi);
-2. build: the five CUDA sources (rbf, rbf_icf, xcov_diag,
-   flash_attention, ssd_intra_chunk) from the checkout (nvcc, sm_90a, one
-   compiler per source, started together) into build/kernels/; every
-   float32 xcov_diag instance must hold wgmma (HGMMA) in its SASS;
+2. build: the six CUDA sources (rbf, rbf_icf, xcov_diag,
+   flash_attention, ssd_intra_chunk, chol_downdate) from the checkout
+   (nvcc, sm_90a, one compiler per source, started together) into
+   build/kernels/; every float32 xcov_diag instance must hold wgmma (HGMMA)
+   in its SASS;
 3. kernel vs plain: each kernel against its plain PyTorch version on the
    card, at the main paths' shapes and at edge cases, within the tolerances
    stated below, and each timed at its main path's shape (flash also
@@ -24,10 +25,13 @@ Phases, in order; any failure exits non-zero before the last line:
    both its bounds and, in its prose line, the GFLOP its tiles execute as
    counted from them; xcov_diag at four of the GP path's query buckets,
    with its 3xTF32, bytes and f32 CUDA-core bounds, and on a fitted,
-   conditioned pPITC state). Each flash, SSD, xcov_diag and ICF case runs
-   three times and every run must equal the first (an ICF case also with
-   fewer factor rows kept on chip); every float32 xcov_diag launch must
-   take the tensor-core instance;
+   conditioned pPITC state; the Cholesky downdate in float32 and float64
+   at the streaming path's (2048, 1600), at ragged and edge shapes and
+   with zero columns, timed beside its bounds, the floor of its n + b - 1
+   grid barriers and the plain version). Each flash, SSD, xcov_diag, ICF
+   and downdate case runs three times and every run must equal the first
+   (an ICF case also with fewer factor rows kept on chip); every float32
+   xcov_diag launch must take the tensor-core instance;
 4. GP main path: pPITC at the paper's AIMPEAK configuration (|D| = 32000,
    M = 20, |S| = 2048, d = 5, float32): support selection, fit, plan,
    warm-up, 8 requests through ``plan.diag``; support selection must be
@@ -63,6 +67,36 @@ Phases, in order; any failure exits non-zero before the last line:
    10000-point subset) in float64 (losses must fall) and float32 (step 0
    within its stated limit), and ``hyper.fit_parallel`` on all 32000 rows
    in float32 (3 steps, finite: Sdd factored from its square root);
+4d. GP streaming and faults, on phase 4's data, support set and
+   hyperparameters, float32 unless stated: (a) a pPITC store on the first
+   16000 rows over 10 machines, the other 16000 assimilated over 10 more
+   (blocks of 1600, the cold fit's partition), ``to_state`` and the 8
+   requests through ``plan.diag`` (RMSE 0.3040 +- 0.002), Sdd_L, alpha
+   and the served output against phase 4's cold fit; (b) ``retire(3)``
+   (exactly one chol_downdate launch: the float32 factor downdated in
+   float64) against a float64 refold of the 19 survivors, ``revive(3)``
+   against (a), with the downdated factor's errors printed beside the
+   reference's float32 downdate; (c) ``with_alive`` missing 2
+   machines (incremental) and 12 (auto: the refold), each against a
+   float64 refold; (d) ``fault.fail`` then ``fault.recover_reassign``
+   against (a); (e) pPIC on phase 4b's co-clustered order streamed the
+   same way, the 8 requests through ``routed_diag`` (RMSE <= 0.3060,
+   against phase 4b's fit), a dead block's rows from the global posterior
+   through xcov_diag, and the block retired from the store (one
+   downdate, 19 blocks served) against a float64 pPIC store streamed and
+   retired the same way; (f) pICF at R = 2048 streamed the same way and
+   ``retire(3)`` (one downdate of Phi_L), in float32 and float64
+   (negative-variance shares within 0.05), and phase 4c's float32-vs-
+   float64 rules on a second AIMPEAK draw (seed 1), cold and streamed.
+   Limits: 10 x the cold float32 fit's own error against a float64 fit +
+   1e-4, quantity by quantity. Each step is timed (host clock +
+   synchronize), with the phase's peak device memory, and its kernel
+   launches are counted apart: those of the float32 stores' own steps and
+   serving (the main path's, in phase 7's line) and those of the float64
+   yardsticks and the records;
+4e. phase 4's pPITC fit FIT_REPEAT more times, each traced for the
+   device's busy time beside its wall time, then once more for its
+   largest kernels;
 5. LM main path, qwen3-1.7b at full width and depth (random weights from
    seed 0, bfloat16 compute): prefill of 4 x 4096 tokens through
    ``forward(logits_last_only=True)``, then ``prefill_then_decode`` (4
@@ -161,6 +195,17 @@ SSD_REPEAT = 3           # launches of each SSD case (each must equal the first)
 # tiles the keys differently), and those float32 roundings compound over
 # 14x more layers of the residual stream: 2e-3, on logits of order 1.
 TOL_CONSISTENCY = 2e-3
+#  The Cholesky downdate against its plain version (ref.py), max abs error
+#  on factors of entries O(1): the kernel does the plain version's
+#  operations on the same values with the same roundings (the _rn
+#  intrinsics, no FMA), so it should agree bit for bit (printed); the limit
+#  is the reference's own 1e-12 in f64 (tests/test_state_store.py) and
+#  1e-5 in f32, where a wrong row, column or sweep errs by O(0.1).
+TOL_DOWNDATE = {"float32": 1e-5, "float64": 1e-12}
+DOWNDATE_REPEAT = 3      # launches of each downdate case (each equal)
+# Published FP64 peak of one H100 SXM outside the tensor cores (NVIDIA data
+# sheet): the downdate's float64 arithmetic runs there.
+F64_FLOPS_PER_S = 34e12
 
 
 def ssd_tol(want, base: float) -> float:
@@ -183,6 +228,7 @@ M, N_TRAIN, N_TEST, S_SIZE, D = 20, 32000, 3200, 2048, 5
 # the card must leave it there.
 RMSE_AIMPEAK, TOL_RMSE = 0.3040, 0.002
 ICF_CANDIDATES = 8192        # select_support's pool: ds.X[:8192]
+FIT_REPEAT = 5               # the pPITC fit timed again in phase 4e
 REQUEST_SIZES = (1, 7, 64, 200, 256, 256, 1000, 3200)
 
 # LM serving: prefill batch x length, generation prompt and new tokens, and
@@ -902,6 +948,120 @@ def check_ssd(torch, ops, ref, gen):
                 shape=f"BC={BC}, cs={cs}, H={H}, P={P}, N={N}, f32")
 
 
+def downdate_bytes(n: int, b: int, itemsize: int) -> int:
+    """Bytes the downdate must move: L's lower triangle and W read once,
+    the new triangle written once."""
+    return itemsize * (n * (n + 1) + n * b)
+
+
+def downdate_flops(n: int, b: int) -> int:
+    """Six operations a row for each (sweep, step) pair: 3 b n (n - 1)."""
+    return 3 * b * n * (n - 1)
+
+
+def check_downdate(torch, ops, ref, gen):
+    """The Cholesky downdate chol(L Lᵀ - W Wᵀ) against its plain version
+    (the reference's sweeps in wavefront order) in f32 and f64: the main
+    path's (n, b) = (|S|, |D|/M) = (2048, 1600) (a machine retired from
+    Sdd_L, or pICF's Phi_L at R = 2048), ragged chunks, b = 1, b > n,
+    n = 1 and zero columns; each case launched DOWNDATE_REPEAT times,
+    every run equal to the first. Inputs: L1 = chol(L0 L0ᵀ + W Wᵀ) from
+    the QR of its root, so the downdate gives back L0. Timed at the main
+    shape beside its bounds, the floor of n + b - 1 empty grid barriers and
+    the plain version (also at (256, 64))."""
+    from repro_torch.core import linalg
+    main = (S_SIZE, N_TRAIN // M)
+    cases = [(main, ()), ((300, 257), ()), ((128, 1), ()), ((8, 40), ()),
+             ((1, 3), ()), ((96, 12), (0, 5, 11))]
+
+    def inputs(n, b, dt, zero=()):
+        L0 = torch.tril(torch.randn((n, n), generator=gen, device="cuda")
+                        * 0.1, -1) \
+            + torch.diag(1.0 + torch.rand(n, generator=gen, device="cuda"))
+        W = torch.randn((n, b), generator=gen, device="cuda") * 0.5 / b ** 0.5
+        W[:, list(zero)] = 0.0
+        L0, W = L0.to(dt), W.to(dt)
+        return L0, linalg.chol_from_root(L0, W), W
+
+    worst, rows = {}, {}
+    for (n, b), zero in cases:
+        for dt in (torch.float32, torch.float64):
+            key = str(dt).split(".")[1]
+            L0, L1, W = inputs(n, b, dt, zero)
+            n0 = ops.chol_downdate_launches
+            runs = [ops.chol_downdate(L1, W) for _ in range(DOWNDATE_REPEAT)]
+            t0 = time.perf_counter()
+            want = ref.chol_downdate(L1, W)
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+            if ops.chol_downdate_launches - n0 != DOWNDATE_REPEAT:
+                fail(f"chol_downdate ({n}, {b}) {key}: "
+                     f"{ops.chol_downdate_launches - n0} launches")
+            if not all(torch.equal(r, runs[0]) for r in runs[1:]):
+                fail(f"chol_downdate ({n}, {b}) {key}: repeated launches "
+                     f"disagree")
+            got = runs[0]
+            err, back = max_err(got, want), max_err(got, L0)
+            bitwise = bool(torch.equal(got, want))
+            print(f"  chol_downdate (n, b)=({n}, {b}) zero columns "
+                  f"{list(zero)} {key} x{DOWNDATE_REPEAT}: max|err| vs plain "
+                  f"{err:.3e} (tol {TOL_DOWNDATE[key]:.0e}), bitwise "
+                  f"{bitwise}; vs the factor before the update {back:.3e}; "
+                  f"plain {t_plain:.3f} s", flush=True)
+            if not err <= TOL_DOWNDATE[key]:
+                fail(f"chol_downdate ({n}, {b}) {key} error {err}")
+            if zero and not torch.equal(
+                    ops.chol_downdate(L0, W[:, list(zero)]), L0):
+                fail("chol_downdate: zero columns changed L")
+            if (n, b) == main:
+                worst[key] = err
+                rows[key] = (L1, W, t_plain)
+    n, b = main
+    out = {}
+    for key, (L1, W, t_plain) in rows.items():
+        dt = L1.dtype
+        ms = kernel_device_ms(torch, lambda: ops.chol_downdate(L1, W),
+                              "downdate_kernel", 5)
+        b2b = time_ms(lambda: ops.chol_downdate(L1, W), 5)
+        peak = F32_FLOPS_PER_S if dt == torch.float32 else F64_FLOPS_PER_S
+        b_ms, b_by = bound_ms(downdate_bytes(n, b, L1.element_size()),
+                              downdate_flops(n, b), peak)
+        floor = time_ms(lambda: ops.barrier_probe(n + b - 1, "cuda"), 5)
+        L1s, Ws = L1[:256, :256].contiguous(), W[:256, :64].contiguous()
+        small = time_ms(lambda: ops.chol_downdate(L1s, Ws), 5)
+        small_plain = time_ms(lambda: ref.chol_downdate(L1s, Ws), 1, 1)
+        print(f"  chol_downdate at ({n}, {b}) {key}: device {ms:.4f} ms "
+              f"(back to back with the wrapper's copies {b2b:.4f} ms), "
+              f"{(n + b - 1)} diagonals, {ms * 1e3 / (n + b - 1):.2f} us a "
+              f"diagonal; bound {b_ms:.4f} ms ({b_by}: "
+              f"{downdate_flops(n, b) / 1e9:.1f} GFLOP, "
+              f"{downdate_bytes(n, b, L1.element_size()) / 1e6:.1f} MB); "
+              f"{n + b - 1} empty grid barriers {floor:.4f} ms; plain "
+              f"{t_plain * 1e3:.1f} ms; at (256, 64) kernel {small:.4f} ms, "
+              f"plain {small_plain:.2f} ms", flush=True)
+        out[key] = dict(ms=ms, plain_ms=t_plain * 1e3, bound_ms=b_ms,
+                        bound_by=b_by, barrier_floor_ms=floor,
+                        back_to_back_ms=b2b, ms_256x64=small,
+                        plain_ms_256x64=small_plain)
+    f32, f64 = out["float32"], out["float64"]
+    return dict(name="chol_downdate", route="cuda",
+                source="src/repro_torch/kernels/linalg/csrc/chol_downdate.cu",
+                replaces="src/repro/core/linalg.py:125",
+                pallas="none: the port's own kernel (the reference's "
+                       "downdate is jitted LINPACK sweeps)",
+                max_abs_err=worst["float32"], tol=TOL_DOWNDATE["float32"],
+                ms=f32["ms"], plain_ms=f32["plain_ms"],
+                bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
+                library_ms=None,
+                barrier_floor_ms=f32["barrier_floor_ms"],
+                back_to_back_ms=f32["back_to_back_ms"],
+                ms_256x64=f32["ms_256x64"],
+                plain_ms_256x64=f32["plain_ms_256x64"],
+                f64_ms=f64["ms"], f64_plain_ms=f64["plain_ms"],
+                f64_bound_ms=f64["bound_ms"], f64_max_abs_err=worst["float64"],
+                shape=f"(n, b) = ({n}, {b}) f32")
+
+
 def lm_path(torch, card: str, name: str, counter) -> int:
     """Prefill and generation of ``name`` at full width and depth through
     the port's entry points, then the float32 forward-vs-decode check;
@@ -1010,7 +1170,8 @@ def _leaves(tree):
 
 def main_path(torch, card: str):
     """Fit pPITC at the paper's AIMPEAK configuration and serve through the
-    plan API; returns the kernels' launch counts during the run."""
+    plan API; returns the kernels' launch counts during the run, the
+    timings, the data and the fitted state (phase 4d's yardstick)."""
     from repro_torch.core import api, covariance as cov, support
     from repro_torch.data import synthetic
     from repro_torch.kernels.rbf import ops
@@ -1130,7 +1291,7 @@ def main_path(torch, card: str):
              f"negative-variance share {neg} (want 0)")
     data = {"ds": ds, "spec": spec, "params": params, "S": S}
     return launches, {"block_launches": block, "icf_launches": icf_n,
-                      "select_support_s": t2 - t1}, data
+                      "select_support_s": t2 - t1}, data, model.state
 
 
 # pPIC routed serving (phase 4b). Tolerances:
@@ -1214,7 +1375,9 @@ def layout_divergence(torch, plan, state, U) -> str:
 def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
     """Fit pPIC on the co-clustered AIMPEAK data (phase 4's support set and
     hyperparameters) and serve it routed through the plan API; returns the
-    kernels' launch counts during the fit and requests."""
+    kernels' launch counts during the fit and requests, and the
+    co-clustered data with the fit's output on the float64 check's queries
+    (phase 4d's yardstick)."""
     import numpy as np
     from repro_torch.core import api, clustering, covariance as cov, linalg, \
         ppic
@@ -1324,6 +1487,7 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
           f"over max |f64|: "
           f"{ {k: float(f'{v:.2e}') for k, v in fields.items()} }",
           flush=True)
+    cold = {"Xc": Xc, "yc": yc, "m": m32, "v": v32}
     del model64, m64, v64, g64
     torch.cuda.empty_cache()
     if not e_pic <= lim:
@@ -1409,7 +1573,7 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
     report("  one 256-row routed request", lambda: plan.routed_diag(U))
     print(f"  [{card}] phase peak device memory (the f64 fit included) "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
-    return launches
+    return launches, cold
 
 
 # pICF and MLE (phase 4c), on phase 4's data and hyperparameters. R = |S|:
@@ -1819,6 +1983,512 @@ def picf_path(torch, card: str, ds, spec, params, S) -> dict:
                 peak_gb=peak_phase)
 
 
+# Streaming stores and faults (phase 4d), on phase 4's data, support set and
+# hyperparameters: two waves of N_TRAIN / 2 rows, each over M / 2 machines,
+# so blocks of 1600 rows, the partition of the cold M = 20 fit. Limits:
+#  each streamed, retired, revived, straggler or recovered quantity against
+#  its yardstick (the cold fit, a float64 refold of the same machines, or a
+#  float64 store on the same path):
+#  <= 10 x the cold float32 fit's own error against a float64 fit in that
+#  quantity + 1e-4 (the shape of phase 4b's limit; served mean and variance
+#  on PPIC_F64_QUERIES queries, then Sdd_L and alpha each);
+#  the test RMSE of the streamed pPITC state: phase 4's gate; of the
+#  streamed pPIC state: phase 4b's; pICF float32 against float64 on the same
+#  path: phase 4c's negative-variance rule, no RMSE gate; on the second
+#  draw, cold: phase 4c's two rules, streamed: its share rule.
+STREAM_RETIRE = 3                 # the machine retired and revived
+STRAGGLE_FEW = (5, 17)            # a deadline that misses two machines
+STRAGGLE_MANY = 12                # ... and one that misses twelve
+PICF_SEED2 = 1                    # a second AIMPEAK draw for pICF's shares
+
+
+def stream_path(torch, card: str, ds, spec, params, S, cold_state,
+                cold_pic) -> dict:
+    """The streaming stores of all three parallel GPs and the fault runtime
+    at AIMPEAK: pPITC streamed in two waves and served through the plan,
+    retire and revive (the downdate kernel), stragglers (incremental and
+    refold), a machine's failure and its reassignment, pPIC streamed and
+    served routed with a block retired, pICF streamed and retired.
+
+    Every step runs through ``run``, which sets the kernels' launch counts
+    to 0 just before it and reads them just after, and adds them to the
+    main path's tally (the float32 stores' own steps and their serving) or
+    to the yardsticks' (float64 stores and refolds, the reference's float32
+    routes printed for the record, the second seed). Returns both tallies
+    and the timings."""
+    import dataclasses
+
+    import numpy as np
+    from repro_torch.core import api, covariance as cov, linalg, online, \
+        picf, ppic, ppitc
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.linalg import ops as lops
+    from repro_torch.kernels.rbf import ops
+    from repro_torch.parallel.runner import VmapRunner
+    from repro_torch.runtime import fault
+
+    dev = ds.X.device
+    half, H = VmapRunner(M=M // 2), N_TRAIN // 2
+    b = N_TRAIN // M
+    spec64 = cov.make_spec("se", impl="torch")
+    p64 = {k: v.double() for k, v in params.items()}
+    X64, y64, S64 = ds.X.double(), ds.y.double(), S.double()
+    U = ds.X_test[:PPIC_F64_QUERIES]
+    U64 = U.double()
+    times = {}
+    tally = {"main": {}, "yardsticks": {}}
+    last = {}                      # the counts of the latest step
+
+    def run(fn, name=None, main=False):
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        lops.reset_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if name:
+            times[name] = time.perf_counter() - t
+        last.update(rbf=ops.rbf_launches, icf=ops.icf_launches,
+                    xcov_diag=ops.xcov_launches,
+                    chol_downdate=lops.chol_downdate_launches)
+        into = tally["main" if main else "yardsticks"]
+        for k, v in last.items():
+            into[k] = into.get(k, 0) + v
+        return out
+
+    def served32(state):
+        return run(lambda: ppitc.predict_batch_diag(spec, params, state, U))
+
+    def served64(state):
+        return run(lambda: ppitc.predict_batch_diag(spec64, p64, state, U64))
+
+    def err2(a, b_):
+        return max(max_err(a[0], b_[0]), max_err(a[1], b_[1]))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the yardsticks: pPITC's own f32-vs-f64 error (phase 4's cold fit
+    # against a float64 cold fit of the same data), and a float64 store on
+    # the same streaming path
+    cold64 = run(lambda: api.fit("ppitc", spec64, p64, X64, y64, S=S64,
+                                 runner=VmapRunner(M=M)).state,
+                 "cold f64 fit")
+    cold_served = served32(cold_state)
+    own = {"served": err2(cold_served, served64(cold64)),
+           "Sdd_L": max_err(cold_state.Sdd_L, cold64.Sdd_L),
+           "alpha": max_err(cold_state.alpha, cold64.alpha)}
+    lim = {k: 10 * v + 1e-4 for k, v in own.items()}
+    print(f"  yardsticks: the cold f32 fit against an f64 fit: served "
+          f"{own['served']:.3e}, Sdd_L {own['Sdd_L']:.3e}, alpha "
+          f"{own['alpha']:.3e}; limits 10 x these + 1e-4", flush=True)
+    st64 = run(lambda: api.init_store(
+        "ppitc", spec64, p64, X64[:H], y64[:H], S=S64,
+        runner=half).assimilate(X64[H:], y64[H:]))
+    failures = []
+
+    def check(what, e, limit):
+        ok = e <= limit
+        print(f"  {what}: {e:.3e} (limit {limit:.3e}){'' if ok else ' FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(what)
+
+    # (a) pPITC: the first wave over 10 machines, the second assimilated
+    st0 = run(lambda: api.init_store("ppitc", spec, params, ds.X[:H],
+                                     ds.y[:H], S=S, runner=half),
+              "init_store ppitc", main=True)
+    st = run(lambda: st0.assimilate(ds.X[H:], ds.y[H:]), "assimilate ppitc",
+             main=True)
+    del st0
+    state = run(st.to_state, "to_state", main=True)
+    model = api.FittedGP(api.get("ppitc"), spec, params, state)
+    plan = run(lambda: model.plan(api.ServeSpec(max_batch=256)).warmup(D),
+               main=True)
+    outs, lat_ms, off = [], [], 0
+    for size in REQUEST_SIZES:
+        idx = torch.arange(off, off + size, device=dev) % N_TEST
+        Uq = ds.X_test.index_select(0, idx)
+        mean, var = run(lambda: plan.diag(Uq), "request", main=True)
+        lat_ms.append(times["request"] * 1e3)
+        outs.append((idx, mean, var))
+        off = (off + size) % N_TEST
+    for idx, mean, var in outs:
+        if mean.shape != idx.shape or not (torch.isfinite(mean).all()
+                                           and torch.isfinite(var).all()):
+            fail(f"streamed pPITC: bad output at batch {idx.numel()}")
+    idx_all, mean_all, var_all = outs[-1]
+    rmse = float(torch.sqrt(torch.mean(
+        (mean_all - ds.y_test.index_select(0, idx_all)) ** 2)))
+    neg = float((var_all < 0).double().mean())
+    print(f"  [{card}] (a) pPITC streamed (2 waves x 10 machines x {b}): "
+          f"init {times['init_store ppitc']:.3f} s, assimilate "
+          f"{times['assimilate ppitc']:.3f} s, to_state "
+          f"{times['to_state']:.4f} s; requests {list(REQUEST_SIZES)}: "
+          f"latency ms {[round(x, 3) for x in lat_ms]}; test RMSE "
+          f"{rmse:.4f}, negative-variance share {neg:.4f}", flush=True)
+    if not (abs(rmse - RMSE_AIMPEAK) <= TOL_RMSE and neg == 0.0):
+        failures.append(f"streamed pPITC RMSE {rmse}, share {neg}")
+    full = run(lambda: plan.diag(U))
+    check("(a) streamed vs the cold fit, served", err2(full, cold_served),
+          lim["served"])
+    check("(a) streamed vs the cold fit, Sdd_L",
+          max_err(state.Sdd_L, cold_state.Sdd_L), lim["Sdd_L"])
+    check("(a) streamed vs the cold fit, alpha",
+          max_err(state.alpha, cold_state.alpha), lim["alpha"])
+
+    # (b) retire and revive: a float64 downdate of the float32 factor
+    r = STREAM_RETIRE
+    dead = run(lambda: st.retire(r), "retire", main=True)
+    n_retire = last["chol_downdate"]
+    alive = dead.store.alive
+    ref64 = run(lambda: online.with_alive(st64.store, alive, mode="refold"),
+                "f64 refold")
+    dead64 = run(lambda: st64.retire(r), "f64 retire")
+    refold32 = run(lambda: online.with_alive(st.store, alive, mode="refold"),
+                   "f32 refold")
+    s_ref64 = online.to_state(ref64, S64)
+    e_dead = err2(served32(dead.to_state()), served64(s_ref64))
+    e_refold = err2(served32(online.to_state(refold32, S)),
+                    served64(s_ref64))
+    # the reference's route, for the record: the downdate in float32
+    dd32 = run(lambda: st.store._replace(
+        alive=alive, ydd=dead.store.ydd, Sdd_L=linalg.chol_update_rank(
+            st.store.Sdd_L, st.store.F[r], sign=-1.0)))
+    e_dd32 = err2(served32(online.to_state(dd32, S)), served64(s_ref64))
+    scale = float(ref64.Sdd_L.abs().max())
+    print(f"  [{card}] (b) retire({r}): {times['retire']:.4f} s, "
+          f"{n_retire} chol_downdate launch(es) (float64); f64 store's "
+          f"retire {times['f64 retire']:.4f} s; the alternatives: f32 "
+          f"refold {times['f32 refold']:.4f} s, f64 refold (chol_from_root "
+          f"over {int(alive.sum())} machines' roots) "
+          f"{times['f64 refold']:.4f} s", flush=True)
+    print(f"  downdated Sdd_L, max|err| / max|Sdd_L|: f32 retire vs f64 "
+          f"refold {max_err(dead.store.Sdd_L, ref64.Sdd_L) / scale:.3e}, f32 "
+          f"retire vs f64 retire "
+          f"{max_err(dead.store.Sdd_L, dead64.store.Sdd_L) / scale:.3e}, f64 "
+          f"retire vs f64 refold "
+          f"{max_err(dead64.store.Sdd_L, ref64.Sdd_L) / scale:.3e}, f32 "
+          f"refold vs f64 refold "
+          f"{max_err(refold32.Sdd_L, ref64.Sdd_L) / scale:.3e}, f32 "
+          f"downdate in f32 vs f64 refold "
+          f"{max_err(dd32.Sdd_L, ref64.Sdd_L) / scale:.3e}; served vs the "
+          f"f64 refold: f32 refold {e_refold:.3e}, f32 downdate in f32 (the "
+          f"reference's route) {e_dd32:.3e}", flush=True)
+    if n_retire != 1:
+        failures.append(f"retire took {n_retire} downdate launches")
+    check(f"(b) retire({r}) vs the f64 refold of the survivors, served",
+          e_dead, lim["served"])
+    del refold32, ref64, s_ref64, dead64, dd32
+    back = run(lambda: dead.revive(r), "revive", main=True)
+    check(f"(b) revive({r}) vs (a), served", err2(served32(back.to_state()),
+                                                  full), lim["served"])
+    if last["chol_downdate"]:
+        failures.append("revive launched the downdate kernel")
+    del back
+
+    # (c) stragglers: deadlines that miss 2 and 12 machines
+    for dead_set, mode in ((STRAGGLE_FEW, "incremental"),
+                           (tuple(range(STRAGGLE_MANY)), "auto")):
+        mask = torch.ones(M, dtype=torch.bool, device=dev)
+        mask[list(dead_set)] = False
+        key = f"with_alive {len(dead_set)}"
+        view = run(lambda: st.with_alive(mask, mode=mode), key, main=True)
+        n_dd = last["chol_downdate"]
+        ref = served64(online.to_state(run(lambda: online.with_alive(
+            st64.store, mask, mode="refold")), S64))
+        print(f"  [{card}] (c) with_alive, {len(dead_set)} machines "
+              f"missed, mode {mode}: {times[key]:.4f} s, {n_dd} "
+              f"chol_downdate launch(es)", flush=True)
+        if mode == "incremental":
+            # the reference's chain, for the record: downdates in float32
+            def chain_fn():
+                chain = st.store
+                for m in dead_set:
+                    chain = chain._replace(Sdd_L=linalg.chol_update_rank(
+                        chain.Sdd_L, chain.F[m], sign=-1.0),
+                        ydd=chain.ydd - chain.locals_.ydot[m])
+                return chain
+            chain = run(chain_fn)
+            print(f"  (c) the reference's chain of {len(dead_set)} float32 "
+                  f"downdates vs the f64 refold, served: "
+                  f"{err2(served32(online.to_state(chain, S)), ref):.3e}",
+                  flush=True)
+            del chain
+            if n_dd != len(dead_set):
+                failures.append(f"incremental with_alive took {n_dd} "
+                                f"launches")
+        check(f"(c) {len(dead_set)} missed vs the f64 refold, served",
+              err2(served32(view.to_state()), ref), lim["served"])
+        if mode == "auto":
+            same = run(lambda: online.with_alive(st.store, mask,
+                                                 mode="refold"))
+            if not torch.equal(same.Sdd_L, view.store.Sdd_L):
+                failures.append("auto did not take the refold at 12 flips")
+        del view
+
+    # (d) a machine fails and a standby recomputes its block
+    cl = fault.ClusterState(st, torch.arange(M, dtype=torch.int32,
+                                             device=dev))
+    cl = run(lambda: fault.fail(cl, r), "fail", main=True)
+    n_fail = last["chol_downdate"]
+    Xm, ym = ds.X[r * b:(r + 1) * b], ds.y[r * b:(r + 1) * b]
+    cl = run(lambda: fault.recover_reassign(cl, Xm, ym, machine=r,
+                                            new_owner=0),
+             "recover_reassign", main=True)
+    print(f"  [{card}] (d) fault.fail {times['fail']:.4f} s ({n_fail} "
+          f"chol_downdate launch), recover_reassign "
+          f"{times['recover_reassign']:.4f} s ({last['rbf']} rbf launches: "
+          f"the block's summary)", flush=True)
+    check("(d) recovered vs (a), served",
+          err2(served32(cl.store.to_state()), full), lim["served"])
+    del cl, st, st64, plan, model, outs
+    torch.cuda.empty_cache()
+
+    # (e) pPIC on phase 4b's co-clustered order: blocks are clusters
+    Xc, yc = cold_pic["Xc"], cold_pic["yc"]
+    pst0 = run(lambda: api.init_store("ppic", spec, params, Xc[:H], yc[:H],
+                                      S=S, runner=half),
+               "init_store ppic", main=True)
+    pst = run(lambda: pst0.assimilate(Xc[H:], yc[H:]), "assimilate ppic",
+              main=True)
+    del pst0
+    pm = api.FittedGP(api.get("ppic"), spec, params,
+                      run(pst.to_state, main=True))
+    routed = api.ServeSpec(routed=True, max_batch=256)
+    pplan = run(lambda: pm.plan(routed).warmup(D), "ppic plan+warmup",
+                main=True)
+    lat_p, outs = [], []
+    for size in REQUEST_SIZES:
+        Uq = ds.X_test[:size]
+        outs.append(run(lambda: pplan.routed_diag(Uq), "request", main=True))
+        lat_p.append(times["request"] * 1e3)
+    mean, var = outs[-1]
+    rmse_p = float(torch.sqrt(torch.mean((mean - ds.y_test[:N_TEST]) ** 2)))
+    neg_p = float((var < 0).double().mean())
+    print(f"  [{card}] (e) pPIC streamed: init "
+          f"{times['init_store ppic']:.3f} s, assimilate "
+          f"{times['assimilate ppic']:.3f} s, plan + warm-up "
+          f"{times['ppic plan+warmup']:.3f} s; requests latency ms "
+          f"{[round(x, 3) for x in lat_p]}; test RMSE {rmse_p:.4f}, "
+          f"negative-variance share {neg_p:.4f}", flush=True)
+    if not (rmse_p <= RMSE_AIMPEAK + TOL_RMSE and neg_p == 0.0
+            and all(torch.isfinite(m).all() and torch.isfinite(v).all()
+                    for m, v in outs)):
+        failures.append(f"streamed pPIC RMSE {rmse_p}, share {neg_p}")
+    check("(e) streamed vs phase 4b's cold fit, routed",
+          err2(run(lambda: pplan.routed_diag(U)),
+               (cold_pic["m"], cold_pic["v"])), lim["served"])
+    # a block dead at serving: its rows from the global posterior
+    U256 = ds.X_test[:256]
+    m_all, v_all = run(lambda: pplan.routed_diag(U256))
+    blk = np.ones(M, bool)
+    blk[r] = False
+    md, vd = run(lambda: pplan.routed_diag(U256, block_alive=blk), main=True)
+    n_xcov = last["xcov_diag"]
+    deg = torch.as_tensor(pplan.stats.last_degraded, device=dev)
+    mg, vg = run(lambda: ppic.global_diag(pplan.kfn, params, pm.state, U256))
+    e_deg = max(max_rel(md[deg], mg[deg]), max_rel(vd[deg], vg[deg]))
+    same = bool(torch.equal(md[~deg], m_all[~deg])
+                and torch.equal(vd[~deg], v_all[~deg]))
+    print(f"  (e) block {r} dead at serving: {int(deg.sum())} rows from the "
+          f"global posterior, xcov_diag launches {n_xcov}, against "
+          f"global_diag {e_deg:.3e} (limit 1e-6); other rows unchanged "
+          f"{same}", flush=True)
+    if not (int(deg.sum()) > 0 and n_xcov > 0 and e_deg <= 1e-6 and same):
+        failures.append("pPIC dead block's rows not from the global "
+                        "posterior")
+    # the block retired from the store: one downdate, 19 blocks served,
+    # against a float64 store streamed and retired the same way
+    pdead = run(lambda: pst.retire(r), "retire ppic", main=True)
+    n_pd = last["chol_downdate"]
+    pstate = run(pdead.to_state, main=True)
+    pplan = run(lambda: pm.with_state(pstate).plan(routed), main=True)
+    m_d, v_d = run(lambda: pplan.routed_diag(U), main=True)
+    Xc64, yc64 = Xc.double(), yc.double()
+    pdead64 = run(lambda: api.init_store(
+        "ppic", spec64, p64, Xc64[:H], yc64[:H], S=S64, runner=half)
+        .assimilate(Xc64[H:], yc64[H:]).retire(r), "ppic f64 store")
+    m64, v64 = run(lambda: api.FittedGP(
+        api.get("ppic"), spec64, p64, pdead64.to_state()).plan(routed)
+        .routed_diag(U64))
+    print(f"  [{card}] (e) pPIC retire({r}): {times['retire ppic']:.4f} s, "
+          f"{n_pd} chol_downdate launch(es), {pstate.centroids.shape[0]} "
+          f"blocks served; {PPIC_F64_QUERIES} routed rows finite "
+          f"{bool(torch.isfinite(m_d).all() and torch.isfinite(v_d).all())}, "
+          f"negative variances {int((v_d < 0).sum())}", flush=True)
+    check(f"(e) retire({r}) vs an f64 pPIC store retired the same way, "
+          f"routed", err2((m_d, v_d), (m64, v64)), lim["served"])
+    if pstate.centroids.shape[0] != M - 1 or n_pd != 1 \
+            or not bool(torch.isfinite(m_d).all() and (v_d > 0).all()):
+        failures.append("pPIC store retire")
+    del pst, pdead, pstate, pdead64, pm, pplan, m64, v64
+    torch.cuda.empty_cache()
+
+    # (f) pICF: a store on the first wave at R = 2048, the second wave
+    # assimilated in the frozen pivot basis, then one machine retired (one
+    # downdate of Phi_L); the same path in float64 (a yardstick)
+    res = {}
+    for dt, p_, X_, y_ in ((torch.float32, params, ds.X, ds.y),
+                           (torch.float64, p64, X64, y64)):
+        key = str(dt).split(".")[1]
+        on_main = dt == torch.float32
+        f0 = run(lambda: api.init_store(
+            "picf", spec, p_, X_[:H], y_[:H], rank=PICF_RANK, runner=half),
+            f"init_store picf {key}", main=on_main)
+        n_icf = last["icf"]
+        f1 = run(lambda: f0.assimilate(X_[H:], y_[H:]),
+                 f"assimilate picf {key}", main=on_main)
+        del f0
+        f2 = run(lambda: f1.retire(r), f"retire picf {key}", main=on_main)
+        n_f = last["chol_downdate"]
+        if f2.Phi_L.dtype != torch.float64:
+            failures.append(f"pICF {key}: Phi_L in {f2.Phi_L.dtype}")
+        rd = f2.Phi_L.dtype            # the R-space dtype: float64
+        keep = torch.as_tensor(np.r_[0:r, r + 1:M], device=dev)
+        Phi_ref = linalg.chol_from_root(
+            torch.eye(PICF_RANK, dtype=rd, device=dev),
+            f2.F[keep].to(rd) / cov.noise_var(p_).to(rd).sqrt())
+        e_phi = max_err(f2.Phi_L, Phi_ref) / float(Phi_ref.abs().max())
+        m_, v_ = run(lambda: picf.predict_batch_diag(
+            spec, p_, f2.to_state(), ds.X_test.to(dt)), main=on_main)
+        rm = float(torch.sqrt(torch.mean((m_ - ds.y_test.to(dt)) ** 2)))
+        ng = float((v_ < 0).double().mean())
+        res[key] = (rm, ng)
+        print(f"  [{card}] (f) pICF {key}: init "
+              f"{times[f'init_store picf {key}']:.3f} s ({n_icf} ICF "
+              f"launch), assimilate {times[f'assimilate picf {key}']:.3f} s, "
+              f"retire({r}) {times[f'retire picf {key}']:.4f} s ({n_f} "
+              f"chol_downdate launch); downdated Phi_L vs the refold of its "
+              f"root, max|err| / max|Phi_L| {e_phi:.3e}; test RMSE "
+              f"{rm:.4f}, negative-variance share {ng:.4f}", flush=True)
+        if n_f != 1 or not (torch.isfinite(m_).all()
+                            and torch.isfinite(v_).all()):
+            failures.append(f"pICF {key}: {n_f} downdate launches, or "
+                            f"non-finite output")
+        if dt == torch.float32:
+            # the reference's form, for the record: the R-space algebra in
+            # float32 too (Phi_L from the float32 root, then updated and
+            # downdated in float32)
+            F0 = f1.F[:M // 2]
+
+            def ref_form_fn():
+                rf = dataclasses.replace(
+                    f1, F=F0, Xb=f1.Xb[:M // 2], yb=f1.yb[:M // 2],
+                    alive=f1.alive[:M // 2],
+                    Phi_L=linalg.chol_from_root(
+                        torch.eye(PICF_RANK, dtype=dt, device=dev),
+                        F0 / cov.noise_var(p_).sqrt()),
+                    yF=(F0 @ f1.yb[:M // 2, :, None])[..., 0].sum(0))
+                rf = rf.assimilate(X_[H:], y_[H:]).retire(r)
+                return picf.predict_batch_diag(spec, p_, rf.to_state(),
+                                               ds.X_test)[1]
+            v_r = run(ref_form_fn)
+            print(f"  (f) the reference's form in float32 (Phi_L float32): "
+                  f"negative-variance share "
+                  f"{float((v_r < 0).double().mean()):.4f}", flush=True)
+            del v_r
+        del f1, f2, m_, v_, Phi_ref
+    torch.cuda.empty_cache()
+    if not abs(res["float32"][1] - res["float64"][1]) <= PICF_NEG_SHARE:
+        failures.append(f"pICF f32 vs f64 shares {res}")
+
+    # pICF's float32-vs-float64 rules (phase 4c's) on a second AIMPEAK
+    # draw, cold and streamed: the R-space dtype chosen on seed 0 must hold
+    ds2 = synthetic.standardize(synthetic.aimpeak_like(
+        n=N_TRAIN, n_test=N_TEST, seed=PICF_SEED2))
+    seed2 = {}
+    for dt, p_ in ((torch.float32, params), (torch.float64, p64)):
+        X_, y_, Ut, yt = (t.to(dt) for t in (ds2.X, ds2.y, ds2.X_test,
+                                              ds2.y_test))
+
+        def cold_fn():
+            st_ = api.fit("picf", spec, p_, X_, y_, rank=PICF_RANK,
+                          runner=VmapRunner(M=M)).state
+            return picf.predict_batch_diag(spec, p_, st_, Ut)
+
+        def stream_fn():
+            st_ = api.init_store("picf", spec, p_, X_[:H], y_[:H],
+                                 rank=PICF_RANK, runner=half)
+            st_ = st_.assimilate(X_[H:], y_[H:]).retire(r)
+            return picf.predict_batch_diag(spec, p_, st_.to_state(), Ut)
+
+        for what, fn in (("cold", cold_fn), ("streamed", stream_fn)):
+            m_, v_ = run(fn)
+            seed2[(what, dt)] = (
+                float(torch.sqrt(torch.mean((m_ - yt) ** 2))),
+                float((v_ < 0).double().mean()))
+        torch.cuda.empty_cache()
+    for what in ("cold", "streamed"):
+        (rm32, ng32), (rm64, ng64) = (seed2[(what, torch.float32)],
+                                      seed2[(what, torch.float64)])
+        ok = abs(ng32 - ng64) <= PICF_NEG_SHARE and (
+            what == "streamed" or abs(rm32 - rm64) <= PICF_RMSE_REL * rm64)
+        print(f"  [{card}] (f) pICF on AIMPEAK seed {PICF_SEED2}, {what}: "
+              f"test RMSE f32 {rm32:.4f} / f64 {rm64:.4f}, negative-variance "
+              f"share f32 {ng32:.4f} / f64 {ng64:.4f}"
+              f"{'' if ok else ' FAIL'}", flush=True)
+        if not ok:
+            failures.append(f"pICF seed {PICF_SEED2} {what}: f32 vs f64 "
+                            f"{seed2}")
+    del ds2
+
+    times.pop("request")
+    launches = {"rbf": tally["main"]["rbf"] + tally["main"]["icf"],
+                "xcov_diag": tally["main"]["xcov_diag"],
+                "chol_downdate": tally["main"]["chol_downdate"]}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  counts of the main path (the float32 stores' steps and "
+          f"serving): {launches} (rbf: {tally['main']['rbf']} block "
+          f"launches, {tally['main']['icf']} of the ICF kernel); of the "
+          f"yardsticks and records: {tally['yardsticks']}", flush=True)
+    print(f"  [{card}] phase 4d step times (s): "
+          f"{ {k: round(v, 4) for k, v in times.items()} }; peak device "
+          f"memory {peak:.2f} GB", flush=True)
+    for name, n in launches.items():
+        if n <= 0:
+            failures.append(f"kernel {name} was not launched on phase 4d's "
+                            f"main path")
+    if failures:
+        fail(f"phase 4d: {failures}")
+    return dict(launches=launches, yardstick_launches=tally["yardsticks"],
+                times=times, peak_gb=peak, rmse=rmse, rmse_ppic=rmse_p,
+                picf=res)
+
+
+def fit_spread(torch, card: str, ds, spec, params, S) -> list:
+    """Phase 4's pPITC fit run FIT_REPEAT more times, each traced for the
+    device's busy time, then once more for its largest kernels: the fit's
+    spread within one process, and whether a slow fit waited on the host
+    or on the device. It runs after the phases whose kernel timings read
+    traces: with it in phase 4, phase 4c's traces of the ICF kernel lost
+    kernels. Returns the (wall, busy) pairs in seconds."""
+    from repro_torch.core import api
+    from repro_torch.launch import profile
+    from repro_torch.parallel.runner import VmapRunner
+    from torch.profiler import ProfilerActivity
+
+    def refit():
+        api.fit("ppitc", spec, params, ds.X, ds.y, S=S,
+                runner=VmapRunner(M=M))
+
+    pairs = []
+    for _ in range(FIT_REPEAT):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            refit()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        pairs.append((round(wall, 4),
+                      round(profile.busy_us(profile.kernels(prof)) / 1e6, 4)))
+    print(f"  [{card}] pPITC api.fit x{FIT_REPEAT}, traced, (wall, device "
+          f"busy) s: {pairs}", flush=True)
+    profile.report(f"  [{card}] pPITC api.fit traced once more", refit)
+    return pairs
+
+
 def main() -> int:
     try:
         import torch
@@ -1867,22 +2537,24 @@ def main() -> int:
 
     print("phase 3: kernel vs plain", flush=True)
     from repro_torch.kernels.attention import ops as attn_ops, ref as attn_ref
+    from repro_torch.kernels.linalg import ops as lin_ops, ref as lin_ref
     from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = [check_rbf(torch, ops, ref, gen), check_xcov(torch, ops, ref, gen),
             check_flash(torch, attn_ops, attn_ref, gen),
-            check_ssd(torch, ssd_ops, ssd_ref, gen)]
+            check_ssd(torch, ssd_ops, ssd_ref, gen),
+            check_downdate(torch, lin_ops, lin_ref, gen)]
     rows[0].update(check_icf(torch, ops, ref, gen))
     torch.cuda.empty_cache()
 
     print("phase 4: GP main path", flush=True)
-    launches, gp, data = main_path(torch, card)
+    launches, gp, data, cold_state = main_path(torch, card)
     rows[0].update(gp)
     del gp
     torch.cuda.empty_cache()
 
     print("phase 4b: GP pPIC routed", flush=True)
-    ppic_launches = ppic_path(torch, card, **data)
+    ppic_launches, cold_pic = ppic_path(torch, card, **data)
     for row in rows:
         if row["name"] in ppic_launches:
             row["launches_ppic"] = ppic_launches[row["name"]]
@@ -1899,7 +2571,31 @@ def main() -> int:
             row["launches_picf"] = picf["launches"][row["name"]]
     rows[0].update({f"picf_{k}": v for k, v in picf.items()
                     if k != "launches"})
-    del data, picf
+    del picf
+    torch.cuda.empty_cache()
+
+    print("phase 4d: GP streaming and faults", flush=True)
+    stream = stream_path(torch, card, **data, cold_state=cold_state,
+                         cold_pic=cold_pic)
+    side = stream["yardstick_launches"]
+    side = {"rbf": side["rbf"] + side["icf"], "xcov_diag": side["xcov_diag"],
+            "chol_downdate": side["chol_downdate"]}
+    for row in rows:
+        if row["name"] in stream["launches"]:
+            row["launches_stream"] = stream["launches"][row["name"]]
+            row["launches_stream_yardsticks"] = side[row["name"]]
+    launches["chol_downdate"] = stream["launches"]["chol_downdate"]
+    rows[-1].update(stream_retire_s=stream["times"]["retire"],
+                    stream_f64_retire_s=stream["times"]["f64 retire"],
+                    stream_f64_refold_s=stream["times"]["f64 refold"],
+                    stream_f32_refold_s=stream["times"]["f32 refold"],
+                    stream_peak_gb=stream["peak_gb"])
+    del cold_state, cold_pic, stream
+    torch.cuda.empty_cache()
+
+    print("phase 4e: the pPITC fit's spread", flush=True)
+    rows[0]["fit_spread_s"] = fit_spread(torch, card, **data)
+    del data
     torch.cuda.empty_cache()
 
     print("phase 5: LM main path, qwen3-1.7b", flush=True)

@@ -12,13 +12,14 @@ entry point and shared across ``rebind``) and bucket ladder. Phase 2:
 per entry point; PyTorch runs eagerly, so a plan's "executables" are plain
 callables and ``PlanStats.n_traces`` counts how many were built.
 
-Not ported yet: the incremental ``StateStore`` protocol (``init_store``)
-and the multi-tenant ``compat_key``.
+The incremental-state protocol (``StateStore``, ``init_store``) is the
+reference's: a method's store folds data in and machines out and back, and
+emits its state. Not ported yet: the multi-tenant ``compat_key``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Protocol, runtime_checkable
 
 import numpy as np
 import torch
@@ -78,6 +79,61 @@ class PICFState(NamedTuple):
     F: torch.Tensor        # (M, R, b) per-machine factor columns
     Phi_L: torch.Tensor    # (R, R)   chol(I + sum_m F_m F_m^T / s2)
     ydd: torch.Tensor      # (R,)     Phi^{-1} sum_m F_m y_m  (eq. 22)
+
+
+# ---------------------------------------------------------------------------
+# Incremental-state protocol (Sec. 5.2 summary algebra, method-owned).
+# ---------------------------------------------------------------------------
+
+@runtime_checkable
+class StateStore(Protocol):
+    """What a method's incremental state container must support.
+
+    A store owns everything ``fit`` needed (kernel, hyperparameters, support
+    set / rank, runner) plus the cached per-machine contributions, so the
+    update algebra is closed over it:
+
+    * ``assimilate(X_new, y_new)`` — fold a new data stream in as fresh
+      machine blocks, reusing every already-paid local factorization (the
+      paper's streaming add);
+    * ``retire(machine)`` / ``revive(machine)`` — subtract / re-add one
+      machine's contribution (failure, decommission, straggler deadline);
+    * ``to_state()`` — assemble the method's cached state from whatever
+      machines are alive. The global factor is kept up to date by rank-b
+      Cholesky updates (``linalg.chol_update_rank``), so this is one
+      O(|S|²) solve, not an O(|S|³) factorization.
+
+    Stores are immutable: every mutation returns a new store (the same
+    object where nothing changes), so serving can hold the old one until
+    the hot-swap commits. The methods run on the host and launch device
+    work; they read the alive mask on the host once a call (one sync), never
+    inside a request.
+    """
+
+    def assimilate(self, X_new, y_new) -> "StateStore": ...
+
+    def retire(self, machine: int) -> "StateStore": ...
+
+    def revive(self, machine: int) -> "StateStore": ...
+
+    def to_state(self) -> Any: ...
+
+
+def check_machine_index(n_machines: int, machine: int) -> None:
+    """Shared retire/revive guard: reject out-of-range machine ids up front
+    (a negative index would otherwise address a machine from the end and
+    silently retire the wrong one)."""
+    if not 0 <= machine < n_machines:
+        raise IndexError(
+            f"machine {machine} out of range for {n_machines} machines")
+
+
+def concrete_alive_mask(alive: torch.Tensor) -> np.ndarray:
+    """Host view of a store's alive mask: one device sync. The port runs
+    eagerly, so the mask is always a concrete tensor (the reference's
+    ``None`` case, a mask traced under ``jit``, does not arise); the
+    mutators and ``to_state`` read it once a call, never inside a request."""
+    return alive.cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +444,11 @@ class GPMethod:
     * ``predict_routed_diag_fn(..., tile=)``     -> the batch-composition-
       invariant path (PIC family; ``None`` for methods whose posterior does
       not depend on query-block assignment);
+    * ``init_store`` (optional) — the incremental-state entry point:
+      ``init_store(kfn, params, X, y, **kw) -> StateStore`` with the same
+      keyword subset as ``fit``. Methods without an incremental algebra
+      (``fgp``) leave it ``None``; for the summary/factor methods ``fit``
+      is ``init_store(...).to_state()``.
     * ``plan_fn(method, kfn, params, state, spec)`` — method-owned
       ``ServePlan`` factory (``None`` -> the generic plan); pPIC/PIC install
       one with per-block ``C⁻¹`` caches and the overflow-program ladder.
@@ -397,6 +458,7 @@ class GPMethod:
     predict_fn: Callable[..., Any]
     predict_diag_fn: Callable[..., Any]
     predict_routed_diag_fn: Callable[..., Any] | None = None
+    init_store: Callable[..., "StateStore"] | None = None
     plan_fn: Callable[..., ServePlan] | None = None
 
     def plan(self, kfn, params, state, spec: ServeSpec | None = None
@@ -511,3 +573,24 @@ def fit(name: str, kfn, params, X, y, *, S=None, M=None, rank=None,
     state = method.fit(kfn, params, X, y,
                        **_method_kwargs(S, M, rank, runner))
     return FittedGP(method, kfn, params, state)
+
+
+def init_store(name: str, kfn, params, X, y, *, S=None, M=None, rank=None,
+               runner=None, device=None) -> StateStore:
+    """Registry front door for the incremental-state protocol: build method
+    ``name``'s ``StateStore`` from an initial data batch on ``device`` (the
+    CUDA card unless named; data, support set and hyperparameters are moved
+    there first). The cold-fit state is ``store.to_state()``; later
+    ``assimilate``/``retire``/``revive`` calls mutate incrementally."""
+    method = get(name)
+    if method.init_store is None:
+        raise ValueError(
+            f"method {name!r} has no incremental StateStore (its cached "
+            f"state has no cheap update algebra); have "
+            f"{[m for m in names() if REGISTRY[m].init_store is not None]}")
+    dev = _device.resolve(device)
+    params = {k: v.to(dev) for k, v in params.items()}
+    X, y = X.to(dev), y.to(dev)
+    S = S.to(dev) if S is not None else None
+    return method.init_store(kfn, params, X, y,
+                             **_method_kwargs(S, M, rank, runner))

@@ -90,6 +90,10 @@ def se_ard_kernel(params: dict, X1: torch.Tensor,
         _scale(params, X1), _scale(params, X2), signal_var(params))
 
 
+# the reference's name for the same function
+se_ard_pallas = se_ard_kernel
+
+
 KERNELS: dict[str, KernelFn] = {
     "se": se_ard,
     "se_pallas": se_ard_kernel,

@@ -4,12 +4,18 @@ All solves of the GP stack go through these helpers so that the jitter policy
 and dtype behaviour are uniform. Every helper broadcasts over leading batch
 dimensions (the machine axis of ``parallel.runner.VmapRunner``).
 
-The rank-1/rank-b Cholesky updates of the streaming stores (Sec. 5.2) are not
-ported yet.
+The rank-1/rank-b Cholesky updates of the streaming stores (Sec. 5.2) take
+two routes (``chol_update_rank``): an update is the QR of the stacked square
+root (``chol_from_root``), on every device, the form the cold fits factor
+with; a downdate is the CUDA kernel ``kernels/linalg/csrc/chol_downdate.cu``
+for CUDA tensors and its plain version, the reference's sweeps, for CPU
+tensors.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.linalg import ops as linalg_ops
 
 # Jitter scaled to dtype: float64 paths need far less regularisation.
 _JITTER = {torch.float64: 1e-10, torch.float32: 1e-6}
@@ -111,3 +117,47 @@ def chol_from_root(L0: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
 def logdet_from_chol(L: torch.Tensor) -> torch.Tensor:
     return 2.0 * torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)),
                            dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Rank-1 / rank-b Cholesky updates (paper Sec. 5.2 incremental summaries).
+# ---------------------------------------------------------------------------
+
+def chol_update_rank(L: torch.Tensor, W: torch.Tensor, *,
+                     sign: float = 1.0) -> torch.Tensor:
+    """Lower Cholesky factor of L Lᵀ + sign·W Wᵀ for lower L (n, n) and an
+    (n, b) factor W, sign +1 (update) or −1 (downdate).
+
+    The reference chains b LINPACK sweeps of (hyperbolic) rotations, n b
+    dependent steps. The port takes another route for each sign:
+
+    * update: ``chol_from_root(L, W)``, the QR of [Lᵀ; Wᵀ] (cuSOLVER on
+      the card), O((n + b) n²). It is how the cold fits factor Sdd and
+      pICF's Phi, so a streamed factor and a cold one come from the same
+      matrix by the same method, and it stays accurate in float32 where the
+      formed sum is ill-conditioned;
+    * downdate: ``kernels.linalg.ops.chol_downdate``, the reference's sweeps
+      as one cooperative CUDA launch of n + b − 1 wavefront steps for CUDA
+      tensors, the same sweeps in plain PyTorch for CPU tensors. It needs
+      L Lᵀ − W Wᵀ positive definite, which holds when W was folded in
+      before (the summary algebra).
+
+    Zero columns of W change nothing: the padding convention of
+    ``online._pad_factor`` relies on it."""
+    if sign == 1.0:
+        return chol_from_root(L, W)
+    if sign == -1.0:
+        return linalg_ops.chol_downdate(L, W)
+    raise ValueError(f"sign must be 1.0 (update) or -1.0 (downdate); got "
+                     f"{sign!r}")
+
+
+def cholupdate(L: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of L Lᵀ + w wᵀ (the QR route)."""
+    return chol_update_rank(L, w[:, None])
+
+
+def choldowndate(L: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of L Lᵀ − w wᵀ; requires the difference to stay
+    positive definite (it does when w was folded in before)."""
+    return chol_update_rank(L, w[:, None], sign=-1.0)

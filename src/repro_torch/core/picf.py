@@ -22,18 +22,34 @@ subtracts terms of size |D| from one another, with the exact K_UD against
 a rank-R factor, so variances go negative as |D| grows at a fixed R, in
 float64 as in float32 (ROADMAP §3). The port reproduces that.
 
+``PICFStore`` streams as the reference's: a new block's factor columns are
+the Nyström extension in the frozen pivot basis and Phi_L takes a rank
+update; retiring a machine downdates Phi_L by its columns (the
+``chol_downdate`` kernel on the card).
+
+The R-space algebra (Phi_L, yF, ydd and the sums and solves of eqs. 20-27
+that meet them) runs in float64 whatever the data's dtype; the factor F,
+the data and the covariance K_{U,D_m} keep theirs, and the outputs take
+the queries'. The variance adds Sdotᵀ Phi⁻¹ Sdot / s2² to terms of size
+|D| / s2, so near zero its sign rests on digits float32 does not hold: at
+AIMPEAK (cond Phi 2.3e4), streamed in two waves and with one machine
+retired, the reference's float32 R-space put 0.73 of the test variances
+below zero against float64's 0.19, and the float64 R-space with float32
+data 0.18 (``chip_smoke.py`` phase 4d on an H100; ROADMAP §3). A state
+whose Phi_L is float32 (one converted from the reference) is served in
+float32, as the reference serves it.
+
 Not ported yet: the collective programs (``icf_factor_local``,
 ``machine_step``, ``machine_step_sharded_u``, ``predict_distributed``,
-``predict(shard_u=True)``; ROADMAP §1 item 12) and the store's streaming
-updates (``PICFStore.assimilate``/``retire``/``revive``, which need the
-rank-b Cholesky updates; item 6). Each raises ``NotImplementedError``
-naming its item. Zero prior mean assumed.
+``predict(shard_u=True)``; ROADMAP §1 item 12). Each raises
+``NotImplementedError`` naming its item. Zero prior mean assumed.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import api
@@ -59,9 +75,6 @@ _COLLECTIVE = ("picf.{} is a collective program (psums inside each "
                "ported to repro_torch (ROADMAP §1 item 12: multi-device, "
                "via torch.distributed). On one device, fit + predict_batch "
                "computes the replicated-U posterior")
-_STREAMING = ("the pICF store's {} needs the rank-b Cholesky updates, which "
-              "are not yet ported to repro_torch (ROADMAP §1 item 6: "
-              "streaming stores)")
 
 
 def icf_factor_local(*args, **kwargs):
@@ -130,14 +143,15 @@ def _cross(kfn, params, state: api.PICFState, U):
     """Each machine's terms, then their sum over machines, as the
     reference's ``vmap(per_m)`` and ``jnp.sum(., 0)``: K_{U,D_m} for all
     machines from one covariance launch (M, u, b), sum_m K_{U,D_m} y_m
-    (u,) and Sdot = sum_m F_m K_{D_m,U} (R, u), eq. (20). Summing within a
-    machine first matters in float32: the variance cancels terms of size
-    |D| / s2, and one |D|-term dot product a query loses to rounding what
-    M shorter sums keep, enough to change the sign of variances near zero
-    against float64."""
-    Kud = kfn(params, U, state.Xb)                          # (M, u, b)
-    Ky = (Kud @ state.yb[..., None])[..., 0].sum(0)
-    Sdot = (state.F @ Kud.mT).sum(0)
+    (u,) and Sdot = sum_m F_m K_{D_m,U} (R, u), eq. (20), all in the
+    state's R-space dtype (Phi_L's; see the module docstring). Summing
+    within a machine first matters in float32: the variance cancels terms
+    of size |D| / s2, and one |D|-term dot product a query loses to
+    rounding what M shorter sums keep."""
+    rd = state.Phi_L.dtype
+    Kud = kfn(params, U, state.Xb).to(rd)                   # (M, u, b)
+    Ky = (Kud @ state.yb.to(rd)[..., None])[..., 0].sum(0)
+    Sdot = (state.F.to(rd) @ Kud.mT).sum(0)
     return Kud, Ky, Sdot
 
 
@@ -151,28 +165,30 @@ def predict_batch(kfn, params, state: api.PICFState, U, *,
                   diag_only: bool = False) -> GPPosterior:
     """Eqs. (20), (23)-(27) from the cached factor — no rank loop per
     query."""
-    s2 = cov.noise_var(params)
+    rd = state.Phi_L.dtype
+    s2 = cov.noise_var(params).to(rd)
     Kud, Ky, Sdot = _cross(kfn, params, state, U)
     mean = Ky / s2 - Sdot.T @ state.ydd / s2**2             # eqs. 24/26
     Sdd = linalg.chol_solve(state.Phi_L, Sdot)              # eq. 23
     if diag_only:
-        var = (cov.kdiag(kfn, params, U) - _k2(Kud) / s2
+        var = (cov.kdiag(kfn, params, U).to(rd) - _k2(Kud) / s2
                + torch.sum(Sdot * Sdd, 0) / s2**2)
-        return GPPosterior(mean, torch.diag(var))
-    Kuu = kfn(params, U, U)
+        return GPPosterior(mean.to(U.dtype), torch.diag(var.to(U.dtype)))
+    Kuu = kfn(params, U, U).to(rd)
     Sig = (Kud @ Kud.mT).sum(0) / s2 - Sdot.T @ Sdd / s2**2  # eqs. 25/27
-    return GPPosterior(mean, Kuu - Sig)
+    return GPPosterior(mean.to(U.dtype), (Kuu - Sig).to(U.dtype))
 
 
 def predict_batch_diag(kfn, params, state: api.PICFState, U):
     """(mean, var) vectors — no |U|x|U| intermediates (serving hot path)."""
-    s2 = cov.noise_var(params)
+    rd = state.Phi_L.dtype
+    s2 = cov.noise_var(params).to(rd)
     Kud, Ky, Sdot = _cross(kfn, params, state, U)
     mean = Ky / s2 - Sdot.T @ state.ydd / s2**2
     Sdd = linalg.chol_solve(state.Phi_L, Sdot)              # eq. 23
-    var = (cov.kdiag(kfn, params, U) - _k2(Kud) / s2
+    var = (cov.kdiag(kfn, params, U).to(rd) - _k2(Kud) / s2
            + torch.sum(Sdot * Sdd, 0) / s2**2)
-    return mean, var
+    return mean.to(U.dtype), var.to(U.dtype)
 
 
 def predict(kfn, params, X, y, U, R: int, runner: Runner, *,
@@ -192,13 +208,23 @@ def predict(kfn, params, X, y, U, R: int, runner: Runner, *,
 
 @dataclasses.dataclass(frozen=True)
 class PICFStore:
-    """pICF's store over the distributed rank-R factor: the blocks, the
-    factor, the pivot basis (inputs and triangle, frozen at fit time) and
-    the cached R-space factors. ``to_state`` emits an ``api.PICFState``
-    over the alive machines. Streaming (``assimilate``: a new block's
-    columns are the Nyström extension Lp⁻¹ K_{P,D'}, Phi_L a rank-b
-    update; ``retire``/``revive``: rank-b down/updates) waits for the
-    rank-b Cholesky updates (ROADMAP §1 item 6) and raises."""
+    """pICF's ``api.StateStore`` over the distributed rank-R factor.
+
+    The fit-time pivot basis is FROZEN: a streamed block's factor columns
+    are the Nyström-consistent extension ``F_new = Lp⁻¹ K_{P,D'}`` (the
+    forward solve the rank loop performs per pivot, batched over the new
+    rows; K_{P,D'} from one covariance launch), so appending b rows costs
+    O(R²·b) and the R-space factor takes a rank update of ``Phi_L`` (eq.
+    21) — the QR of [Phi_Lᵀ; F_newᵀ/σ], the form the cold fit factors Phi
+    with — instead of an O(R³) refactorization. Retiring a machine
+    downdates Phi_L by F_m/σ (the summary algebra of eqs. 19/21 is a sum
+    over machines, as pPITC's).
+
+    The retired/streamed posterior lives in the ORIGINAL pivot basis; a
+    from-scratch refit would re-pivot greedily (the standard streaming
+    trade). ``to_state`` emits an ``api.PICFState`` over the alive
+    machines.
+    """
     kfn: object
     params: dict
     runner: Runner
@@ -208,29 +234,91 @@ class PICFStore:
     Xp: torch.Tensor      # (R, d) pivot inputs
     Lp: torch.Tensor      # (R, R) pivot triangle (chol K_PP)
     alive: torch.Tensor   # (M,) bool
-    Phi_L: torch.Tensor   # (R, R) cached chol(I + Σ_alive F_m F_mᵀ / s2)
-    yF: torch.Tensor      # (R,)   cached Σ_alive F_m y_m
+    Phi_L: torch.Tensor   # (R, R) cached chol(I + Σ_alive F_m F_mᵀ / s2),
+    #                       float64 (the R-space dtype)
+    yF: torch.Tensor      # (R,)   cached Σ_alive F_m y_m, float64
 
     @property
     def block_size(self) -> int:
         return int(self.Xb.shape[1])
 
-    def assimilate(self, X_new, y_new, runner: Runner | None = None):
-        raise NotImplementedError(_STREAMING.format("assimilate"))
+    def _scaled(self, Fm: torch.Tensor) -> torch.Tensor:
+        """Factor columns as Phi update vectors, Phi += (F/σ)(F/σ)ᵀ, in the
+        R-space dtype."""
+        rd = self.Phi_L.dtype
+        return Fm.to(rd) / torch.sqrt(cov.noise_var(self.params).to(rd))
 
-    def retire(self, machine: int):
-        raise NotImplementedError(_STREAMING.format("retire"))
+    def _yF(self, Fm: torch.Tensor, ym: torch.Tensor) -> torch.Tensor:
+        """Σ_m F_m y_m over the leading axis of (M, R, b) Fm and (M, b)
+        ym, in the R-space dtype."""
+        rd = self.Phi_L.dtype
+        return (Fm.to(rd) @ ym.to(rd)[..., None])[..., 0].sum(0)
 
-    def revive(self, machine: int):
-        raise NotImplementedError(_STREAMING.format("revive"))
+    def assimilate(self, X_new, y_new,
+                   runner: Runner | None = None) -> "PICFStore":
+        runner = runner or self.runner
+        M_new = runner.num_machines
+        b = X_new.shape[0] // M_new
+        if X_new.shape[0] % M_new or b != self.block_size:
+            raise ValueError(
+                f"pICF streaming keeps the fit-time block size: got "
+                f"|D'|={X_new.shape[0]} over M={M_new} machines but the "
+                f"store's blocks are b={self.block_size}; re-chunk the wave.")
+        dev = self.Xb.device
+        Xb_new = runner.shard_blocks(X_new.to(dev))
+        yb_new = runner.shard_blocks(y_new.to(dev))
+        # Nyström extension in the frozen pivot basis, one forward solve
+        F_new = linalg.tri_solve(self.Lp,
+                                 self.kfn(self.params, self.Xp, Xb_new))
+        R = self.Phi_L.shape[0]
+        W = self._scaled(F_new).permute(1, 0, 2).reshape(R, -1)
+        return dataclasses.replace(
+            self,
+            Xb=torch.cat([self.Xb, Xb_new]),
+            yb=torch.cat([self.yb, yb_new]),
+            F=torch.cat([self.F, F_new]),
+            alive=torch.cat([self.alive,
+                             torch.ones(M_new, dtype=torch.bool,
+                                        device=dev)]),
+            Phi_L=linalg.chol_update_rank(self.Phi_L, W),
+            yF=self.yF + self._yF(F_new, yb_new))
+
+    def _flip(self, machine: int, to: bool) -> "PICFStore":
+        api.check_machine_index(self.alive.shape[0], machine)
+        if bool(api.concrete_alive_mask(self.alive)[machine]) == to:
+            return self
+        alive = self.alive.clone()
+        alive[machine] = to
+        yFm = self._yF(self.F[machine][None], self.yb[machine][None])
+        return dataclasses.replace(
+            self, alive=alive,
+            Phi_L=linalg.chol_update_rank(
+                self.Phi_L, self._scaled(self.F[machine]),
+                sign=1.0 if to else -1.0),
+            yF=self.yF + yFm if to else self.yF - yFm)
+
+    def retire(self, machine: int) -> "PICFStore":
+        """Downdate Phi_L by F_m/σ (the ``chol_downdate`` kernel on the
+        card); the same store if the machine is already retired."""
+        return self._flip(machine, False)
+
+    def revive(self, machine: int) -> "PICFStore":
+        """Update Phi_L by F_m/σ (the QR route); the same store if the
+        machine is alive."""
+        return self._flip(machine, True)
 
     def to_state(self) -> api.PICFState:
+        """The state over the alive machines; its F in the R-space dtype,
+        which the serving sums meet (a copy for float32 data, none for
+        float64)."""
         ydd = linalg.chol_solve(self.Phi_L, self.yF[:, None])[:, 0]  # eq. 22
-        if bool(self.alive.all()):
+        F = self.F.to(self.Phi_L.dtype)
+        alive = api.concrete_alive_mask(self.alive)
+        if alive.all():
             # the common case: the block tensors passed by reference
-            return api.PICFState(self.Xb, self.yb, self.F, self.Phi_L, ydd)
-        idx = torch.nonzero(self.alive).flatten()
-        return api.PICFState(self.Xb[idx], self.yb[idx], self.F[idx],
+            return api.PICFState(self.Xb, self.yb, F, self.Phi_L, ydd)
+        idx = torch.as_tensor(np.flatnonzero(alive), device=self.Xb.device)
+        return api.PICFState(self.Xb[idx], self.yb[idx], F[idx],
                              self.Phi_L, ydd)
 
 
@@ -245,14 +333,17 @@ def init_picf_store(kfn, params, X, y, *, rank: int,
     32000, R = 2048) cond(Phi) is 2.3e4 and many variances lie near zero;
     with the float32 Cholesky of the formed sum, the share of negative
     ones was 0.14 against float64's 0.34 (``chip_smoke.py`` phase 4c on an
-    H100), from the square root 0.36."""
+    H100), from the square root 0.36. Both Phi_L and yF are float64 for
+    any data dtype (the module docstring says why)."""
     Xb, yb = runner.shard_blocks(X), runner.shard_blocks(y)
     local = factor(kfn, params, X, rank, runner)            # (M, R, b)
-    s2 = cov.noise_var(params)
+    # the R-space algebra in float64 (the module docstring says why)
+    rd = torch.promote_types(local.F.dtype, torch.float64)
+    Fr, s2 = local.F.to(rd), cov.noise_var(params).to(rd)
     R = local.F.shape[1]
-    eye = torch.eye(R, dtype=local.F.dtype, device=local.F.device)
-    Phi_L = linalg.chol_from_root(eye, local.F / torch.sqrt(s2))  # eq. 21
-    yF = (local.F @ yb[..., None])[..., 0].sum(0)           # eq. 19
+    eye = torch.eye(R, dtype=rd, device=local.F.device)
+    Phi_L = linalg.chol_from_root(eye, Fr / torch.sqrt(s2))  # eq. 21
+    yF = (Fr @ yb.to(rd)[..., None])[..., 0].sum(0)         # eq. 19
     alive = torch.ones((runner.num_machines,), dtype=torch.bool,
                        device=local.F.device)
     # pivots/Lp are replicated across machines: take machine 0's copy
@@ -261,4 +352,5 @@ def init_picf_store(kfn, params, X, y, *, rank: int,
 
 
 api.register(api.GPMethod("picf", fit, predict_fn=predict_batch,
-                          predict_diag_fn=predict_batch_diag))
+                          predict_diag_fn=predict_batch_diag,
+                          init_store=init_picf_store))

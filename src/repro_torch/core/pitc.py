@@ -191,9 +191,23 @@ def _pic_plan(method, kfn, params, state, spec):
     return ppic.make_plan(method, kfn, params, state, spec)
 
 
+def _pitc_init_store(kfn, params, X, y, *, S, M: int):
+    """Centralized PITC shares pPITC's StateStore (one-process blocks)."""
+    from repro_torch.core import online
+    return online.init_pitc_store(kfn, params, X, y, S=S,
+                                  runner=VmapRunner(M=M))
+
+
+def _pic_init_store(kfn, params, X, y, *, S, M: int):
+    from repro_torch.core import online
+    return online.init_pic_store(kfn, params, X, y, S=S,
+                                 runner=VmapRunner(M=M))
+
+
 api.register(api.GPMethod("pitc", fit, predict_fn=_pitc_predict,
-                          predict_diag_fn=_pitc_predict_diag))
+                          predict_diag_fn=_pitc_predict_diag,
+                          init_store=_pitc_init_store))
 api.register(api.GPMethod("pic", fit_pic, predict_fn=_pic_predict,
                           predict_diag_fn=_pic_predict_diag,
                           predict_routed_diag_fn=_pic_predict_routed_diag,
-                          plan_fn=_pic_plan))
+                          init_store=_pic_init_store, plan_fn=_pic_plan))

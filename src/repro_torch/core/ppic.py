@@ -602,7 +602,15 @@ def make_plan(method: api.GPMethod, kfn, params, state: api.PICState,
     return dataclasses.replace(plan, caches=plan._rebuild_caches(state))
 
 
+def init_store(kfn, params, X, y, *, S, runner: Runner):
+    """``api.StateStore`` entry point (``online.PICStore``): streamed and
+    retired blocks keep emitting routed-servable PICStates with fresh
+    centroids."""
+    from repro_torch.core import online
+    return online.init_pic_store(kfn, params, X, y, S=S, runner=runner)
+
+
 api.register(api.GPMethod("ppic", fit, predict_fn=predict_batch,
                           predict_diag_fn=predict_batch_diag,
                           predict_routed_diag_fn=predict_routed_diag,
-                          plan_fn=make_plan))
+                          init_store=init_store, plan_fn=make_plan))

@@ -14,9 +14,10 @@ machine axis (``parallel.runner.VmapRunner``):
 Sdd^{-1} ydd); ``predict_batch``/``predict_batch_diag`` are then
 O(|U||S| + |S|^2) per query batch; ``predict`` is the one-shot wrapper
 (fit + ``predict_blocks``). Zero prior mean assumed (the data pipeline
-centers y). The streaming ``init_store`` comes with the stores; the
-collective per-machine program (``machine_step``, ``predict_distributed``)
-with the multi-device slice.
+centers y). ``init_store`` is the streaming entry point
+(``online.PITCStore``); the collective per-machine program
+(``machine_step``, ``predict_distributed``) comes with the multi-device
+slice.
 """
 from __future__ import annotations
 
@@ -185,5 +186,13 @@ def summaries(kfn, params, S, X, y, runner: Runner):
     return locals_, global_summary(kfn, params, S, locals_)
 
 
+def init_store(kfn, params, X, y, *, S, runner: Runner):
+    """``api.StateStore`` entry point: the same summaries ``fit`` builds,
+    kept mutable through the Sec. 5.2 algebra (``online.PITCStore``)."""
+    from repro_torch.core import online
+    return online.init_pitc_store(kfn, params, X, y, S=S, runner=runner)
+
+
 api.register(api.GPMethod("ppitc", fit, predict_fn=predict_batch,
-                          predict_diag_fn=predict_batch_diag))
+                          predict_diag_fn=predict_batch_diag,
+                          init_store=init_store))

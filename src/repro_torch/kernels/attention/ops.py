@@ -19,7 +19,9 @@ back. ``route`` picks the kernel from the inputs alone:
   consistency checks.
 
 ``flash_launches`` counts every kernel launch; ``flash_sm90_launches`` those
-of the Hopper kernel.
+of the Hopper kernel. No kernel has a backward: given CUDA tensors that
+require grad, in grad mode, ``attention`` raises (``build.refuse_grad``)
+rather than return a tensor cut from the graph.
 """
 from __future__ import annotations
 
@@ -131,6 +133,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     length in a decode step. Output in q's dtype and memory layout."""
     if build.on_cpu(q, k, v):
         return _plain(q, k, v, causal, window, scale, q_offset)
+    build.refuse_grad("attention", q, k, v)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the flash kernel takes bfloat16 or float32 q, k, v "
                         f"of one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")

@@ -11,6 +11,10 @@ missing library, all at once, and keeps each compiler's output (``-Xptxas
 Pointers cross the C boundary as ``ctypes.c_void_p`` and the stream as
 ``torch.cuda.current_stream().cuda_stream``; each C entry point returns
 ``cudaGetLastError()`` and the wrapper raises when it is not 0.
+
+No kernel here has a backward, so every wrapper calls ``refuse_grad``
+before it launches: a kernel's fresh output has no ``grad_fn``, and a graph
+through it would otherwise be cut without a word.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
@@ -112,3 +118,23 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def refuse_grad(what: str, *tensors) -> None:
+    """Raise where autograd would record ``what`` on these tensors (other
+    arguments, such as a Python-float scale, are ignored): grad mode is on
+    and one of them requires grad. The kernels return fresh tensors with no
+    ``grad_fn`` (none has a backward kernel, as none of the reference's
+    Pallas kernels has one), so a graph through them would be cut without a
+    word: an MLE objective would lose dK/dθ and keep the noise term's
+    gradient, and a loss through attention or SSD would lose every gradient
+    that passes through them. The plain versions (``ref.py``; for the GP
+    covariance ``covariance.make_kernel("se")``, what ``core.hyper`` takes)
+    are differentiable."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward, and an input "
+            f"requires grad; differentiate through the plain version "
+            f"(ref.py; covariance.make_kernel('se') for the GP covariance, "
+            f"as core.hyper does) or run under torch.no_grad()")

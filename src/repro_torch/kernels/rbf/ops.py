@@ -12,7 +12,8 @@ through the kernels;
 the C entry reports them), and ``inverse_builds`` the triangular inverses
 that ``tri_inv`` built (once per factor, see there). No kernel has a
 backward: a wrapper given CUDA tensors that require grad, in grad mode,
-raises (``refuse_grad``) rather than return a tensor cut from the graph.
+raises (``build.refuse_grad``, also importable from here as
+``refuse_grad``) rather than return a tensor cut from the graph.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import weakref
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.build import refuse_grad
 from repro_torch.kernels.rbf import ref
 
 rbf_launches = 0
@@ -81,25 +83,6 @@ def _xcov_entry():
                    _I, _I, _I, _P, ctypes.POINTER(_I)]
     fn.restype = _I
     return lib, fn
-
-
-def refuse_grad(what: str, *tensors) -> None:
-    """Raise where autograd would record ``what`` on these tensors (other
-    arguments, such as a Python-float sig2, are ignored): grad mode is on
-    and one of them requires grad. The kernels return fresh
-    tensors with no ``grad_fn`` (none has a backward kernel, as none of the
-    reference's Pallas kernels has one), so a graph through them would be
-    cut without a word: an MLE objective would lose dK/dθ and keep the
-    noise term's gradient. The plain ``"se"`` kernel
-    (``covariance.make_kernel("se")``, what ``core.hyper`` takes) is
-    differentiable."""
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{what}: the CUDA kernel has no backward, and an input "
-            f"requires grad; differentiate through the plain kernel "
-            f"(covariance.make_kernel('se'), as core.hyper does) or run "
-            f"under torch.no_grad()")
 
 
 def _check_cuda(**tensors) -> None:

@@ -7,7 +7,9 @@ only because they lie on the CPU; for CUDA tensors it launches
 the same steps on either device: the intra-chunk block through
 ``intra_chunk``, then the O(n_chunks) inter-chunk state recurrence and the
 off-diagonal combine in PyTorch, as the JAX package leaves them to XLA.
-``ssd_launches`` counts kernel launches.
+``ssd_launches`` counts kernel launches. The kernel has no backward:
+given CUDA tensors that require grad, in grad mode, ``intra_chunk`` raises
+(``build.refuse_grad``) rather than return tensors cut from the graph.
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ def intra_chunk(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
     args = (xdt, dA, Bc, Cc)
     if build.on_cpu(*args):
         return ref.intra_chunk(xdt, dA, Bc, Cc)
+    build.refuse_grad("ssd_intra_chunk", *args)
     if xdt.dtype not in _DTYPE_CODE or any(t.dtype != xdt.dtype
                                            for t in args):
         raise TypeError(f"the SSD kernel takes float32 or bfloat16 inputs of "

@@ -38,7 +38,7 @@ def kernels(prof):
     return out
 
 
-def _busy_us(intervals) -> float:
+def busy_us(intervals) -> float:
     total, end = 0.0, float("-inf")
     for s, e in sorted((s, e) for _, s, e in intervals):
         if e > end:
@@ -66,7 +66,7 @@ def report(label: str, fn) -> None:
     for name, s, e in ks:
         by_name[name][0] += 1
         by_name[name][1] += e - s
-    busy_ms = _busy_us(ks) / 1e3
+    busy_ms = busy_us(ks) / 1e3
     kernel_ms = sum(v[1] for v in by_name.values()) / 1e3
     print(f"{label}: wall {wall_ms:.3f} ms, {len(ks)} kernels, kernel time "
           f"{kernel_ms:.3f} ms, device busy {busy_ms:.3f} ms "

@@ -117,6 +117,24 @@ def test_se_pallas_matches_the_reference(prob):
     assert _err(got64, want64) < 1e-5
 
 
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_se_ard_pallas_is_the_references_public_name(prob, dtype):
+    """``covariance.se_ard_pallas`` exists under the reference's name, is
+    the function registered as "se_pallas" (``se_ard_kernel``, kept), and
+    agrees with ``repro.core.covariance.se_ard_pallas`` (both accumulate
+    in float32: the rbf tolerance)."""
+    assert cov.se_ard_pallas is cov.se_ard_kernel
+    assert cov.make_kernel("se_pallas") is cov.se_ard_pallas
+    tdt = torch.float32 if dtype == np.float32 else torch.float64
+    params = {k: v.to(tdt) for k, v in prob["params"].items()}
+    jparams = {k: jnp.asarray(v, dtype) for k, v in prob["jparams"].items()}
+    X, S = (np.asarray(prob[k], dtype) for k in ("X", "S"))
+    got = cov.se_ard_pallas(params, torch.tensor(X), torch.tensor(S))
+    want = jcov.se_ard_pallas(jparams, jnp.asarray(X), jnp.asarray(S))
+    assert got.dtype == tdt
+    assert _err(got, want) < 1e-5
+
+
 @pytest.mark.parametrize("name", ["se", "se_pallas"])
 @pytest.mark.parametrize("alias,target", [("pallas", "cuda"),
                                           ("pallas_interpret", "torch"),

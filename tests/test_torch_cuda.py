@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (rbf, xcov_diag, flash attention, SSD) against
-their plain versions, on the card.
+"""The port's CUDA kernels (rbf, xcov_diag, flash attention, SSD, the
+Cholesky downdate) against their plain versions, on the card.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 with that reason elsewhere; run them on a machine with one:
@@ -457,26 +457,176 @@ def test_picf_plan_on_the_card_matches_the_plain_path(cuda):
     assert bool(torch.isfinite(mk).all() and torch.isfinite(vk).all())
 
 
-@pytest.mark.parametrize("call", ["rbf", "icf", "xcov"])
+@pytest.mark.parametrize("call", ["rbf", "icf", "xcov", "downdate", "flash",
+                                  "ssd"])
 def test_kernel_wrappers_refuse_a_graph(cuda, call):
     """Asked for a gradient, each CUDA wrapper raises (it would return a
     tensor cut from the graph); under no_grad, or with no input requiring
     grad, it launches."""
+    from repro_torch.kernels.linalg import ops as linalg_ops
     X = torch.randn(64, 3, device=cuda, dtype=torch.float64)
     s2 = torch.tensor(1.3, device=cuda, dtype=torch.float64,
                       requires_grad=True)
     L1, _, alpha = _factors(16, torch.float64, cuda)
+    # the flash, SSD and downdate wrappers take no scalar: the graph comes
+    # in through a second tensor input instead
+    q = torch.randn(1, 2, 16, 64, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    dA = (-torch.rand(1, 2, 16, device=cuda)).requires_grad_(True)
+    W = torch.randn(16, 3, device=cuda, dtype=torch.float64) * 0.1
+    W.requires_grad_(True)
     run = {"rbf": lambda x: ops.rbf_covariance(x, X[:16], s2),
            "icf": lambda x: ops.icf_factor(x, s2, 8),
-           "xcov": lambda x: ops.xcov_diag(x, X[:16], L1, alpha, s2)}[call]
+           "xcov": lambda x: ops.xcov_diag(x, X[:16], L1, alpha, s2),
+           "downdate": lambda x: linalg_ops.chol_downdate(L1, W),
+           "flash": lambda x: attn_ops.attention(q, q.detach(), q.detach()),
+           "ssd": lambda x: ssd_ops.intra_chunk(
+               torch.randn(1, 16, 2, 8, device=cuda), dA,
+               torch.randn(1, 16, 8, device=cuda),
+               torch.randn(1, 16, 8, device=cuda))}[call]
     with pytest.raises(RuntimeError, match="no backward"):
         run(X)
     with torch.no_grad():
         run(X)
-    s2.requires_grad_(False)
-    with pytest.raises(RuntimeError, match="no backward"):
-        run(X.clone().requires_grad_(True))
+    for t in (s2, q, dA, W):
+        t.requires_grad_(False)
+    if call in ("rbf", "icf", "xcov"):
+        with pytest.raises(RuntimeError, match="no backward"):
+            run(X.clone().requires_grad_(True))
     run(X)
+
+
+# --- the Cholesky downdate (the streaming stores' retire) ----------------------
+
+def _downdate_inputs(cuda, n, b, dtype, seed=0, zero_cols=()):
+    """A lower factor L1 = chol(L0 L0ᵀ + W Wᵀ) (the QR of its root) and W:
+    downdating L1 by W gives back L0, well conditioned."""
+    from repro_torch.core import linalg
+    rng = np.random.default_rng(seed)
+    L0 = np.tril(rng.normal(size=(n, n)) * 0.1, -1) \
+        + np.diag(1.0 + rng.random(n))
+    W = rng.normal(size=(n, b)) * 0.5 / np.sqrt(max(b, 1))
+    W[:, list(zero_cols)] = 0.0
+    L0, W = (torch.tensor(a, dtype=dtype, device=cuda) for a in (L0, W))
+    return L0, linalg.chol_from_root(L0, W), W
+
+
+DOWNDATE_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,b,zero_cols", [
+    (64, 16, ()), (300, 257, ()), (128, 1, ()), (8, 40, ()),
+    (1, 3, ()), (96, 12, (0, 5, 11))])
+def test_downdate_kernel_matches_plain(cuda, n, b, zero_cols, dtype):
+    """The kernel against its plain version (the reference's sweeps in
+    wavefront order) on the same inputs: b = 1, b > n, n = 1, ragged row
+    chunks, zero columns; and both give back the factor before the
+    update. Each launch is counted once, and a repeat is bitwise equal."""
+    from repro_torch.kernels.linalg import ops as linalg_ops, \
+        ref as linalg_ref
+    L0, L1, W = _downdate_inputs(cuda, n, b, dtype, zero_cols=zero_cols)
+    linalg_ops.reset_counts()
+    got = linalg_ops.chol_downdate(L1, W)
+    again = linalg_ops.chol_downdate(L1, W)
+    torch.cuda.synchronize()
+    assert linalg_ops.chol_downdate_launches == 2
+    want = linalg_ref.chol_downdate(L1, W)
+    assert torch.equal(got, again)
+    assert got.is_contiguous() and torch.equal(got.triu(1), L1.triu(1))
+    tol = DOWNDATE_TOL[dtype]
+    assert float((got - want).abs().max()) <= tol
+    assert float((got - L0).abs().max()) <= 100 * tol
+
+
+def test_downdate_kernel_zero_columns_and_empty(cuda):
+    """Zero columns leave L as it is, bit for bit; b = 0 launches nothing."""
+    from repro_torch.kernels.linalg import ops as linalg_ops
+    L0, _, _ = _downdate_inputs(cuda, 200, 1, torch.float64)
+    linalg_ops.reset_counts()
+    Z = torch.zeros(200, 7, dtype=torch.float64, device=cuda)
+    assert torch.equal(linalg_ops.chol_downdate(L0, Z), L0)
+    assert torch.equal(linalg_ops.chol_downdate(L0, Z[:, :0]), L0)
+    assert linalg_ops.chol_downdate_launches == 1
+
+
+def test_downdate_kernel_rejects_what_it_cannot_run(cuda):
+    from repro_torch.kernels.linalg import ops as linalg_ops
+    L = torch.eye(8, device=cuda)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        linalg_ops.chol_downdate(L.half(), torch.zeros(8, 2, device=cuda)
+                                 .half())
+    with pytest.raises(ValueError, match="need L"):
+        linalg_ops.chol_downdate(L, torch.zeros(7, 2, device=cuda))
+    with pytest.raises(ValueError, match="CPU or all on one CUDA"):
+        linalg_ops.chol_downdate(L, torch.zeros(8, 2))
+
+
+def test_ppitc_store_retire_revive_on_the_card(cuda):
+    """A float64 pPITC store on the card: retire takes one downdate launch
+    and agrees with the same store on the CPU (plain sweeps) and with the
+    refold of the survivors; revive comes back to the streamed state."""
+    from repro_torch.core import api, covariance as cov, online
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.linalg import ops as linalg_ops
+    from repro_torch.parallel.runner import VmapRunner
+    ds = synthetic.standardize(synthetic.aimpeak_like(
+        n=4096, n_test=256, seed=0, device=cuda))
+    X, y = ds.X.double(), ds.y.double()
+    params = cov.init_params(5, signal=1.0, noise=0.3, lengthscale=1.2,
+                             dtype=torch.float64, device=cuda)
+    S = X[:256]
+    stores = {}
+    for dev in (cuda, torch.device("cpu")):
+        store = api.init_store(
+            "ppitc", cov.make_spec("se", impl="torch"), params, X[:2048],
+            y[:2048], S=S, runner=VmapRunner(M=4), device=dev)
+        stores[dev.type] = store.assimilate(X[2048:], y[2048:])
+    linalg_ops.reset_counts()
+    dead = stores["cuda"].retire(3)
+    torch.cuda.synchronize()
+    assert linalg_ops.chol_downdate_launches == 1
+    dead_cpu = stores["cpu"].retire(3)
+    assert linalg_ops.chol_downdate_launches == 1
+
+    def rel(a, b):
+        a, b = a.cpu(), b.cpu()
+        return float((a - b).abs().max() / (1 + b.abs().max()))
+
+    for a, b in zip(dead.to_state(), dead_cpu.to_state()):
+        assert rel(a, b) < 1e-9
+    refold = online.with_alive(dead.store, dead.store.alive, mode="refold")
+    assert rel(dead.store.Sdd_L, refold.Sdd_L) < 1e-9
+    back = dead.revive(3).to_state()
+    for a, b in zip(back, stores["cuda"].to_state()):
+        assert rel(a, b) < 1e-9
+
+
+def test_float32_store_retire_downdates_in_float64_on_the_card(cuda):
+    """A float32 pPITC store on the card retires by one launch of the
+    kernel's float64 instance and keeps its factor in float32: the plain
+    sweeps in float64 on the same factor, rounded to float32, bit for
+    bit."""
+    from repro_torch.core import api, covariance as cov
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.linalg import ops as linalg_ops, \
+        ref as linalg_ref
+    from repro_torch.parallel.runner import VmapRunner
+    ds = synthetic.standardize(synthetic.aimpeak_like(
+        n=4096, n_test=256, seed=0, device=cuda))
+    params = cov.init_params(5, signal=1.0, noise=0.3, lengthscale=1.2,
+                             device=cuda)
+    store = api.init_store("ppitc", cov.make_spec("se"), params, ds.X,
+                           ds.y, S=ds.X[:256], runner=VmapRunner(M=4),
+                           device=cuda)
+    linalg_ops.reset_counts()
+    dead = store.retire(3)
+    torch.cuda.synchronize()
+    assert linalg_ops.chol_downdate_launches == 1
+    assert dead.store.Sdd_L.dtype == torch.float32
+    want = linalg_ref.chol_downdate(store.store.Sdd_L.double(),
+                                    store.store.F[3].double()).float()
+    assert torch.equal(dead.store.Sdd_L, want)
 
 
 # --- flash attention and SSD (the LM serving slice) ---------------------------

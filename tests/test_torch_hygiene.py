@@ -27,8 +27,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert {"repro_torch.core.ppitc", "repro_torch.core.ppic",
             "repro_torch.core.pitc", "repro_torch.core.clustering",
             "repro_torch.core.picf", "repro_torch.core.hyper",
-            "repro_torch.optim.adam",
-            "repro_torch.kernels.rbf.ops",
+            "repro_torch.optim.adam", "repro_torch.core.online",
+            "repro_torch.kernels.rbf.ops", "repro_torch.kernels.linalg.ops",
+            "repro_torch.runtime.fault", "repro_torch.runtime.straggler",
+            "repro_torch.runtime.elastic",
             "repro_torch.kernels.attention.ops", "repro_torch.kernels.ssd.ops",
             "repro_torch.models.transformer", "repro_torch.launch.serve",
             "repro_torch.configs.registry"} <= set(mods)
@@ -73,6 +75,9 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):
     params = cov.init_params(2, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.fit("fgp", cov.make_kernel("se"), params, X, y)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.init_store("pitc", cov.make_kernel("se"), params, X, y,
+                       S=X[:2], M=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         synthetic.aimpeak_like(n=8, n_test=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -266,10 +266,22 @@ def test_store_streaming_raises_naming_item_6(prob, op):
     store = picf.init_picf_store(prob["kfn"], prob["params"], _t(prob["X"]),
                                  _t(prob["y"]), rank=R,
                                  runner=VmapRunner(M=prob["M"]))
+    jstore = jpicf.init_picf_store(prob["jkfn"], prob["jparams"],
+                                   jnp.asarray(prob["X"]),
+                                   jnp.asarray(prob["y"]), rank=R,
+                                   runner=JVmapRunner(M=prob["M"]))
+    # item 6 is ported: each call (revive after a retire) emits the
+    # reference's state
+    if op == "revive":
+        store, jstore = store.retire(0), jstore.retire(0)
     args = {"assimilate": (_t(prob["X"]), _t(prob["y"])),
             "retire": (0,), "revive": (0,)}[op]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        getattr(store, op)(*args)
+    jargs = {"assimilate": (jnp.asarray(prob["X"]), jnp.asarray(prob["y"])),
+             "retire": (0,), "revive": (0,)}[op]
+    st = getattr(store, op)(*args).to_state()
+    jst = getattr(jstore, op)(*jargs).to_state()
+    for f in api.PICFState._fields:
+        assert _err(getattr(st, f), getattr(jst, f)) < STATE_TOL, f
 
 
 def test_registry_has_picf():

@@ -159,13 +159,20 @@ def test_pic_store_to_state_gathers_alive_blocks(prob, dead):
         assert _err(getattr(st, f), getattr(jst, f)) < STATE_TOL, f
 
 
-@pytest.mark.parametrize("call", [lambda s: s.assimilate(None, None),
-                                  lambda s: s.retire(0),
-                                  lambda s: s.revive(0)])
+@pytest.mark.parametrize("call", [lambda s, X, y: s.assimilate(X, y),
+                                  lambda s, X, y: s.retire(0),
+                                  lambda s, X, y: s.retire(0).revive(0)])
 def test_pic_store_streaming_waits_for_rank_updates(prob, call):
-    store, _ = _stores(prob)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        call(store)
+    """The store's streaming calls (they raised until the rank-b updates
+    were ported) emit the reference's state: a wave of the same data
+    assimilated, a block retired, and retired then revived."""
+    store, jstore = _stores(prob)
+    st = call(store, _t(prob["X"]), _t(prob["y"])).to_state()
+    jst = call(jstore, jnp.asarray(prob["X"]),
+               jnp.asarray(prob["y"])).to_state()
+    for f in api.PICState._fields:
+        assert getattr(st, f).shape == getattr(jst, f).shape, f
+        assert _err(getattr(st, f), getattr(jst, f)) < STATE_TOL, f
 
 
 # ---------------------------------------------------------------------------
