@@ -94,6 +94,37 @@ Phases, in order; any failure exits non-zero before the last line:
    launches are counted apart: those of the float32 stores' own steps and
    serving (the main path's, in phase 7's line) and those of the float64
    yardsticks and the records;
+4f. GP serving runtime, on phase 4's data, its fitted pPITC state and
+   phase 4b's co-clustered pPIC fit: (a) a ``GPServer`` over pPITC
+   (max_batch 256, deadline 2 ms, warmed up) fed the 3200 test points one
+   by one in a seeded order with ``pump()`` between submits, each flush's
+   tickets collected at once; every ticket must equal ``plan.diag`` of its
+   flush's rows bitwise; it prints the submit-to-result latency p50/p99,
+   the flushes by trigger and the launches a flush; (b) one
+   ``TenantScheduler`` over the pPITC tenant (weight 1) and a routed pPIC
+   tenant (weight 2), the same points alternating: each tenant bitwise a
+   single-tenant ``GPServer`` fed the same flushes (the dispatch log's),
+   no callable built after warm-up, a third tenant of pPIC's lineage
+   sharing its callables; (c) a server over ``init_store("ppitc")`` on
+   the first wave, then ``update`` (the second), ``retire_machine(3)``
+   and ``revive_machine(3)``, 100 tickets pending across each swap
+   resolved bitwise against the state before it, each posterior within
+   phase 4d's limit of its phase 4d yardstick, one ``chol_downdate``
+   launch (the retire); (d) ``checkpoint_store``/``restore_store`` of the
+   pPITC and pPIC stores into fresh servers (bitwise), a state's
+   ``swap_from_checkpoint`` (detaches the store, bitwise),
+   ``TenantRegistry.admit_from_checkpoint`` (an equal ServeSpec,
+   bitwise), each file's bytes and save/load seconds, in a temporary
+   directory the phase removes; (e) the routed pPIC tenant with a health
+   policy reviving from its store checkpoint: a block poisoned by
+   ``chaos.poison_state`` is retired, its rows served degraded through
+   ``xcov_diag`` and every ticket finite, ``pump()`` revives it and the
+   output equals the one before the poisoning bitwise; then the
+   checkpoint is corrupted (``FaultInjector.corrupt``) and the next revive
+   must be refused (``n_revive_failures == 1``), the block left retired.
+   Its kernels' launches (``launches_serving`` in phase 7's line) are
+   counted apart from the yardsticks' (the plan's output on each flush,
+   the single-tenant replays, the restored servers' checks);
 4e. phase 4's pPITC fit FIT_REPEAT more times, each traced for the
    device's busy time beside its wall time, then once more for its
    largest kernels;
@@ -1487,7 +1518,7 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
           f"over max |f64|: "
           f"{ {k: float(f'{v:.2e}') for k, v in fields.items()} }",
           flush=True)
-    cold = {"Xc": Xc, "yc": yc, "m": m32, "v": v32}
+    cold = {"Xc": Xc, "yc": yc, "m": m32, "v": v32, "state": model.state}
     del model64, m64, v64, g64
     torch.cuda.empty_cache()
     if not e_pic <= lim:
@@ -2148,14 +2179,14 @@ def stream_path(torch, card: str, ds, spec, params, S, cold_state,
     refold32 = run(lambda: online.with_alive(st.store, alive, mode="refold"),
                    "f32 refold")
     s_ref64 = online.to_state(ref64, S64)
-    e_dead = err2(served32(dead.to_state()), served64(s_ref64))
-    e_refold = err2(served32(online.to_state(refold32, S)),
-                    served64(s_ref64))
+    retired64 = served64(s_ref64)     # also phase 4f's yardstick
+    e_dead = err2(served32(dead.to_state()), retired64)
+    e_refold = err2(served32(online.to_state(refold32, S)), retired64)
     # the reference's route, for the record: the downdate in float32
     dd32 = run(lambda: st.store._replace(
         alive=alive, ydd=dead.store.ydd, Sdd_L=linalg.chol_update_rank(
             st.store.Sdd_L, st.store.F[r], sign=-1.0)))
-    e_dd32 = err2(served32(online.to_state(dd32, S)), served64(s_ref64))
+    e_dd32 = err2(served32(online.to_state(dd32, S)), retired64)
     scale = float(ref64.Sdd_L.abs().max())
     print(f"  [{card}] (b) retire({r}): {times['retire']:.4f} s, "
           f"{n_retire} chol_downdate launch(es) (float64); f64 store's "
@@ -2453,7 +2484,433 @@ def stream_path(torch, card: str, ds, spec, params, S, cold_state,
         fail(f"phase 4d: {failures}")
     return dict(launches=launches, yardstick_launches=tally["yardsticks"],
                 times=times, peak_gb=peak, rmse=rmse, rmse_ppic=rmse_p,
-                picf=res)
+                picf=res, yardsticks=dict(
+                    limit=lim["served"], U=U, cold=cold_served,
+                    streamed=full, retired=retired64))
+
+
+# The serving runtime (phase 4f), on phase 4's data, support set and
+# hyperparameters, phase 4's fitted pPITC state and phase 4b's co-clustered
+# pPIC fit. The server's tickets are held to the plan's output on the same
+# flush's rows bit for bit (the same program on the same staged rows), the
+# multiplexed tenants to single-tenant servers fed the same flushes, the
+# restored checkpoints to the servers that wrote them, and the healed block
+# to its output before the poisoning; the streamed posteriors to phase 4d's
+# yardsticks within phase 4d's limit.
+SERVE_MAX_BATCH = 256
+SERVE_DEADLINE_MS = 2.0
+SERVE_WEIGHTS = {"ppitc": 1.0, "ppic": 2.0}
+SERVE_PENDING = 100       # tickets left pending across each store swap
+SERVE_HEAL_ROWS = 1024    # test rows served before, during and after healing
+
+
+def serving_path(torch, card: str, ds, spec, params, S, cold_state,
+                 cold_pic, yard) -> dict:
+    """The serving runtime at AIMPEAK: (a) one pPITC ``GPServer`` fed the
+    test inputs one by one with a deadline; (b) a ``TenantScheduler``
+    multiplexing pPITC and routed pPIC tenants; (c) a store-backed server
+    through ``update``, ``retire_machine`` and ``revive_machine`` with
+    tickets pending across each swap; (d) store and state checkpoints
+    through the server and the registry; (e) a poisoned block healed by the
+    health ladder, and a corrupt checkpoint refused. Returns the kernels'
+    launches on the serving path (the yardsticks' apart) and the
+    readings."""
+    import os
+    import tempfile
+
+    import numpy as np
+    from repro_torch.core import api, clustering
+    from repro_torch.kernels.linalg import ops as lops
+    from repro_torch.kernels.rbf import ops
+    from repro_torch.launch.gp_serve import GPServer
+    from repro_torch.parallel.runner import VmapRunner
+    from repro_torch.serving import (FaultInjector, FaultPlan, HealthPolicy,
+                                     TenantRegistry, TenantScheduler)
+    from repro_torch.serving.chaos import poison_state
+
+    ops.reset_counts()
+    lops.reset_counts()
+    failures, readings = [], {}
+    tally = {"serving": dict.fromkeys(("rbf", "xcov_diag", "chol_downdate"),
+                                      0)}
+    tally["yardsticks"] = dict(tally["serving"])
+
+    def counts():
+        return {"rbf": ops.rbf_launches + ops.icf_launches,
+                "xcov_diag": ops.xcov_launches,
+                "chol_downdate": lops.chol_downdate_launches}
+
+    def run(fn, serving=True):
+        """``fn()``, its kernels' launches added to the serving tally (or
+        the yardsticks'); returns its output and those launches."""
+        c0 = counts()
+        out = fn()
+        c1 = counts()
+        diff = {k: c1[k] - c0[k] for k in c0}
+        into = tally["serving" if serving else "yardsticks"]
+        for k, v in diff.items():
+            into[k] += v
+        return out, diff
+
+    def need(ok, what):
+        print(f"  {what}: {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append(what)
+
+    def bitwise(got, want) -> bool:
+        return bool(torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1]))
+
+    def stacked(results):
+        return (torch.stack([r[0] for r in results]),
+                torch.stack([r[1] for r in results]))
+
+    def finite(results) -> bool:
+        m, v = stacked(results)
+        return bool(torch.isfinite(m).all() and torch.isfinite(v).all())
+
+    def pct(xs, q):
+        return float(np.percentile(np.asarray(xs), q))
+
+    Uh = ds.X_test.cpu().numpy()                       # queries arrive here
+    order = np.random.default_rng(0).permutation(N_TEST)
+    pitc = api.FittedGP(api.get("ppitc"), spec, params, cold_state)
+    pic = api.FittedGP(api.get("ppic"), spec, params, cold_pic["state"])
+    sspec = api.ServeSpec(max_batch=SERVE_MAX_BATCH)
+    rspec = api.ServeSpec(routed=True, max_batch=SERVE_MAX_BATCH)
+
+    # (a) one tenant: submit, pump, and collect each flush's tickets as soon
+    # as it is dispatched (the client waits for its answer)
+    srv = GPServer(pitc, spec=sspec, flush_deadline_ms=SERVE_DEADLINE_MS)
+    srv.plan.warmup(D)
+    torch.cuda.synchronize()
+    groups, lat, res, t_sub, open_ = [], [], {}, {}, []
+
+    def drive():
+        for i in order:
+            now = time.monotonic()
+            tk = srv.submit(Uh[i])
+            t_sub[tk] = now
+            open_.append((tk, i))
+            if srv.pending:
+                srv.pump()
+            if not srv.pending:
+                groups.append(list(open_))
+                open_.clear()
+                for k, _ in groups[-1]:
+                    res[k] = srv.result(k)
+                    lat.append((time.monotonic() - t_sub[k]) * 1e3)
+        srv.flush()
+        if open_:
+            groups.append(list(open_))
+            for k, _ in open_:
+                res[k] = srv.result(k)
+                lat.append((time.monotonic() - t_sub[k]) * 1e3)
+            open_.clear()
+
+    t0 = time.perf_counter()
+    _, la = run(drive)
+    wall = time.perf_counter() - t0
+    st = srv.stats
+    ok = len(res) == N_TEST and finite(list(res.values()))
+    same = True
+    for g in groups:
+        rows = np.array([i for _, i in g])
+        want, _ = run(lambda: srv.plan.diag(Uh[rows]), serving=False)
+        same &= bitwise(stacked([res[k] for k, _ in g]), want)
+    n_fl = st.n_flushes
+    readings["a"] = dict(p50_ms=pct(lat, 50), p99_ms=pct(lat, 99),
+                         flushes=n_fl, size=st.n_size_flushes,
+                         deadline=st.n_deadline_flushes,
+                         manual=st.n_manual_flushes, wall_s=wall)
+    print(f"  [{card}] (a) GPServer pPITC, {N_TEST} points one by one, "
+          f"deadline {SERVE_DEADLINE_MS} ms, max_batch {SERVE_MAX_BATCH}: "
+          f"{wall:.3f} s; submit-to-result latency per ticket p50 "
+          f"{readings['a']['p50_ms']:.3f} ms, p99 "
+          f"{readings['a']['p99_ms']:.3f} ms; {n_fl} flushes (size "
+          f"{st.n_size_flushes}, deadline {st.n_deadline_flushes}, manual "
+          f"{st.n_manual_flushes}), mean {N_TEST / n_fl:.1f} tickets a "
+          f"flush; launches {la} ({la['xcov_diag'] / n_fl:.2f} xcov_diag, "
+          f"{la['rbf'] / n_fl:.2f} rbf a flush); queue time p50/p99 "
+          f"{st.staleness.percentile(50):.3f}/"
+          f"{st.staleness.percentile(99):.3f} ms", flush=True)
+    need(ok, "(a) every ticket answered, finite")
+    need(same and len(groups) == n_fl,
+         f"(a) tickets bitwise plan.diag of their flush's rows "
+         f"({len(groups)} flushes)")
+    del srv, res
+
+    # (b) two tenants in one scheduler, the same arrivals alternating
+    sched = TenantScheduler(clock=time.monotonic, log_len=4 * N_TEST)
+    tens = {"ppitc": sched.admit("ppitc", pitc, sspec,
+                                 weight=SERVE_WEIGHTS["ppitc"],
+                                 flush_deadline_ms=SERVE_DEADLINE_MS),
+            "ppic": sched.admit("ppic", pic, rspec,
+                                weight=SERVE_WEIGHTS["ppic"],
+                                flush_deadline_ms=SERVE_DEADLINE_MS)}
+    for t in tens.values():
+        t.plan.warmup(D)
+    torch.cuda.synchronize()
+    traces = {k: t.plan.stats.n_traces for k, t in tens.items()}
+    rows_of = {k: [] for k in tens}
+    sub = {k: {} for k in tens}
+    got = {k: {} for k in tens}
+    lat_b = {k: [] for k in tens}
+
+    def drive_b():
+        for j, i in enumerate(order):
+            tid = "ppitc" if j % 2 == 0 else "ppic"
+            now = time.monotonic()
+            tk = sched.submit(tid, Uh[i])
+            sub[tid][tk] = now
+            rows_of[tid].append(i)
+            sched.pump()
+            for t_id, t in tens.items():
+                for k in list(t.ready):
+                    got[t_id][k] = sched.result(t_id, k)
+                    lat_b[t_id].append((time.monotonic() - sub[t_id][k])
+                                       * 1e3)
+        sched.flush()
+        for t_id, t in tens.items():
+            for k in list(t.ready):
+                got[t_id][k] = sched.result(t_id, k)
+                lat_b[t_id].append((time.monotonic() - sub[t_id][k]) * 1e3)
+
+    t0 = time.perf_counter()
+    _, lb = run(drive_b)
+    wall = time.perf_counter() - t0
+    log = list(sched.dispatch_log)
+    same, answered = True, True
+    for tid, model, spec_ in (("ppitc", pitc, sspec), ("ppic", pic, rspec)):
+        solo = GPServer(model, spec=spec_)
+        answered &= (len(got[tid]) == N_TEST // 2
+                     and finite(list(got[tid].values())))
+        rows = np.array(rows_of[tid])
+
+        def replay():
+            out, k0 = [], 0
+            for t_id, _, n in log:
+                if t_id != tid:
+                    continue
+                tks = [solo.submit(Uh[r]) for r in rows[k0:k0 + n]]
+                solo.flush()
+                out += [solo.result(k) for k in tks]
+                k0 += n
+            return out, k0
+
+        (out, nxt), _ = run(replay, serving=False)
+        same &= nxt == len(rows) and bitwise(
+            stacked(out), stacked([got[tid][k] for k in range(len(rows))]))
+    grow = {k: t.plan.stats.n_traces - traces[k] for k, t in tens.items()}
+    # a third tenant of pPIC's lineage: the same callables, none built
+    third = sched.admit("ppic2", api.FittedGP(api.get("ppic"), spec, params,
+                                              cold_pic["state"]), rspec)
+    n3 = third.plan.stats.n_traces
+    run(lambda: sched.predict("ppic2", Uh[order[:SERVE_MAX_BATCH]]))
+    shared = (third.plan._exec is tens["ppic"].plan._exec
+              and third.plan.stats.n_traces == n3
+              and sched.registry.n_lineages == 2)
+    roll = sched.rollup()["tenants"]
+    readings["b"] = {tid: dict(p50_ms=pct(lat_b[tid], 50),
+                               p99_ms=pct(lat_b[tid], 99),
+                               flushes=roll[tid]["n_flushes"])
+                     for tid in tens}
+    print(f"  [{card}] (b) TenantScheduler, pPITC (weight 1) and routed "
+          f"pPIC (weight 2), {N_TEST} points alternating: {wall:.3f} s; "
+          + "; ".join(
+              f"{tid}: p50 {readings['b'][tid]['p50_ms']:.3f} ms, p99 "
+              f"{readings['b'][tid]['p99_ms']:.3f} ms, "
+              f"{roll[tid]['n_flushes']} flushes (size "
+              f"{roll[tid]['n_size_flushes']}, deadline "
+              f"{roll[tid]['n_deadline_flushes']}), g_hist "
+              f"{roll[tid]['g_hist']}" for tid in tens)
+          + f"; launches {lb}; callables built after warm-up {grow}",
+          flush=True)
+    need(answered, "(b) every ticket answered, finite")
+    need(same, "(b) each tenant bitwise a single-tenant GPServer fed the "
+               "same flushes")
+    need(not any(grow.values()), "(b) no callable built after warm-up")
+    need(shared, "(b) a third tenant of the lineage shares its callables, "
+                 "none built")
+    del sched, tens, third, got
+
+    # (c) streaming through the server: pending tickets across each swap
+    H, half = N_TRAIN // 2, VmapRunner(M=M // 2)
+    Uy, lim = yard["U"], yard["limit"]
+
+    def err2(a, b_):
+        return max(max_err(a[0], b_[0]), max_err(a[1], b_[1]))
+
+    st1, _ = run(lambda: api.init_store("ppitc", spec, params, ds.X[:H],
+                                        ds.y[:H], S=S, runner=half))
+    srv = GPServer(api.FittedGP(api.get("ppitc"), spec, params,
+                                st1.to_state()), spec=sspec, store=st1)
+    srv.plan.warmup(D)
+    rows = order[:SERVE_PENDING]
+    swap_s, swap_launches = {}, {}
+
+    def swap(name, fn, yardstick):
+        old = srv.plan
+        tks = [srv.submit(Uh[i]) for i in rows]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, n = run(fn)
+        torch.cuda.synchronize()
+        swap_s[name], swap_launches[name] = time.perf_counter() - t, n
+        out = [srv.result(k) for k in tks]
+        want, _ = run(lambda: old.diag(Uh[rows]), serving=False)
+        need(bitwise(stacked(out), want),
+             f"(c) {SERVE_PENDING} tickets pending across {name} resolved "
+             f"bitwise against the state before it")
+        served, _ = run(lambda: srv.predict(Uy))
+        e = err2(served, yardstick)
+        ok = e <= lim
+        print(f"  (c) after {name}: served vs its phase 4d yardstick "
+              f"{e:.3e} (limit {lim:.3e}){'' if ok else ' FAIL'}",
+              flush=True)
+        if not ok:
+            failures.append(f"(c) {name} drift {e}")
+
+    r = STREAM_RETIRE
+    swap("update", lambda: srv.update(ds.X[H:], ds.y[H:]), yard["cold"])
+    swap(f"retire_machine({r})", lambda: srv.retire_machine(r),
+         yard["retired"])
+    swap(f"revive_machine({r})", lambda: srv.revive_machine(r),
+         yard["streamed"])
+    n_dd = sum(n["chol_downdate"] for n in swap_launches.values())
+    readings["c"] = swap_s
+    print(f"  [{card}] (c) through the server (pending tickets flushed "
+          f"first): " + ", ".join(f"{k} {v:.4f} s {swap_launches[k]}"
+                                 for k, v in swap_s.items()), flush=True)
+    need(n_dd == 1 and swap_launches[f"retire_machine({r})"][
+        "chol_downdate"] == 1, f"(c) chol_downdate launched once, by the "
+                               f"retire (got {n_dd})")
+    pitc_srv = srv
+
+    # (d) checkpoints, in a directory the phase removes
+    pic_store, _ = run(lambda: api.init_store(
+        "ppic", spec, params, cold_pic["Xc"], cold_pic["yc"], S=S,
+        runner=VmapRunner(M=M)))
+    pic_model = api.FittedGP(api.get("ppic"), spec, params,
+                             pic_store.to_state())
+    pic_srv = GPServer(pic_model, spec=rspec, store=pic_store)
+    Ud = Uh[order[:SERVE_HEAL_ROWS]]
+    tmp = tempfile.TemporaryDirectory()
+    files = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    for name, server, fresh_model, spec_ in (
+            ("pPITC store", pitc_srv, pitc, sspec),
+            ("pPIC store", pic_srv, pic, rspec)):
+        path = os.path.join(tmp.name, name.replace(" ", "_") + ".npz")
+        _, t_save = timed(lambda: server.checkpoint_store(path))
+        fresh = GPServer(fresh_model, spec=spec_)
+        _, t_load = timed(lambda: fresh.restore_store(path))
+        files[name] = (path, os.path.getsize(path), t_save, t_load)
+        a_, _ = run(lambda: server.predict(Ud))
+        b_, _ = run(lambda: fresh.predict(Ud))
+        need(bitwise(a_, b_), f"(d) {name}: restore_store into a fresh "
+                              f"server serves bitwise the first server")
+        if name == "pPITC store":
+            spath = os.path.join(tmp.name, "pPITC_state.npz")
+            _, t_s = timed(lambda: server.checkpoint(spath))
+            _, t_l = timed(lambda: fresh.swap_from_checkpoint(spath))
+            files["pPITC state"] = (spath, os.path.getsize(spath), t_s, t_l)
+            c_, _ = run(lambda: fresh.predict(Ud))
+            need(fresh.store is None and bitwise(a_, c_),
+                 "(d) swap_from_checkpoint of a state detaches the store "
+                 "and serves bitwise")
+        del fresh
+    pic_path = files["pPIC store"][0]
+    reg = TenantRegistry()
+    (t_adm, t_l), _ = run(lambda: timed(
+        lambda: reg.admit_from_checkpoint("pic", pic_path)))
+    a_, _ = run(lambda: pic_srv.predict(Ud))
+    b_, _ = run(lambda: t_adm.plan.routed_diag(Ud))
+    need(t_adm.spec == rspec and bitwise(a_, b_),
+         f"(d) admit_from_checkpoint: an equal ServeSpec, bitwise "
+         f"({t_l:.3f} s)")
+    del reg, t_adm, pitc_srv
+    readings["d"] = {k: dict(bytes=v[1], save_s=v[2], load_s=v[3])
+                     for k, v in files.items()}
+    print(f"  [{card}] (d) checkpoints: " + "; ".join(
+        f"{k} {v[1]} bytes, save {v[2]:.3f} s, load {v[3]:.3f} s"
+        for k, v in files.items()), flush=True)
+    torch.cuda.empty_cache()
+
+    # (e) self-healing: a poisoned block retired, served degraded, revived
+    heal = GPServer(pic_model, spec=rspec, store=pic_store,
+                    health=HealthPolicy(max_consecutive_failures=1,
+                                        checkpoint=pic_path,
+                                        revive_after_ms=0.0))
+    heal.plan.warmup(D)
+
+    def serve_rows():
+        out = []
+        for j in range(0, len(Ud), SERVE_MAX_BATCH):
+            tks = [heal.submit(x) for x in Ud[j:j + SERVE_MAX_BATCH]]
+            heal.flush()
+            out += [heal.collect(k) for k in tks]
+        return out
+
+    before, _ = run(serve_rows)
+    assign = clustering.nearest_center_np(Ud, heal.plan._centroids_host)
+    k = int(np.bincount(assign, minlength=M).argmax())
+    heal.swap_state(poison_state(heal.model.state, k))
+    during, le = run(serve_rows)
+    deg = np.array([bool(d) for _, _, d in during])
+    need(heal.health.dead_blocks() == [k] and le["xcov_diag"] >= 1
+         and np.array_equal(deg, assign == k) and finite(during),
+         f"(e) block {k} poisoned: retired, its {int(deg.sum())} rows "
+         f"served degraded through xcov_diag ({le['xcov_diag']} launches), "
+         f"every ticket finite")
+    (_, t_rev), _ = run(lambda: timed(heal.pump))
+    after, _ = run(serve_rows)
+    need(heal.stats.n_revives == 1 and heal.health.dead_blocks() == []
+         and all(not d for _, _, d in after)
+         and bitwise(stacked(before), stacked(after)),
+         f"(e) revived from the checkpoint on pump ({t_rev:.3f} s): "
+         f"bitwise the output before the poisoning")
+    FaultInjector(FaultPlan(seed=0)).corrupt(pic_path)
+    poisoned = poison_state(heal.model.state, k)
+    heal.swap_state(poisoned)
+    again, _ = run(serve_rows)
+    run(heal.pump)
+    s = heal.stats
+    need(s.n_revive_failures == 1 and s.n_revives == 1
+         and heal.health.dead_blocks() == [k]
+         and heal.model.state is poisoned and finite(again),
+         "(e) a corrupt checkpoint: the revive raised and counted "
+         "CheckpointError, the file was not loaded, the block stays "
+         "retired and every ticket is finite")
+    readings["e"] = dict(revive_s=t_rev, n_retries=s.n_retries,
+                         degraded_rows=s.n_degraded_rows)
+    print(f"  [{card}] (e) health: {s.n_auto_retired} auto-retires, "
+          f"{s.n_retries} retries, {s.n_degraded_rows} degraded rows, "
+          f"{s.n_revives} revive ({t_rev:.3f} s, the {files['pPIC store'][1]}"
+          f"-byte store), {s.n_revive_failures} refused", flush=True)
+    tmp.cleanup()
+    del heal, pic_srv, pic_store, pic_model
+    torch.cuda.empty_cache()
+
+    print(f"  counts of the serving path: {tally['serving']}; of the "
+          f"yardsticks (plan.diag of each flush, the single-tenant "
+          f"replays, the restored servers' checks): {tally['yardsticks']}",
+          flush=True)
+    for name, n in tally["serving"].items():
+        if n <= 0:
+            failures.append(f"kernel {name} was not launched on phase 4f's "
+                            f"serving path")
+    if failures:
+        fail(f"phase 4f: {failures}")
+    return dict(launches=tally["serving"], yardsticks=tally["yardsticks"],
+                readings=readings)
 
 
 def fit_spread(torch, card: str, ds, spec, params, S) -> list:
@@ -2590,7 +3047,23 @@ def main() -> int:
                     stream_f64_refold_s=stream["times"]["f64 refold"],
                     stream_f32_refold_s=stream["times"]["f32 refold"],
                     stream_peak_gb=stream["peak_gb"])
-    del cold_state, cold_pic, stream
+    yard = stream["yardsticks"]
+    del stream
+    torch.cuda.empty_cache()
+
+    print("phase 4f: GP serving runtime", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    serving = serving_path(torch, card, **data, cold_state=cold_state,
+                           cold_pic=cold_pic, yard=yard)
+    for row in rows:
+        row["launches_serving"] = serving["launches"].get(row["name"], 0)
+        row["launches_serving_yardsticks"] = serving["yardsticks"].get(
+            row["name"], 0)
+    rows[0]["serving"] = serving["readings"]
+    rows[0]["serving_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"  phase 4f peak device memory {rows[0]['serving_peak_gb']:.2f} "
+          f"GB", flush=True)
+    del cold_state, cold_pic, yard, serving
     torch.cuda.empty_cache()
 
     print("phase 4e: the pPITC fit's spread", flush=True)

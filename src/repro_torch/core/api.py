@@ -14,7 +14,8 @@ callables and ``PlanStats.n_traces`` counts how many were built.
 
 The incremental-state protocol (``StateStore``, ``init_store``) is the
 reference's: a method's store folds data in and machines out and back, and
-emits its state. Not ported yet: the multi-tenant ``compat_key``.
+emits its state. ``ServeSpec.compat_key`` is what the multi-tenant registry
+(``serving/registry.py``) shares plan callables on.
 """
 from __future__ import annotations
 
@@ -245,6 +246,30 @@ class ServeSpec:
             return None
         return default_buckets(self.max_batch, min_bucket=self.min_bucket,
                                block_q=self.resolve_block_q(kfn))
+
+    def compat_key(self, kfn: Callable) -> tuple:
+        """Hashable identity of the serving policy this spec resolves to
+        over fit-time kernel ``kfn``.
+
+        Two deployments whose keys match run the same serving callables:
+        the same resolved kernel, tile, bucket ladder, routed dispatch,
+        overflow ladder bound, backend caches and dtype policy. What the
+        callables take as arguments (params, state, caches) is absent, so
+        deployments that differ only in posterior values share one callable
+        lineage (the multi-tenant registry adds the method name and the
+        state's and params' structure; ``serving/registry.py``). Distinct
+        specs can map to one key (``block_q=None`` vs an explicit
+        ``block_q`` equal to the kernel's own): the key is the RESOLVED
+        policy.
+        """
+        served = self.resolve_kfn(kfn)
+        try:
+            hash(served)
+        except TypeError:       # a bespoke closure: identity is the key
+            served = id(served)
+        return (served, self.resolve_block_q(kfn), self.resolve_buckets(kfn),
+                self.routed, self.alpha, self.max_overflow_groups,
+                self.cached_cinv, self.dtype)
 
 
 # ---------------------------------------------------------------------------

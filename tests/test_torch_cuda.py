@@ -959,3 +959,138 @@ def test_routed_cinv_and_degraded_rows_on_the_card(cuda):
                                 U[:256])
     assert torch.equal(m[deg], m_g[deg]) and torch.equal(v[deg], v_g[deg])
     assert torch.equal(m[~deg], m0[~deg]) and torch.equal(v[~deg], v0[~deg])
+
+
+def _pitc_server(cuda, **kw):
+    """A pPITC server on the card over AIMPEAK-like data (seed 0, float32)
+    and its test queries on the host."""
+    from repro_torch.core import api, covariance as cov
+    from repro_torch.data import synthetic
+    from repro_torch.launch.gp_serve import GPServer
+    from repro_torch.parallel.runner import VmapRunner
+    ds = synthetic.standardize(synthetic.aimpeak_like(
+        n=4096, n_test=256, seed=0, device=cuda))
+    spec = cov.make_spec("se")
+    params = cov.init_params(5, signal=1.0, noise=0.3, lengthscale=1.2,
+                             device=cuda)
+    store = api.init_store("ppitc", spec, params, ds.X, ds.y,
+                           S=ds.X[:256], runner=VmapRunner(M=8), device=cuda)
+    model = api.FittedGP(api.get("ppitc"), spec, params, store.to_state())
+    srv = GPServer(model, spec=api.ServeSpec(max_batch=64), store=store,
+                   **kw)
+    return srv, ds.X_test.cpu().numpy()
+
+
+def test_flush_tickets_are_device_tensors_resolved_after_their_event(cuda):
+    srv, U = _pitc_server(cuda)
+    srv.plan.warmup(5)
+    tickets = [srv.submit(x) for x in U[:40]]
+    srv.flush()
+    events = {id(srv._t.ready_events[tk]) for tk in tickets}
+    assert len(events) == 1                  # one event per flush
+    event = srv._t.ready_events[tickets[0]]
+    assert isinstance(event, torch.cuda.Event)
+    got = [srv.result(tk) for tk in tickets]
+    assert event.query()
+    assert all(m.is_cuda and v.is_cuda for m, v in got)
+    m, v = srv.plan.diag(U[:40])
+    assert torch.equal(torch.stack([g[0] for g in got]), m)
+    assert torch.equal(torch.stack([g[1] for g in got]), v)
+    more = [srv.submit(x) for x in U[40:50]]
+    srv.flush()
+    srv.sync()
+    assert srv._t.ready_events[more[0]].query()
+
+
+def test_a_cuda_tensor_point_is_staged_on_the_host(cuda):
+    srv, U = _pitc_server(cuda)
+    a = srv.submit(U[0])
+    b = srv.submit(torch.as_tensor(U[0]).to(cuda))
+    assert isinstance(srv._t.queue[1][1], np.ndarray)
+    srv.flush()
+    (ma, va), (mb, vb) = srv.result(a), srv.result(b)
+    assert ma.is_cuda and torch.equal(ma, mb) and torch.equal(va, vb)
+
+
+def test_load_state_and_store_default_to_the_card(cuda, tmp_path):
+    from repro_torch.core import serialize
+    srv, _ = _pitc_server(cuda)
+    path = serialize.save_state(tmp_path / "s.npz", srv.model.state)
+    back = serialize.load_state(path)
+    for a, b in zip(srv.model.state, back):
+        assert b.is_cuda and b.dtype == a.dtype and torch.equal(a, b)
+    spath = serialize.save_store(tmp_path / "t.npz", srv.store)
+    store = serialize.load_store(spath)
+    assert store.S.is_cuda and store.store.alive.is_cuda
+    for a, b in zip(srv.store.to_state(), store.to_state()):
+        assert torch.equal(a, b)
+
+
+def test_chaos_poison_writes_nan_on_the_device(cuda):
+    from repro_torch.serving import FaultInjector, FaultPlan
+    from repro_torch.serving.chaos import poison_state
+    inj = FaultInjector(FaultPlan(nan_at={1: 0}))
+    inj.before_dispatch(None, None)
+    mean = torch.arange(6, dtype=torch.float32, device=cuda)
+    assign = np.array([0, 1, 1, 2, 1, 0])
+    m, v = inj.poison(assign, mean, mean + 1)
+    assert m.is_cuda and v.is_cuda and not torch.isnan(mean).any()
+    assert torch.isnan(m).cpu().tolist() == list(assign == 1)
+    model, _ = _fitted_ppic(cuda)
+    bad = poison_state(model.state, 2)
+    assert bad.C_L.is_cuda and torch.isnan(bad.C_L[2]).all()
+    assert not torch.isnan(model.state.C_L).any()
+
+
+def test_health_ladder_heals_a_poisoned_block_on_the_card(cuda, tmp_path):
+    """A NaN-poisoned block is retired, its rows served degraded through
+    xcov_diag with every ticket finite, and revived from its store
+    checkpoint to the unpoisoned output bitwise."""
+    from repro_torch.core import api, clustering, covariance as cov, \
+        serialize, support
+    from repro_torch.data import synthetic
+    from repro_torch.launch.gp_serve import GPServer
+    from repro_torch.parallel.runner import VmapRunner
+    from repro_torch.serving import HealthPolicy
+    from repro_torch.serving.chaos import poison_state
+    ds = synthetic.standardize(synthetic.aimpeak_like(
+        n=4096, n_test=256, seed=0, device=cuda))
+    Xc, yc, _, _, _ = clustering.cocluster(
+        ds.X.cpu().numpy(), ds.y.cpu().numpy(), ds.X_test.cpu().numpy(), 8,
+        0)
+    spec = cov.make_spec("se")
+    params = cov.init_params(5, signal=1.0, noise=0.3, lengthscale=1.2,
+                             device=cuda)
+    S = support.select_support(spec, params, ds.X[:2048], 256, device=cuda)
+    store = api.init_store("ppic", spec, params, torch.as_tensor(Xc),
+                           torch.as_tensor(yc), S=S, runner=VmapRunner(M=8),
+                           device=cuda)
+    model = api.FittedGP(api.get("ppic"), spec, params, store.to_state())
+    sspec = api.ServeSpec(max_batch=256, routed=True)
+    ckpt = tmp_path / "pic.npz"
+    serialize.save_store(ckpt, store, spec=sspec)
+    srv = GPServer(model, spec=sspec, store=store,
+                   health=HealthPolicy(max_consecutive_failures=1,
+                                       checkpoint=ckpt))
+    srv.plan.warmup(5)
+    U = ds.X_test.cpu().numpy()
+
+    def serve():
+        tk = [srv.submit(x) for x in U]
+        srv.flush()
+        return [srv.collect(k) for k in tk]
+
+    before = serve()
+    assign = clustering.nearest_center_np(U, srv.plan._centroids_host)
+    k = int(np.bincount(assign).argmax())
+    srv.swap_state(poison_state(srv.model.state, k))
+    ops.reset_counts()
+    during = serve()
+    assert ops.xcov_launches >= 1 and srv.health.dead_blocks() == [k]
+    assert [bool(d) for _, _, d in during] == list(assign == k)
+    assert all(bool(torch.isfinite(m)) and bool(torch.isfinite(v))
+               for m, v, _ in during)
+    srv.pump()
+    assert srv.stats.n_revives == 1 and srv.health.dead_blocks() == []
+    for (m0, v0, _), (m1, v1, d) in zip(before, serve()):
+        assert not d and torch.equal(m0, m1) and torch.equal(v0, v1)

@@ -33,7 +33,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.runtime.elastic",
             "repro_torch.kernels.attention.ops", "repro_torch.kernels.ssd.ops",
             "repro_torch.models.transformer", "repro_torch.launch.serve",
-            "repro_torch.configs.registry"} <= set(mods)
+            "repro_torch.configs.registry", "repro_torch.core.serialize",
+            "repro_torch.launch.gp_serve", "repro_torch.serving",
+            "repro_torch.serving.stats", "repro_torch.serving.health",
+            "repro_torch.serving.chaos", "repro_torch.serving.registry",
+            "repro_torch.serving.scheduler",
+            "repro_torch.runtime.monitor"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
