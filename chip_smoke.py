@@ -125,6 +125,34 @@ Phases, in order; any failure exits non-zero before the last line:
    Its kernels' launches (``launches_serving`` in phase 7's line) are
    counted apart from the yardsticks' (the plan's output on each flush,
    the single-tenant replays, the restored servers' checks);
+4g. GP over processes, on phase 4's data, support set and hyperparameters
+   (M = 20, R = 2048, U = the 3200 test inputs): it prints the backend
+   table (``parallel/runner.py``'s constant ``BACKEND_TABLE``), then runs
+   the collective programs (pPITC and pPIC ``predict_distributed`` and
+   fits; pICF's ``icf_factor_local`` once, its pivot columns from rbf.cu's
+   exact instance, and ``machine_step``, ``machine_step_sharded_u`` and
+   the store from that factor; ``select_support_parallel`` on
+   ds.X[:8192]; ``hyper.pitc_nlml`` and its gradient; the axis's
+   collectives and ``ring_all_reduce``; all float64; in float32 the pPITC
+   fit served through ``plan.diag``, the pICF fit and the collective
+   selection) (a) on the stacked axis, one process (``VmapRunner``), the
+   yardstick; there the collective ICF loop must find the ICF kernel's
+   pivots and its store the ``VmapRunner`` fit's state, and it prints how
+   far the float32 loop's selection agrees with phase 4's S, whether the
+   reference's float32 formed-Sdd Cholesky gives NaN, and pICF's two
+   layouts on float32 data; (b) on 4 gloo ranks sharing cuda:0, 5
+   machines each, spawned (``torch.multiprocessing``, a ``file://``
+   rendezvous in a temporary directory); (c) on one NCCL rank holding all
+   20 (a one-rank ``ShardMapRunner`` takes the collective route: the TSQR,
+   the pivot loop, NCCL's all-gather and reduce-scatter). Each rank loads
+   phase 2's kernels (never nvcc), reads (a)'s results through CUDA IPC,
+   and holds its own within DIST_TOL of 1 + |value| (pivots and the
+   float32 selection equal; the float32 pPITC fit's RMSE and its error
+   against the float64 fit as phase 4's); it prints each program's wall
+   time and collective calls and bytes beside the paper's Table 1 term,
+   its peak device memory and its rbf launches, block and exact
+   (``launches_dist``, ``launches_dist_exact`` in phase 7's line). A
+   rank's exception, or no answer within DIST_JOIN_S, fails the run;
 4e. phase 4's pPITC fit FIT_REPEAT more times, each traced for the
    device's busy time beside its wall time, then once more for its
    largest kernels;
@@ -172,6 +200,12 @@ TF32_FLOPS_PER_S = 495e12
 #  kernel's products are 3xTF32 (float32-like error); one TF32 product would
 #  miss this limit on a fitted state, which check_xcov shows.
 TOL_RBF = {"float32": 1e-5, "bfloat16": 3e-2}
+#  rbf's exact instance (the ICF loop's pivot column) against its plain
+#  version, which forms the cross term by a matmul: the squared distance
+#  (up to ~15 here) rounds differently by a few eps x 15, and exp passes it
+#  on times the output (<= sig2 = 1.3): float32 1e-5 as rbf's, float64
+#  1e-13 (~30x that estimate).
+TOL_RBF_EXACT = {"float32": 1e-5, "float64": 1e-13}
 #  ICF float32: the plain loop replayed along the kernel's pivots must find
 #  each of them within 1e-4 sig2 of its own largest residual. Both round
 #  each step's GEMV (i terms) in their own order, an error of ~sqrt(i) eps
@@ -409,6 +443,7 @@ def check_rbf(torch, ops, ref, gen):
           f"ms, {b_by}; {100 * b_ms / ms:.0f}% of it); back to back "
           f"{b2b:.4f} ms a call, {b2b_float:.4f} ms with a Python-float "
           f"sig2; plain {plain:.4f} ms", flush=True)
+    exact = check_rbf_exact(torch, ops, ref, gen)
     return dict(name="rbf", route="cuda",
                 source="src/repro_torch/kernels/rbf/csrc/rbf.cu",
                 replaces="src/repro/kernels/rbf/rbf.py:55",
@@ -417,7 +452,40 @@ def check_rbf(torch, ops, ref, gen):
                 library_ms=None, back_to_back_ms=b2b,
                 float_sig2_ms=b2b_float,
                 shape=f"K_SDm: ({S_SIZE},{D}) x ({M},{N_TRAIN // M},{D}) "
-                      f"f32")
+                      f"f32", exact=exact)
+
+
+def check_rbf_exact(torch, ops, ref, gen) -> dict:
+    """rbf.cu's exact instance, the collective ICF loop's pivot column K(x_p,
+    D_m) for the M machines, (1, d) x (M, b, d), against its plain version
+    in float32 and float64 (TOL_RBF_EXACT); timed in float64 by profiler
+    device time."""
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        key = str(dt).split(".")[1]
+        xp = ((torch.rand((1, D), generator=gen, device="cuda") * 4 - 2)
+              / 1.2).to(dt)
+        Xb = ((torch.rand((M, N_TRAIN // M, D), generator=gen, device="cuda")
+               * 4 - 2) / 1.2).to(dt)
+        s2 = torch.tensor(1.3, dtype=dt, device="cuda")
+        err = max_err(ops.rbf_covariance_exact(xp, Xb, s2),
+                      ref.rbf_covariance_exact(xp, Xb, s2))
+        print(f"  rbf exact (1,{D})x({M},{N_TRAIN // M},{D}) {key}: "
+              f"max|err| {err:.3e} (tol {TOL_RBF_EXACT[key]})", flush=True)
+        if not err <= TOL_RBF_EXACT[key]:
+            fail(f"rbf exact {key} error {err} > {TOL_RBF_EXACT[key]}")
+        out[f"max_abs_err_{key}"] = err
+    ms = kernel_device_ms(torch, lambda: ops.rbf_covariance_exact(xp, Xb, s2),
+                          "rbf_exact_kernel", 20)
+    plain = time_ms(lambda: ref.rbf_covariance_exact(xp, Xb, s2), 20)
+    n_out = Xb.shape[0] * Xb.shape[1]
+    b_ms, b_by = bound_ms((xp.numel() + Xb.numel() + n_out) * 8,
+                          n_out * (3 * 2 * D + 6), F64_FLOPS_PER_S)
+    print(f"  rbf exact f64 column: device {ms:.4f} ms (bound {b_ms:.4f} ms, "
+          f"{b_by}); plain {plain:.4f} ms", flush=True)
+    out.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+               shape=f"(1,{D}) x ({M},{N_TRAIN // M},{D}) f64")
+    return out
 
 
 def icf_tolerance(F, piv, sig2: float) -> tuple[float, float, float]:
@@ -2913,6 +2981,533 @@ def serving_path(torch, card: str, ds, spec, params, S, cold_state,
                 readings=readings)
 
 
+# GP over processes (phase 4g). The machine axis spread over ranks:
+# (a) every machine in this process (VmapRunner, the yardstick), (b) P = 4
+# gloo ranks sharing the card, L = 5 machines each, (c) one NCCL rank
+# holding all 20. Tolerance for float64 results across realizations, in
+# units of 1 + |value|: the ranks add the machines' sums in another order,
+# and the largest amplification on the path is Sdd's condition number,
+# 2.4e9 at this configuration (phase 4 prints it), times float64's 2.2e-16:
+# 5.3e-7; DIST_TOL leaves about 2x. A wrong machine, block or pivot errs by
+# O(0.1). The float32 pPITC fit over ranks is held to phase 4's gates: test
+# RMSE RMSE_AIMPEAK +- TOL_RMSE, and its served error against a float64 fit
+# within 10 x the stacked float32 fit's own + 1e-4.
+DIST_TOL = 1e-6
+DIST_RANKS, DIST_LOCAL = 4, 5
+DIST_JOIN_S = 600.0
+DIST_R = S_SIZE             # pICF's rank, as phase 4c
+# select_support's 8192 candidates do not divide among 20 machines: the
+# collective selection runs over 16 (4 a rank), and its pivots do not
+# depend on the blocking (the first index of the largest residual over the
+# blocks in order is the argmax over all of them)
+DIST_SELECT_M = 16
+
+
+def dist_rel(torch, got, want) -> float:
+    """max |got - want| / (1 + |want|) (0 for empty tensors)."""
+    if got.shape != want.shape:
+        return math.inf
+    if got.numel() == 0:
+        return 0.0
+    g, w = got.double(), want.double()
+    return float(((g - w).abs() / (1 + w.abs())).max())
+
+
+def _prefix(torch, a, b) -> int:
+    """How many leading rows of a and b are equal."""
+    same = (a == b).all(-1)
+    bad = (~same).nonzero()
+    return int(bad[0]) if bad.numel() else int(same.numel())
+
+
+def dist_programs(torch, runner, sh: dict, *, select_runner) -> dict:
+    """Phase 4g's programs over ``runner`` (the collective selection over
+    ``select_runner``, DIST_SELECT_M machines), on the shared data ``sh``
+    (phase 4's data, support set and hyperparameters). Returns name ->
+    {"out": tensors, "s": wall seconds, "stats": the axis's collective
+    calls and bytes a machine received}. Every output is the whole result
+    on every process.
+
+    pICF's factor is the collective pivot loop (``icf_factor_local``) on
+    either axis, its pivot column rbf.cu's exact instance: float64, taken
+    once, and both prediction layouts and the store come from it; float32
+    end to end through ``api.fit`` over ranks, and on the stacked axis the
+    same loop and store called by hand (a ``VmapRunner``'s pICF fit is
+    one ICF kernel launch, which in float32 sums F[:i, p]'s products in
+    another order). The selections likewise: float64 through
+    ``select_support_parallel`` on both (the ICF kernel on the stacked
+    axis, the loop over ranks), float32 the loop on both."""
+    from repro_torch.core import api, covariance as cov, hyper, picf, ppic, \
+        ppitc, support
+    from repro_torch.parallel.collectives import ring_all_reduce
+    spec = cov.make_spec("se")
+    ax = runner.axis
+    p32 = sh["params"]
+    p64 = {k: v.double() for k, v in p32.items()}
+    X64, y64, U64, S64 = (sh[k].double() for k in ("X", "y", "X_test", "S"))
+    res = {}
+
+    def run(name, fn):
+        ax.reset_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        res[name] = {"out": out, "s": time.perf_counter() - t,
+                     "stats": dict(ax.stats)}
+
+    def served(model, U):
+        m, v = model.plan(api.ServeSpec(max_batch=256)).diag(U)
+        return {"mean": m, "var": v}
+
+    def fit64(method, **kw):
+        model = api.fit(method, spec, p64, X64, y64, runner=runner, **kw)
+        out = dict(model.state._asdict())
+        if method == "ppitc":
+            out.update({f"served.{k}": v
+                        for k, v in served(model, U64).items()})
+        return out
+
+    run("ppitc.predict_distributed", lambda: ppitc.predict_distributed(
+        spec, p64, S64, X64, y64, U64, runner)._asdict())
+    run("ppitc.fit", lambda: fit64("ppitc", S=S64))
+    run("ppitc.fit f32", lambda: served(api.fit(
+        "ppitc", spec, p32, sh["X"], sh["y"], S=sh["S"], runner=runner),
+        sh["X_test"]))
+    run("ppic.predict_distributed", lambda: ppic.predict_distributed(
+        spec, p64, S64, X64, y64, U64, runner)._asdict())
+    run("ppic.fit", lambda: fit64("ppic", S=S64))
+
+    Xb, yb = runner.shard_blocks(X64), runner.shard_blocks(y64)
+    fac = {}
+
+    def icf_local():
+        fac["loc"] = picf.icf_factor_local(spec, p64, Xb, DIST_R,
+                                           axis_name=ax)
+        return {"F": runner.gather(fac["loc"].F),
+                "pivots": fac["loc"].pivots[0]}
+    run("picf.icf_factor_local", icf_local)
+    F = fac["loc"].F
+    run("picf.machine_step", lambda: dict(zip(("mean", "cov"), runner.map(
+        lambda Xm, ym, Fm, q, U: picf.machine_step(
+            spec, q, Xm, ym, U, Fm, axis_name=ax), (Xb, yb, F),
+        (p64, U64)))))
+
+    def sharded_u():
+        mean, blocks = runner.gather(runner.map(
+            lambda Xm, ym, Fm, q, Ub: picf.machine_step_sharded_u(
+                spec, q, Xm, ym, Ub, Fm, axis_name=ax), (Xb, yb, F),
+            (p64, runner.block_layout(U64))))
+        return {"mean": runner.unshard(mean), "blocks": blocks}
+    run("picf.machine_step_sharded_u", sharded_u)
+    run("picf.store", lambda: dict(picf.init_picf_store(
+        spec, p64, X64, y64, rank=DIST_R, runner=runner,
+        local=fac.pop("loc")).to_state()._asdict()))
+    del F
+
+    def picf32():
+        X, y = sh["X"], sh["y"]
+        if ax.distributed:
+            st = api.fit("picf", spec, p32, X, y, rank=DIST_R,
+                         runner=runner).state
+        else:
+            local = picf.icf_factor_local(spec, p32, runner.shard_blocks(X),
+                                          DIST_R, axis_name=ax)
+            st = picf.init_picf_store(spec, p32, X, y, rank=DIST_R,
+                                      runner=runner, local=local).to_state()
+        return dict(st._asdict())
+    run("picf.fit f32", picf32)
+
+    cand = sh["X"][:ICF_CANDIDATES]
+    sel = select_runner
+    run("select_support_parallel", lambda: {"S": support.
+        select_support_parallel(spec, p64, cand.double(), S_SIZE, sel)})
+
+    def select32():
+        if sel.axis.distributed:
+            return {"S": support.select_support_parallel(spec, p32, cand,
+                                                         S_SIZE, sel)}
+        return {"S": picf.icf_factor_local(
+            spec, p32, sel.shard_blocks(cand), S_SIZE,
+            axis_name=sel.axis).pivots[0]}
+    run("select_support_parallel f32", select32)
+
+    def nlml():
+        obj = lambda q: hyper.pitc_nlml(cov.make_kernel("se"), q, S64, X64,
+                                        y64, runner)
+        val, grads = hyper.value_and_grad(obj, p64, runner.reduce_grads)
+        return {"nlml": val, **{f"grad.{k}": g for k, g in grads.items()}}
+    run("hyper.pitc_nlml + grad", nlml)
+
+    def axis_ops():
+        n, dev = runner.num_machines, X64.device
+        g = torch.Generator(device=dev).manual_seed(7)
+        x = torch.randn((n * n, 64), generator=g, device=dev,
+                        dtype=torch.float64)
+        mine = runner.shard_blocks(x)                       # (L, M, 64)
+        ring = [(i, (i + 1) % n) for i in range(n)]
+        return {"psum_scatter": runner.gather(ax.psum_scatter(mine)),
+                "all_gather": ax.all_gather(mine[:, 0]),
+                "ppermute": runner.gather(ax.ppermute(mine[:, 0], ring)),
+                "ring_all_reduce": runner.gather(ring_all_reduce(
+                    mine[:, 0], ax, axis_size=n))}
+    run("axis collectives", axis_ops)
+    return res
+
+
+# the programs whose outputs are held, field by field, within DIST_TOL of
+# the stacked axis's (every one but the float32 pPITC fit, which phase 4's
+# gates hold)
+DIST_HELD = ("ppitc.predict_distributed", "ppitc.fit",
+             "ppic.predict_distributed", "ppic.fit", "picf.icf_factor_local",
+             "picf.machine_step", "picf.machine_step_sharded_u",
+             "picf.store", "picf.fit f32", "select_support_parallel",
+             "select_support_parallel f32", "hyper.pitc_nlml + grad",
+             "axis collectives")
+# outputs that must be equal: pivot inputs are copies of training rows
+DIST_EXACT = {("picf.icf_factor_local", "pivots"),
+              ("select_support_parallel", "S"),
+              ("select_support_parallel f32", "S")}
+
+
+def dist_check(torch, res: dict, yard: dict, sh: dict) -> dict:
+    """Errors of one realization's results against the stacked one's:
+    per program the largest relative error (or pivot equality), and the
+    float32 fit's RMSE and served error against the float64 fit."""
+    out = {}
+    for name, r in res.items():
+        row = {"s": r["s"], "stats": r["stats"]}
+        if name in DIST_HELD:
+            want = yard[name]
+            errs = {}
+            for k, v in r["out"].items():
+                if (name, k) in DIST_EXACT:
+                    errs[k] = 0.0 if torch.equal(v, want[k]) else math.inf
+                else:
+                    errs[k] = dist_rel(torch, v, want[k])
+            row["err"] = max(errs.values())
+            row["worst"] = max(errs, key=errs.get)
+        out[name] = row
+    served = res["ppitc.fit f32"]["out"]
+    y = sh["y_test"]
+    out["rmse32"] = float(torch.sqrt(torch.mean((served["mean"] - y) ** 2)))
+    truth = yard["ppitc.fit"]
+    out["err32"] = max(
+        float((served["mean"].double() - truth["served.mean"]).abs().max()),
+        float((served["var"].double() - truth["served.var"]).abs().max()))
+    return out
+
+
+def _dist_rank(rank, world, backend, local, rdv, sh, q):
+    """One rank of phase 4g (b) or (c): joins the process group, runs the
+    programs over a ShardMapRunner of ``local`` machines, holds them
+    against the stacked results in ``sh`` (shared from the parent through
+    CUDA IPC) and puts its readings on ``q``. Loads the kernels phase 2
+    built; never runs nvcc."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        from repro_torch.kernels import build
+        missing = [n for n in build.sources() if not build.target(n).exists()]
+        if missing:
+            raise RuntimeError(f"kernels {missing} are not built: phase 2 "
+                               f"builds them, a rank only loads them")
+        from repro_torch.kernels.rbf import ops
+        from repro_torch.launch import mesh as tmesh
+        from repro_torch.parallel.runner import ShardMapRunner
+        dev = torch.device("cuda", 0)
+        mesh = tmesh.make_mesh((world,), ("data",), rank=rank,
+                               world_size=world, init_method=f"file://{rdv}",
+                               backend=backend, device=dev,
+                               timeout_s=DIST_JOIN_S)
+        sm = ShardMapRunner(mesh=mesh, axis_name="data",
+                            local_machines=local)
+        sel = ShardMapRunner(mesh=mesh, axis_name="data",
+                             local_machines=DIST_SELECT_M // world)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        res = dist_programs(torch, sm, sh, select_runner=sel)
+        launches = {"rbf": ops.rbf_launches,
+                    "rbf_exact": ops.rbf_exact_launches,
+                    "icf": ops.icf_launches, "xcov_diag": ops.xcov_launches}
+        out = dist_check(torch, res, sh["yard"], sh)
+        del res
+        out.update(launches=launches, backend=sm.axis.backend,
+                   table=sm.axis.table,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        q.put((rank, out, None))
+    except Exception:
+        q.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        # drop the parent's tensors (CUDA IPC): the process's arguments
+        # keep ``sh`` alive to the exit, where nothing releases them, and
+        # the parent then keeps their blocks allocated
+        import gc
+        sh.clear()
+        gc.collect()
+
+
+def dist_spawn(torch, world: int, backend: str, local: int, sh: dict,
+               tmp: str) -> dict:
+    """Spawn ``world`` ranks of ``_dist_rank`` and collect their readings;
+    a rank's exception, or no answer within DIST_JOIN_S, fails the run."""
+    import queue
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    rdv = f"{tmp}/{backend}{world}.rdv"
+    procs = [ctx.Process(target=_dist_rank, args=(
+        r, world, backend, local, rdv, sh, q)) for r in range(world)]
+    for p in procs:
+        p.start()
+    got, errors = {}, []
+    deadline = time.monotonic() + DIST_JOIN_S
+    try:
+        while len(got) + len(errors) < world:
+            try:
+                rank, out, tb = q.get(timeout=max(
+                    0.1, min(5.0, deadline - time.monotonic())))
+            except queue.Empty:
+                if time.monotonic() > deadline or not any(
+                        p.is_alive() for p in procs):
+                    break
+                continue
+            if tb is None:
+                got[rank] = out
+            else:
+                errors.append(f"rank {rank}:\n{tb}")
+    finally:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join()
+    if errors:
+        fail(f"phase 4g ({backend}, {world} ranks): a rank raised:\n"
+             + "\n".join(errors))
+    if len(got) < world:
+        fail(f"phase 4g ({backend}, {world} ranks): only ranks "
+             f"{sorted(got)} answered within {DIST_JOIN_S:.0f} s; exit "
+             f"codes {[p.exitcode for p in procs]}")
+    return got
+
+
+def _table1(name: str, stats: dict, M: int, u: int) -> str:
+    """A program's collectives (calls, bytes a machine received) beside the
+    paper's Table 1 term for it (float64 values)."""
+    s, R = S_SIZE, DIST_R
+    ops = sorted({k.split(":")[0] for k in stats})
+    got = ", ".join(f"{op} {stats[op + ':calls']}x {stats[op + ':bytes']:,} B"
+                    for op in ops)
+    terms = {
+        "ppitc.predict_distributed": f"|S|^2 + |S| = {8 * (s * s + s):,} B",
+        "ppic.predict_distributed": f"|S|^2 + |S| = {8 * (s * s + s):,} B",
+        "picf.machine_step":
+            f"Remark after Def. 7, replicated U: R(R+1+|U|) = "
+            f"{8 * R * (R + 1 + u):,} B",
+        "picf.machine_step_sharded_u":
+            f"sharded U: R(R+1) + R|U|/M = "
+            f"{8 * (R * (R + 1) + R * u // M):,} B",
+        "picf.icf_factor_local": f"R(M + d) + R(R-1)/2 = "
+                                 f"{8 * (R * (M + D) + R * (R - 1) // 2):,} B",
+    }
+    return f"{got or 'none'}" + (f"; Table 1: {terms[name]}"
+                                 if name in terms else "")
+
+
+def dist_path(torch, card: str, ds, spec, params, S) -> dict:
+    """Phase 4g: the GP programs over processes; returns the rbf row's
+    fields (launches_dist and the readings)."""
+    import tempfile
+    from repro_torch.core import api, picf, ppitc
+    from repro_torch.kernels.rbf import ops
+    from repro_torch.parallel import runner as prunner
+    from repro_torch.parallel.runner import VmapRunner
+
+    print(f"  backend table (the constant parallel/runner.py BACKEND_TABLE; "
+          f"its gloo-on-CUDA row as python -m repro_torch.launch."
+          f"backend_probe read it under {prunner.GLOO_CUDA_READ_ON}; this "
+          f"run has torch {torch.__version__}):", flush=True)
+    for row in prunner.backend_table():
+        note = f" ({row['note']})" if "note" in row else ""
+        print(f"    {row['backend']:5s} {row['device']:4s} "
+              f"{row['op']:14s} {row['realization']}{note}", flush=True)
+
+    sh = {"X": ds.X, "y": ds.y, "X_test": ds.X_test, "y_test": ds.y_test,
+          "S": S, "params": params}
+    u = ds.X_test.shape[0]
+
+    # (a) the stacked axis: every machine here
+    vm = VmapRunner(M=M)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    res_a = dist_programs(torch, vm, sh,
+                          select_runner=VmapRunner(M=DIST_SELECT_M))
+    launches_a = {"rbf": ops.rbf_launches,
+                  "rbf_exact": ops.rbf_exact_launches,
+                  "icf": ops.icf_launches}
+    yard = {k: r["out"] for k, r in res_a.items()}
+    own = yard["ppitc.fit f32"]
+    truth = yard["ppitc.fit"]
+    own_err = max(float((own["mean"].double() - truth["served.mean"])
+                        .abs().max()),
+                  float((own["var"].double() - truth["served.var"])
+                        .abs().max()))
+    rmse_a = float(torch.sqrt(torch.mean((own["mean"] - ds.y_test) ** 2)))
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    for name, r in res_a.items():
+        print(f"  (a) [{card}] {name}: {r['s']:.3f} s; "
+              f"{_table1(name, r['stats'], M, u)}", flush=True)
+    for name, r in res_a.items():
+        for k, v in r["out"].items():
+            if v.is_floating_point() and not torch.isfinite(v).all():
+                fail(f"phase 4g (a) {name}: non-finite {k}")
+
+    # the VmapRunner's own pICF route, one launch of the ICF kernel: its
+    # factor against the collective loop's (float64: pivots identical, F
+    # within DIST_TOL) and its fitted state against the store from the
+    # loop's factor
+    p64 = {k: v.double() for k, v in params.items()}
+    X64 = ds.X.double()
+    n0 = ops.icf_launches
+    kern = picf.factor(spec, p64, X64, DIST_R, vm)
+    if ops.icf_launches - n0 != 1:
+        fail("phase 4g (a): the ICF kernel's factor took "
+             f"{ops.icf_launches - n0} launches")
+    loop = yard["picf.icf_factor_local"]
+    same = bool(torch.equal(loop["pivots"], kern.pivots[0]))
+    f_err = dist_rel(torch, loop["F"], kern.F)
+    del kern
+    st = api.fit("picf", spec, p64, X64, ds.y.double(), rank=DIST_R,
+                 runner=vm).state
+    st_err = max(dist_rel(torch, getattr(st, k), yard["picf.store"][k])
+                 for k in st._fields)
+    del st
+    print(f"  (a) icf_factor_local (32000, {DIST_R}, {D}) f64 on the stacked "
+          f"axis (pivot columns from rbf.cu's exact instance) vs the ICF "
+          f"kernel's factor (one launch): pivots identical {same}, F within "
+          f"{f_err:.3e} of 1 + |value|; the VmapRunner's pICF fit (the ICF "
+          f"kernel) vs the store from the loop's factor: {st_err:.3e}",
+          flush=True)
+    if not (same and f_err <= DIST_TOL and st_err <= DIST_TOL):
+        fail(f"phase 4g (a): the collective ICF loop's pivots identical "
+             f"{same}, F error {f_err}, state error {st_err} (limit "
+             f"{DIST_TOL})")
+    agree32 = _prefix(torch, yard["select_support_parallel f32"]["S"], S)
+    print(f"  (a) float32: the collective selection (the stacked loop) "
+          f"agrees with phase 4's S (the float32 ICF kernel) for {agree32} "
+          f"of {S_SIZE} steps; not gated: the kernel sums F[:i, p]'s "
+          f"products in another order, and the two part at the first near "
+          f"tie (the ranks are held to the stacked loop, bit for bit)",
+          flush=True)
+
+    # float32 on the stacked axis: the reference's formed-Sdd Cholesky,
+    # and pICF with float32 data and the float64 R-space
+    U32 = ds.X_test
+    post = ppitc.predict_distributed(spec, params, S, ds.X, ds.y, U32, vm)
+    nan32 = bool(torch.isnan(post.mean).any())
+    print(f"  (a) ppitc.predict_distributed float32 (Sdd formed, then "
+          f"Cholesky, the reference's form): NaN {nan32}", flush=True)
+    for name, fn in (("predict_distributed", lambda: picf.predict_distributed(
+            spec, params, ds.X, ds.y, U32, DIST_R, vm)),
+                     ("predict shard_u", lambda: picf.predict(
+                         spec, params, ds.X, ds.y, U32, DIST_R, vm,
+                         shard_u=True))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        post = fn()
+        torch.cuda.synchronize()
+        var = post.var if hasattr(post, "blocks") else torch.diagonal(
+            post.cov)
+        rm = float(torch.sqrt(torch.mean((post.mean - ds.y_test) ** 2)))
+        finite = bool(torch.isfinite(post.mean).all()
+                      and torch.isfinite(var).all())
+        print(f"  (a) [{card}] picf.{name} f32 data, f64 R-space: "
+              f"{time.perf_counter() - t:.3f} s, finite {finite}, RMSE "
+              f"{rm:.4f}, negative-variance share "
+              f"{float((var < 0).double().mean()):.3f}", flush=True)
+        if not finite:
+            fail(f"phase 4g (a) picf.{name} float32: non-finite output")
+    del post
+    print(f"  (a) float32 pPITC fit served: RMSE {rmse_a:.4f}, its error "
+          f"against the float64 fit {own_err:.3e}; rbf launches "
+          f"{launches_a['rbf']} block, {launches_a['rbf_exact']} exact "
+          f"(pivot columns), {launches_a['icf']} ICF; peak {peak_a:.2f} GB",
+          flush=True)
+    del res_a
+    torch.cuda.empty_cache()
+
+    sh["yard"] = yard
+    limit32 = 10 * own_err + 1e-4
+    readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, world, backend, local in (
+                ("b", DIST_RANKS, "gloo", DIST_LOCAL), ("c", 1, "nccl", M)):
+            t = time.perf_counter()
+            got = dist_spawn(torch, world, backend, local, sh, tmp)
+            wall = time.perf_counter() - t
+            print(f"  ({tag}) {world} {backend} rank(s) on cuda:0, {local} "
+                  f"machines each: {wall:.1f} s from spawn to the last "
+                  f"reading", flush=True)
+            readings[tag] = {"launches": [], "launches_exact": [],
+                             "peak_gb": [], "wall_s": wall}
+            for rank in sorted(got):
+                out = got[rank]
+                readings[tag]["launches"].append(out["launches"]["rbf"])
+                readings[tag]["launches_exact"].append(
+                    out["launches"]["rbf_exact"])
+                readings[tag]["peak_gb"].append(out["peak_gb"])
+                for name in out:
+                    r = out[name]
+                    if not isinstance(r, dict) or "s" not in r:
+                        continue
+                    err = (f", max err {r['err']:.3e} of 1 + |value| "
+                           f"({r['worst']})" if "err" in r else "")
+                    if rank == 0:
+                        print(f"  ({tag}) [{card}] rank 0 {name}: "
+                              f"{r['s']:.3f} s{err}; "
+                              f"{_table1(name, r['stats'], M, u)}",
+                              flush=True)
+                    if r.get("err", 0.0) > DIST_TOL:
+                        fail(f"phase 4g ({tag}) rank {rank} {name}: "
+                             f"{r['worst']} errs {r['err']} > {DIST_TOL}")
+                ok32 = (abs(out["rmse32"] - RMSE_AIMPEAK) <= TOL_RMSE
+                        and out["err32"] <= limit32)
+                print(f"  ({tag}) rank {rank}: float32 pPITC fit over the "
+                      f"ranks served RMSE {out['rmse32']:.4f}, error vs "
+                      f"the float64 fit {out['err32']:.3e} (limit "
+                      f"{limit32:.3e}); rbf launches "
+                      f"{out['launches']['rbf']} block, "
+                      f"{out['launches']['rbf_exact']} exact, ICF "
+                      f"{out['launches']['icf']}, xcov_diag "
+                      f"{out['launches']['xcov_diag']}; peak "
+                      f"{out['peak_gb']:.2f} GB; collectives {out['backend']}"
+                      f" {out['table']}", flush=True)
+                if not ok32:
+                    fail(f"phase 4g ({tag}) rank {rank}: float32 fit RMSE "
+                         f"{out['rmse32']}, error {out['err32']} > "
+                         f"{limit32}")
+                if out["launches"]["rbf"] <= 0 \
+                        or out["launches"]["rbf_exact"] <= 0:
+                    fail(f"phase 4g ({tag}) rank {rank}: rbf launches "
+                         f"{out['launches']}")
+    del sh["yard"], yard
+    # the blocks shared with the ranks stay allocated until collected
+    torch.cuda.ipc_collect()
+    torch.cuda.empty_cache()
+    return {"launches_dist": {"gloo_4_ranks": readings["b"]["launches"],
+                              "nccl_1_rank": readings["c"]["launches"][0]},
+            "launches_dist_exact": {
+                "gloo_4_ranks": readings["b"]["launches_exact"],
+                "nccl_1_rank": readings["c"]["launches_exact"][0]},
+            "dist_peak_gb": {"stacked": peak_a, **{
+                k: v["peak_gb"] for k, v in readings.items()}},
+            "dist_wall_s": {k: v["wall_s"] for k, v in readings.items()}}
+
+
 def fit_spread(torch, card: str, ds, spec, params, S) -> list:
     """Phase 4's pPITC fit run FIT_REPEAT more times, each traced for the
     device's busy time, then once more for its largest kernels: the fit's
@@ -3064,6 +3659,10 @@ def main() -> int:
     print(f"  phase 4f peak device memory {rows[0]['serving_peak_gb']:.2f} "
           f"GB", flush=True)
     del cold_state, cold_pic, yard, serving
+    torch.cuda.empty_cache()
+
+    print("phase 4g: GP over processes", flush=True)
+    rows[0].update(dist_path(torch, card, **data))
     torch.cuda.empty_cache()
 
     print("phase 4e: the pPITC fit's spread", flush=True)

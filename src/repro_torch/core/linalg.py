@@ -97,19 +97,37 @@ def tri_solve(L: torch.Tensor, B: torch.Tensor, *, lower: bool = True,
     return torch.linalg.solve_triangular(L, B, upper=not lower)
 
 
-def chol_from_root(L0: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+def _qr_r(A: torch.Tensor) -> torch.Tensor:
+    """R of A's QR. Autograd goes through the QR when A requires grad
+    (``mode="reduced"``: its backward needs Q); otherwise Q is not
+    formed."""
+    mode = "reduced" if torch.is_grad_enabled() and A.requires_grad else "r"
+    return torch.linalg.qr(A, mode=mode).R
+
+
+def chol_from_root(L0: torch.Tensor, F: torch.Tensor, *,
+                   axis=None) -> torch.Tensor:
     """Lower Cholesky factor of L0 L0ᵀ + Σ_m F_m F_mᵀ for lower L0 (s, s)
     and F (M, s, b) (or (s, b)), from its square root, never forming the
     sum: Rᵀ of the QR of A = [L0ᵀ; F_1ᵀ; ...; F_Mᵀ], rows signed so that
     the diagonal is positive (then Rᵀ is the Cholesky factor of AᵀA). A's
     condition number is the square root of the sum's, which is what keeps
-    the factor of an ill-conditioned sum accurate in float32. Autograd
-    goes through the QR when an input requires grad (``mode="reduced"``:
-    its backward needs Q); otherwise Q is not formed."""
+    the factor of an ill-conditioned sum accurate in float32.
+
+    ``axis`` (a runner's machine axis) with F this process's (L, s, b)
+    stack of a ``DistAxis`` (one rank or more): a TSQR. Each rank takes the QR of
+    its own rows [F_1ᵀ; ...; F_Lᵀ] to an (s, s) triangle T_p (zero rows
+    added first if it has fewer than s), one all-gather brings every T_p to
+    every rank, and the factor is that of [L0ᵀ; T_1; ...; T_P]: the same
+    AᵀA, since T_pᵀ T_p = Σ_{m of p} F_m F_mᵀ. On a ``StackedAxis`` (a
+    ``VmapRunner``), or with none, it is the QR above."""
     s = L0.shape[-1]
-    A = torch.cat([L0.mT, F.mT.reshape(-1, s)])
-    mode = "reduced" if torch.is_grad_enabled() and A.requires_grad else "r"
-    R = torch.linalg.qr(A, mode=mode).R
+    rows = F.mT.reshape(-1, s)
+    if axis is not None and axis.distributed:
+        if rows.shape[0] < s:
+            rows = torch.cat([rows, rows.new_zeros((s - rows.shape[0], s))])
+        rows = axis.gather_ranks(_qr_r(rows)).reshape(-1, s)
+    R = _qr_r(torch.cat([L0.mT, rows]))
     sign = torch.where(torch.diagonal(R) < 0, -1.0, 1.0).to(R.dtype)
     return (R * sign[:, None]).mT
 

@@ -34,6 +34,11 @@ the formed Sdd, whose float32 Cholesky breaks down at the paper's scale
 (ROADMAP §3); a retire downdates in float64 whatever the store's dtype
 (``_downdate``); the mutators read the alive mask on the host once a call
 (``api.concrete_alive_mask``), since the port has no tracing.
+
+Over a ``ShardMapRunner`` each rank summarizes its own machines; the cold
+factor's machine sums go through the runner's axis (ydd a psum, Sdd's
+factor a TSQR across ranks), and the per-machine fields are then gathered,
+so every rank holds the whole store and its state, and serves on its own.
 """
 from __future__ import annotations
 
@@ -60,7 +65,8 @@ class SummaryStore(NamedTuple):
     ydd: torch.Tensor         # (s,)   alive Σ_m y-dot^m
 
 
-def _sdd_chol(Kss_L: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
+def _sdd_chol(Kss_L: torch.Tensor, F: torch.Tensor,
+              axis=None) -> torch.Tensor:
     """chol(Sdd + jitter·I), from Sdd's square root, never forming Sdd.
 
     The reference anchors Sdd's jitter to K_SS (default_jitter · mean diag
@@ -77,8 +83,11 @@ def _sdd_chol(Kss_L: torch.Tensor, F: torch.Tensor) -> torch.Tensor:
     the paper's scale (|D| = 32000, M = 20, |S| = 2048) its eigenvalues span
     about 1e-3 to 2e6, and the float32 sum and Cholesky break down (NaN);
     A's condition number is the square root of Sdd's.
+
+    With ``axis`` (a runner's machine axis) and F this process's (L, s, b)
+    stack, the QR is a TSQR across ranks (``linalg.chol_from_root``).
     """
-    return linalg.chol_from_root(Kss_L, F)
+    return linalg.chol_from_root(Kss_L, F, axis=axis)
 
 
 def _summarize(kfn, params, S, X, y, runner: Runner):
@@ -103,23 +112,29 @@ def _pad_factor(F: torch.Tensor, b: int) -> torch.Tensor:
     return torch.nn.functional.pad(F, (0, b - F.shape[-1]))
 
 
-def _cold_store(kfn, params, S, locals_: LocalSummary,
-                F: torch.Tensor) -> SummaryStore:
+def _cold_store(kfn, params, S, locals_: LocalSummary, F: torch.Tensor,
+                runner: Runner) -> SummaryStore:
     """Assemble a SummaryStore from freshly-summarized blocks: the one place
-    the global factor is factorized from scratch (O((|S| + M b) |S|²))."""
-    alive = torch.ones(locals_.ydot.shape[0], dtype=torch.bool,
-                       device=F.device)
+    the global factor is factorized from scratch (O((|S| + M b) |S|²)).
+
+    With the ``runner`` the blocks were summarized over, ``locals_`` and F
+    are this process's (L, ...) stacks: ydd is a psum over the machine axis,
+    Sdd's factor a TSQR across ranks, and the stacks are then gathered, so
+    every process holds the whole store (its later steps run replicated)."""
     Kss = kfn(params, S, S)
     Kss_L = linalg.chol(Kss)
-    ydd = locals_.ydot.sum(0)
-    return SummaryStore(locals_, F, alive, Kss, Kss_L, _sdd_chol(Kss_L, F),
-                        ydd)
+    ax = runner.axis
+    ydd, Sdd_L = ax.psum(locals_.ydot), _sdd_chol(Kss_L, F, ax)
+    locals_, F = runner.gather((locals_, F))
+    alive = torch.ones(locals_.ydot.shape[0], dtype=torch.bool,
+                       device=F.device)
+    return SummaryStore(locals_, F, alive, Kss, Kss_L, Sdd_L, ydd)
 
 
 def build(kfn, params, S, X, y, runner: Runner) -> SummaryStore:
     """Initial store from blocked data (paper Steps 1-3)."""
     locals_, F = _summarize(kfn, params, S, X, y, runner)
-    return _cold_store(kfn, params, S, locals_, F)
+    return _cold_store(kfn, params, S, locals_, F, runner)
 
 
 def global_summary(store: SummaryStore) -> GlobalSummary:
@@ -163,7 +178,8 @@ def assimilate(store: SummaryStore, kfn, params, S, X_new, y_new,
     """Fold a new data stream (D', y_D') in — Sec. 5.2. The new blocks are
     summarized together and appended; old summaries are reused as they
     are, and the global factor takes one rank-(M'·b) update."""
-    locals_new, F_new = _summarize(kfn, params, S, X_new, y_new, runner)
+    locals_new, F_new = runner.gather(
+        _summarize(kfn, params, S, X_new, y_new, runner))
     return _fold_in(store, locals_new, F_new)
 
 
@@ -437,8 +453,8 @@ class PICStore:
                 f"b={self.block_size}. Re-chunk the wave (or use the pPITC "
                 f"store, which accepts any block size).")
         X_new, y_new = _on(self.S.device, X_new, y_new)
-        loc, F, blocks_new = _summarize_pic(self.kfn, self.params, self.S,
-                                            X_new, y_new, runner)
+        loc, F, blocks_new = runner.gather(_summarize_pic(
+            self.kfn, self.params, self.S, X_new, y_new, runner))
         merged = PICBlocks(*(torch.cat([a, b]) for a, b in
                              zip(self.blocks, blocks_new)))
         return dataclasses.replace(
@@ -479,4 +495,5 @@ def init_pic_store(kfn, params, X, y, *, S, runner: Runner) -> PICStore:
     (``_cold_store``), as pPITC's."""
     loc, F, blocks = _summarize_pic(kfn, params, S, X, y, runner)
     return PICStore(kfn, params, S, runner,
-                    _cold_store(kfn, params, S, loc, F), blocks)
+                    _cold_store(kfn, params, S, loc, F, runner),
+                    runner.gather(blocks))

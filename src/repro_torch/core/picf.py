@@ -1,13 +1,21 @@
 """pICF-based GP — parallel incomplete Cholesky factorization GP (paper
 Sec. 4, eqs. 19-27); port of ``repro.core.picf``.
 
-Step 2, the row-based parallel ICF, runs on one device as one ICF over all
-the training inputs (``factor``): the reference's per-step global pivot is
-the first machine with the largest local residual and that machine's first
-index of it, which is ``argmax`` over the machines' blocks in order, so the
-centralized factor cut into the machines' column blocks is the
-distributed one, pivot for pivot (Theorem 3). For the SE spec on the card
-that is one launch of the ICF kernel (``kernels/rbf/csrc/rbf_icf.cu``).
+Step 2 is the row-based parallel ICF (Chang et al. 2007). Its collective
+form is ``icf_factor_local``: each step all-gathers the machines' largest
+residuals, the first machine with the global largest owns the pivot, and
+the owner broadcasts the pivot's input and factor column as a masked psum
+(the owner contributes, the others zeros); every machine then updates its
+own columns, the pivot's kernel column K[p, D_m] from one covariance
+launch. O(d + R) a step on the wire, O(R(d + R)) in all (Table 1).
+``factor`` runs it over a ``ShardMapRunner``'s machine axis. When one process holds every machine, the same factor
+is one ICF over all the training inputs: the per-step pivot (the first
+machine with the largest local residual, that machine's first index of
+it) is ``argmax`` over the machines' blocks in order, so the centralized
+factor cut into the machines' column blocks is the distributed one, pivot
+for pivot (Theorem 3); for the SE spec on the card that is one launch of
+the ICF kernel (``kernels/rbf/csrc/rbf_icf.cu``), which cannot run a
+collective inside its loop.
 
 Steps 3-6 (eqs. 19-27) need one sum over machines of (R, R+1+u')
 quantities and an R x R solve. ``fit`` caches the rank-R factor F and the
@@ -39,10 +47,18 @@ data 0.18 (``chip_smoke.py`` phase 4d on an H100; ROADMAP §3). A state
 whose Phi_L is float32 (one converted from the reference) is served in
 float32, as the reference serves it.
 
-Not ported yet: the collective programs (``icf_factor_local``,
-``machine_step``, ``machine_step_sharded_u``, ``predict_distributed``,
-``predict(shard_u=True)``; ROADMAP §1 item 12). Each raises
-``NotImplementedError`` naming its item. Zero prior mean assumed.
+The collective prediction layouts, batched over the L machines a process
+holds, with ``axis_name`` the runner's machine axis:
+
+* ``machine_step`` — steps 3-6 with U replicated (Defs. 8-9): one fused
+  psum of [Phi_m | ydot_m | Sdot_m], R(R + 1 + |U|) values, then the
+  predictive components psummed;
+* ``machine_step_sharded_u`` — U sharded (the Remark after Def. 7): one
+  (R, R + 1) psum, and Sdot's chunks and the predictive components
+  reduce-scattered, R(R + 1) + R|U|/M values a machine receives.
+
+Their R-space (Phi formed from the psum and factored by Cholesky, as the
+reference does, ydd, Sdd) is float64, as above. Zero prior mean assumed.
 """
 from __future__ import annotations
 
@@ -56,6 +72,7 @@ from repro_torch.core import api
 from repro_torch.core import covariance as cov
 from repro_torch.core import icf, linalg
 from repro_torch.core.gp import GPPosterior
+from repro_torch.core.ppitc import ParallelPosterior
 from repro_torch.parallel.runner import Runner
 
 
@@ -70,33 +87,161 @@ class ICFLocal(NamedTuple):
     #                         column, which extends the factor to unseen rows
 
 
-_COLLECTIVE = ("picf.{} is a collective program (psums inside each "
-               "machine's step); the collective programs are not yet "
-               "ported to repro_torch (ROADMAP §1 item 12: multi-device, "
-               "via torch.distributed). On one device, fit + predict_batch "
-               "computes the replicated-U posterior")
+def _pivot_column(kfn, params, xp, Xm) -> torch.Tensor:
+    """(L, b) K[p, D_m] for the pivot input xp (1, d) and the machine
+    blocks Xm (L, b, d). Where ``icf.uses_kernel`` says the ICF kernel
+    factors these inputs, one launch of rbf.cu's exact instance: the ICF
+    kernel's column arithmetic in the data's dtype (the plain
+    ``rbf_covariance`` sums in float32 for every dtype, and a float64 loop
+    on its columns picks other pivots than the kernel once two residuals
+    are within float32's reach). Otherwise ``kfn``."""
+    if icf.uses_kernel(kfn, Xm.device, Xm.dtype):
+        from repro_torch.kernels.rbf import ops as rbf_ops
+        return rbf_ops.rbf_covariance_exact(
+            cov._scale(params, xp).to(Xm.dtype),
+            cov._scale(params, Xm).to(Xm.dtype),
+            cov.signal_var(params))[:, 0]
+    return kfn(params, xp, Xm)[:, 0]
 
 
-def icf_factor_local(*args, **kwargs):
-    """The per-machine pivot loop with its all-gathers and psums: waits for
-    the multi-device slice (ROADMAP §1 item 12) and raises; ``factor`` is
-    the same factor on one device."""
-    raise NotImplementedError(_COLLECTIVE.format("icf_factor_local"))
+def icf_factor_local(kfn, params, Xm, R: int, *, axis_name) -> ICFLocal:
+    """Distributed pivoted incomplete Cholesky of the signal kernel, for
+    this process's machine blocks Xm (L, b, d); ``axis_name`` is the
+    runner's machine axis.
+
+    Each step all-gathers the L machines' largest residuals (``argmax``:
+    the first of equal ones), takes the first machine with the global
+    largest as the owner, and psums the owner's pivot input and factor
+    column F[:i, p] with the others' zeros (one message; exact, one nonzero
+    term an entry). Every machine then takes its column K[p, D_m] (one
+    covariance launch for the L machines, ``_pivot_column``), its new
+    factor row and its residual. Concatenating F over machines in machine
+    order is the centralized ``icf.icf_factor`` of the concatenated data,
+    pivot for pivot: in float64 on the card too, where the column takes the
+    ICF kernel's arithmetic. In float32 the kernel sums F[:i, p]'s
+    products in another order, so the loop and the kernel part at the
+    first near tie; the loop over ranks stays bit for bit the loop on one
+    process (each machine's arithmetic is the same wherever it runs). The pivot inputs and the triangle at the pivots (row i = pivot
+    i's factor column: F[:i, p] and sqrt(d_p)) are recorded, replicated,
+    for the streaming row append (``PICFStore``)."""
+    ax = axis_name
+    L, b, dim = Xm.shape
+    dev = Xm.device
+    m_idx = ax.index(dev)
+    d = cov.kdiag(kfn, params, Xm.reshape(-1, dim)).reshape(L, b)
+    F = torch.zeros((L, R, b), dtype=d.dtype, device=dev)
+    Xp = torch.zeros((R, dim), dtype=d.dtype, device=dev)
+    Lp = torch.zeros((R, R), dtype=d.dtype, device=dev)
+    rows = torch.arange(L, device=dev)
+    cols = torch.arange(b, device=dev)
+    for i in range(R):
+        # global pivot: the first machine whose largest residual is largest
+        arg = torch.argmax(d, dim=1)                         # (L,)
+        gmax = ax.all_gather(d[rows, arg])                   # (M,)
+        owner = torch.argmax(gmax)
+        dp = gmax[owner]
+        is_owner = (m_idx == owner)[:, None]                 # (L, 1)
+        # the owner broadcasts x_p and F[:i, p]: one masked psum
+        mine = torch.cat([Xm[rows, arg].to(d.dtype), F[rows, :i, arg]], 1)
+        got = ax.psum(torch.where(is_owner, mine, torch.zeros_like(mine)))
+        xp, fp = got[:dim], got[dim:]
+        rp = torch.sqrt(torch.clamp(dp, min=1e-30))
+        Xp[i] = xp
+        Lp[i, :i] = fp
+        Lp[i, i] = rp
+        # each machine's rank-1 update of its own columns, one product a
+        # machine: its bits then do not depend on how many machines its
+        # process holds (a batched product may sum in another order)
+        col = _pivot_column(kfn, params, xp[None].to(Xm.dtype), Xm)
+        prod = torch.stack([fp @ F[m, :i] for m in range(L)])
+        f = (col.to(d.dtype) - prod) / rp
+        F[:, i] = f
+        d = torch.clamp(d - f * f, min=0.0)
+        d = torch.where(is_owner & (cols == arg[:, None]),
+                        torch.zeros_like(d), d)
+    return ICFLocal(F, d, Xp.expand(L, R, dim), Lp.expand(L, R, R))
 
 
-def machine_step(*args, **kwargs):
-    """Steps 3-6 with replicated U, collective: ROADMAP §1 item 12."""
-    raise NotImplementedError(_COLLECTIVE.format("machine_step"))
+def _global_pieces(params, Fm, ym, Sdot_m, *, axis_name):
+    """Steps 3-4 (eqs. 19-23): one fused psum of [Phi_m | ydot_m | Sdot_m]
+    over this process's machines Fm (L, R, b), ym (L, b), Sdot_m (L, R, u),
+    in the R-space dtype (float64). Returns (ydd (R,), Sdd (R, u))."""
+    rd = torch.promote_types(Fm.dtype, torch.float64)
+    s2 = cov.noise_var(params).to(rd)
+    Fr = Fm.to(rd)
+    R = Fm.shape[-2]
+    ydot = (Fr @ ym.to(rd)[..., None])[..., 0]              # (L, R) eq. 19
+    Phi_m = Fr @ Fr.mT                                      # (L, R, R) eq. 21
+    packed = axis_name.psum(torch.cat(
+        [Phi_m, ydot[..., None], Sdot_m.to(rd)], -1))       # (R, R+1+u)
+    eye = torch.eye(R, dtype=rd, device=Fm.device)
+    Phi_L = linalg.chol(eye + packed[:, :R] / s2, jitter=0.0)
+    ydd = linalg.chol_solve(Phi_L, packed[:, R:R + 1])[:, 0]        # eq. 22
+    Sdd = linalg.chol_solve(Phi_L, packed[:, R + 1:])               # eq. 23
+    return ydd, Sdd
 
 
-def machine_step_sharded_u(*args, **kwargs):
-    """Steps 3-6 with U sharded, reduce-scatter form: ROADMAP §1 item 12."""
-    raise NotImplementedError(_COLLECTIVE.format("machine_step_sharded_u"))
+def machine_step(kfn, params, Xm, ym, U, Fm, *, axis_name):
+    """Steps 3-6 with U replicated, for this process's machines Xm (L, b,
+    d), ym (L, b), Fm (L, R, b); ``axis_name`` is the runner's machine axis.
+    Returns the replicated (mean (u,), cov (u, u)) in U's dtype."""
+    rd = torch.promote_types(Fm.dtype, torch.float64)
+    s2 = cov.noise_var(params).to(rd)
+    Kud = kfn(params, U, Xm).to(rd)                         # (L, u, b)
+    Sdot_m = Fm.to(rd) @ Kud.mT                             # (L, R, u) eq. 20
+    ydd, Sdd = _global_pieces(params, Fm, ym, Sdot_m, axis_name=axis_name)
+    # eqs. (24)-(25): predictive components; (26)-(27): psum-combine
+    mu_m = ((Kud @ ym.to(rd)[..., None])[..., 0] / s2
+            - (Sdot_m.mT @ ydd) / s2**2)
+    Sig_m = Kud @ Kud.mT / s2 - Sdot_m.mT @ Sdd / s2**2
+    mean = axis_name.psum(mu_m)
+    covm = kfn(params, U, U).to(rd) - axis_name.psum(Sig_m)
+    return mean.to(U.dtype), covm.to(U.dtype)
 
 
-def predict_distributed(*args, **kwargs):
-    """Fully-collective replicated-U pICF: ROADMAP §1 item 12."""
-    raise NotImplementedError(_COLLECTIVE.format("predict_distributed"))
+def machine_step_sharded_u(kfn, params, Xm, ym, Ub_all, Fm, *, axis_name):
+    """Steps 3-6 with U sharded (Remark after Def. 7), reduce-scatter form,
+    for this process's machines Xm (L, b, d), ym (L, b), Fm (L, R, b).
+
+    ``Ub_all``: (M, u/M, d), every machine's chunk of U (inputs only).
+    Machine m computes Sigma-dot against all of U, but only chunk-sized
+    pieces reach each machine:
+
+      * Phi, ydot — one (R, R+1) psum (the paper's O(R^2 log M));
+      * Sdot — ``psum_scatter``: machine i receives S_i = sum_m Sdot_m^(i);
+      * the cross terms fold algebraically: sum_m (Sdot_m^i)ᵀ ydd = S_iᵀ
+        ydd and sum_m (Sdot_m^i)ᵀ Sdd^i = S_iᵀ Phi⁻¹ S_i.
+
+    Returns this process's (mean (L, u/M), cov (L, u/M, u/M)) in U's
+    dtype."""
+    ax = axis_name
+    rd = torch.promote_types(Fm.dtype, torch.float64)
+    s2 = cov.noise_var(params).to(rd)
+    M, bu, dim = Ub_all.shape
+    L, R, b = Fm.shape
+    U = Ub_all.reshape(M * bu, dim)
+    Fr, yr = Fm.to(rd), ym.to(rd)
+    Kud = kfn(params, U, Xm).to(rd)                         # (L, u, b)
+    Sdot_m = Fr @ Kud.mT                                    # (L, R, u)
+    packed = ax.psum(torch.cat(
+        [Fr @ Fr.mT, (Fr @ yr[..., None])], -1))            # (R, R+1)
+    eye = torch.eye(R, dtype=rd, device=Fm.device)
+    Phi_L = linalg.chol(eye + packed[:, :R] / s2, jitter=0.0)
+    ydd = linalg.chol_solve(Phi_L, packed[:, R:])[:, 0]     # eq. 22
+    # reduce-scatter the Sdot chunks: machine i gets S_i = sum_m Sdot_m^i
+    S_i = ax.psum_scatter(
+        Sdot_m.reshape(L, R, M, bu).permute(0, 2, 1, 3))    # (L, R, bu)
+    Sdd_i = linalg.chol_solve(Phi_L, S_i)                   # eq. 23, chunk i
+    Ky = (Kud @ yr[..., None])[..., 0] / s2                 # (L, u)
+    mean_chunk = (ax.psum_scatter(Ky.reshape(L, M, bu))
+                  - (S_i.mT @ ydd) / s2**2)                 # eqs. 24/26
+    Kud_c = Kud.reshape(L, M, bu, b)
+    blocks = Kud_c @ Kud_c.mT / s2                          # (L, M, bu, bu)
+    Sig_chunk = (ax.psum_scatter(blocks)
+                 - S_i.mT @ Sdd_i / s2**2)                  # eqs. 25/27
+    Um = Ub_all[ax.index(Ub_all.device)]                    # (L, bu, d)
+    covm = kfn(params, Um, Um).to(rd) - Sig_chunk
+    return mean_chunk.to(Ub_all.dtype), covm.to(Ub_all.dtype)
 
 
 def pivot_triangle(F: torch.Tensor, pivots: torch.Tensor,
@@ -113,10 +258,16 @@ def pivot_triangle(F: torch.Tensor, pivots: torch.Tensor,
 
 
 def factor(kfn, params, X, R: int, runner: Runner) -> ICFLocal:
-    """Distributed ICF over a Runner's machines; returns the stacked
-    (M, R, b) factors. One ``icf.icf_factor`` over X, cut into the
-    machines' column blocks (see the module docstring)."""
-    runner.shard_blocks(X)                     # the reference's shape check
+    """Distributed ICF over a Runner's machines; returns this process's
+    stacked (L, R, b) factors. When one process holds every machine (a
+    ``VmapRunner``), one ``icf.icf_factor`` over X cut into the machines'
+    column blocks (the ICF kernel for the SE spec on the card; see the
+    module docstring); over a ``ShardMapRunner``, of any number of ranks,
+    ``icf_factor_local`` over the runner's axis."""
+    Xb = runner.shard_blocks(X)
+    if runner.axis.distributed:
+        return runner.map(lambda Xm, params: icf_factor_local(
+            kfn, params, Xm, R, axis_name=runner.axis), (Xb,), (params,))
     M = runner.num_machines
     fac, dp = icf.icf_factor(kfn, params, X, R, pivot_values=True)
     n, d = X.shape
@@ -192,14 +343,37 @@ def predict_batch_diag(kfn, params, state: api.PICFState, U):
 
 
 def predict(kfn, params, X, y, U, R: int, runner: Runner, *,
-            shard_u: bool = False) -> GPPosterior:
-    """End-to-end pICF-based GP regression over a Runner: fit +
-    predict_batch (the replicated-U layout). The sharded-U layout is a
-    collective program (ROADMAP §1 item 12) and raises."""
+            shard_u: bool = False):
+    """End-to-end pICF-based GP regression over a Runner.
+
+    The replicated-U layout is fit + predict_batch (a ``GPPosterior``); the
+    sharded-U layout stays fully collective (``machine_step_sharded_u``; its
+    point is the communication pattern) and returns the block posterior
+    (``ParallelPosterior``) gathered in machine order. Every process
+    returns the whole posterior."""
     if shard_u:
-        raise NotImplementedError(_COLLECTIVE.format("predict(shard_u=True)"))
+        Xb, yb = runner.shard_blocks(X), runner.shard_blocks(y)
+        local = factor(kfn, params, X, R, runner)
+        Ub = runner.block_layout(U)
+        fn = lambda Xm, ym, Fm, params, Ub_all: machine_step_sharded_u(
+            kfn, params, Xm, ym, Ub_all, Fm, axis_name=runner.axis)
+        means, covs = runner.gather(
+            runner.map(fn, (Xb, yb, local.F), (params, Ub)))
+        return ParallelPosterior(runner.unshard(means), covs)
     state = fit(kfn, params, X, y, rank=R, runner=runner)
     return predict_batch(kfn, params, state, U)
+
+
+def predict_distributed(kfn, params, X, y, U, R: int,
+                        runner: Runner) -> GPPosterior:
+    """Fully-collective replicated-U pICF (Defs. 8-9 as written): the
+    factor over the runner, then ``machine_step``. Every process returns
+    the same posterior."""
+    Xb, yb = runner.shard_blocks(X), runner.shard_blocks(y)
+    local = factor(kfn, params, X, R, runner)
+    fn = lambda Xm, ym, Fm, params, U: machine_step(
+        kfn, params, Xm, ym, U, Fm, axis_name=runner.axis)
+    return GPPosterior(*runner.map(fn, (Xb, yb, local.F), (params, U)))
 
 
 # ---------------------------------------------------------------------------
@@ -265,8 +439,8 @@ class PICFStore:
                 f"|D'|={X_new.shape[0]} over M={M_new} machines but the "
                 f"store's blocks are b={self.block_size}; re-chunk the wave.")
         dev = self.Xb.device
-        Xb_new = runner.shard_blocks(X_new.to(dev))
-        yb_new = runner.shard_blocks(y_new.to(dev))
+        Xb_new = runner.block_layout(X_new.to(dev))
+        yb_new = runner.block_layout(y_new.to(dev))
         # Nyström extension in the frozen pivot basis, one forward solve
         F_new = linalg.tri_solve(self.Lp,
                                  self.kfn(self.params, self.Xp, Xb_new))
@@ -322,10 +496,12 @@ class PICFStore:
                              self.Phi_L, ydd)
 
 
-def init_picf_store(kfn, params, X, y, *, rank: int,
-                    runner: Runner) -> PICFStore:
+def init_picf_store(kfn, params, X, y, *, rank: int, runner: Runner,
+                    local: ICFLocal | None = None) -> PICFStore:
     """The store of a cold fit: the distributed ICF + the R-space factors
-    (eqs. 19, 21), factorized once.
+    (eqs. 19, 21), factorized once. Over ranks, Phi's root is factored by
+    a TSQR and yF psummed, and the machines' blocks are gathered, so every
+    process holds the whole store.
 
     Phi_L = chol(I + Σ_m F_m F_mᵀ / s2), the reference's factor of the
     same matrix, is taken from its square root [I; F_1ᵀ/σ; ...; F_Mᵀ/σ]
@@ -334,20 +510,27 @@ def init_picf_store(kfn, params, X, y, *, rank: int,
     with the float32 Cholesky of the formed sum, the share of negative
     ones was 0.14 against float64's 0.34 (``chip_smoke.py`` phase 4c on an
     H100), from the square root 0.36. Both Phi_L and yF are float64 for
-    any data dtype (the module docstring says why)."""
+    any data dtype (the module docstring says why). ``local``: this
+    process's factor, where the caller has it (``factor(kfn, params, X,
+    rank, runner)``)."""
     Xb, yb = runner.shard_blocks(X), runner.shard_blocks(y)
-    local = factor(kfn, params, X, rank, runner)            # (M, R, b)
+    if local is None:
+        local = factor(kfn, params, X, rank, runner)        # (L, R, b)
     # the R-space algebra in float64 (the module docstring says why)
     rd = torch.promote_types(local.F.dtype, torch.float64)
     Fr, s2 = local.F.to(rd), cov.noise_var(params).to(rd)
     R = local.F.shape[1]
     eye = torch.eye(R, dtype=rd, device=local.F.device)
-    Phi_L = linalg.chol_from_root(eye, Fr / torch.sqrt(s2))  # eq. 21
-    yF = (Fr @ yb.to(rd)[..., None])[..., 0].sum(0)         # eq. 19
+    ax = runner.axis
+    Phi_L = linalg.chol_from_root(eye, Fr / torch.sqrt(s2),
+                                  axis=ax)                  # eq. 21
+    yF = ax.psum((Fr @ yb.to(rd)[..., None])[..., 0])       # eq. 19
+    # every process keeps every machine's blocks (serving is local)
+    Xb, yb, F = runner.gather((Xb, yb, local.F))
     alive = torch.ones((runner.num_machines,), dtype=torch.bool,
                        device=local.F.device)
     # pivots/Lp are replicated across machines: take machine 0's copy
-    return PICFStore(kfn, params, runner, Xb, yb, local.F,
+    return PICFStore(kfn, params, runner, Xb, yb, F,
                      local.pivots[0], local.Lp[0], alive, Phi_L, yF)
 
 

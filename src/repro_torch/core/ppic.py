@@ -22,9 +22,9 @@ assignment policies:
 
 Every per-block function here runs all blocks of a layout at once, over the
 leading block axis, as the port's ``VmapRunner`` does. The collective
-per-machine program (``machine_step``, ``predict_distributed``) runs a psum
-inside each machine and comes with the multi-device slice (ROADMAP §1 item
-12).
+per-machine program (``machine_step``, ``predict_distributed``) runs the
+psum inside each machine's program, over a runner's machine axis: the L
+machines of one process (``parallel.runner``).
 
 NB eq. (13) as printed drops a `Phi Sdd^{-1} Phi^T` term; the form
 implemented here is re-derived from Theorem 2 (see core/pitc.py) and held
@@ -44,33 +44,53 @@ from repro_torch.core import covariance as cov
 from repro_torch.core import linalg
 from repro_torch.core.gp import GPPosterior
 from repro_torch.core.ppitc import (GlobalSummary, LocalSummary,
-                                    ParallelPosterior)
+                                    ParallelPosterior, global_summary,
+                                    local_summary)
 from repro_torch.parallel.runner import (ROUTED_ALPHA, Runner,
                                          gather_by_block, gather_two_bucket,
                                          pad_blocks, routed_capacity,
                                          scatter_by_block, scatter_two_bucket)
 
 
+def machine_step(kfn, params, S, Xm, ym, Um, *, axis_name):
+    """The full pPIC per-machine program, steps 2-4 with the local
+    correction, for this process's machine blocks Xm (L, b, d), ym (L, b)
+    and query blocks Um (L, u, d); ``axis_name`` is the runner's machine
+    axis, over which step 3 psums. Returns (mean (L, u), cov (L, u,
+    u)): the fitted state's posterior over these blocks, Sdd factored from
+    its square root with K_SS's jitter (``predict_from_summary``), where
+    the reference's program factors Sdd with a share of its own mean
+    diagonal."""
+    Kss_L = linalg.chol(kfn(params, S, S))
+    local, (Ksd, C_L, _) = local_summary(kfn, params, S, Kss_L, Xm, ym)
+    glob = global_summary(kfn, params, S, local, axis_name=axis_name)
+    return predict_from_summary(kfn, params, S, Kss_L, local, glob,
+                                Xm, ym, Um, Ksd=Ksd, C_L=C_L,
+                                axis_name=axis_name)
+
+
 def predict_from_summary(kfn, params, S, Kss_L, local: LocalSummary,
                          glob: GlobalSummary, Xm, ym, Um, *, Ksd=None,
-                         C_L=None):
-    """Eqs. (12)-(14) for the machine blocks Xm (M, b, d), ym (M, b) and
-    query blocks Um (M, u, d), from the global summary; ``Ksd``/``C_L`` are
+                         C_L=None, axis_name=None):
+    """Eqs. (12)-(14) for the machine blocks Xm (L, b, d), ym (L, b) and
+    query blocks Um (L, u, d), from the global summary; ``Ksd``/``C_L`` are
     reusable from local_summary.
 
-    The port runs every machine's program at once over the leading axis,
-    so Xm holds all M blocks. This is the whitened form below, which of the
+    The port runs a process's machines at once over the leading axis: all
+    M of them with ``axis_name`` None, this process's L of the runner's
+    machine axis otherwise. This is the whitened form below, which of the
     summaries reads only ``glob.ydd``. Sdd is factored from its square root
     [Lᵀ; F_1ᵀ; ...; F_Mᵀ], F_m = K_{S,D_m} C_m⁻ᵀ, as the store factors it
-    (``online._sdd_chol``), not from the formed ``glob.Sdd``, whose
-    float32 Cholesky breaks at the paper's scale. The result is then the
-    fitted state's posterior (``predict_blocks``), with K_SS's jitter; the
-    reference's ``chol(glob.Sdd)`` adds a share of Sdd's own mean diagonal
-    instead (ROADMAP §3). ``local`` is kept for the reference's signature
-    and not read."""
+    (``online._sdd_chol``; a TSQR across ranks over an axis of several),
+    not from the formed ``glob.Sdd``, whose float32 Cholesky breaks at the
+    paper's scale. The result is then the fitted state's posterior
+    (``predict_blocks``), with K_SS's jitter; the reference's
+    ``chol(glob.Sdd)`` adds a share of Sdd's own mean diagonal instead
+    (ROADMAP §3). ``local`` is kept for the reference's signature and not
+    read."""
     from repro_torch.core import online
     if Xm.dim() != 3:
-        raise ValueError(f"Xm must stack all machines' blocks as (M, b, d); "
+        raise ValueError(f"Xm must stack the machines' blocks as (L, b, d); "
                          f"got shape {tuple(Xm.shape)}")
     if Ksd is None:
         Ksd = kfn(params, S, Xm)
@@ -78,7 +98,8 @@ def predict_from_summary(kfn, params, S, Kss_L, local: LocalSummary,
     if C_L is None:
         Kdd = cov.add_noise(kfn(params, Xm, Xm), params)
         C_L = linalg.chol(Kdd - Q.mT @ Q)
-    Sdd_L = online._sdd_chol(Kss_L, linalg.tri_solve(C_L, Ksd.mT).mT)
+    Sdd_L = online._sdd_chol(Kss_L, linalg.tri_solve(C_L, Ksd.mT).mT,
+                             axis_name)
     alpha = linalg.chol_solve(Sdd_L, glob.ydd[:, None])[:, 0]
     Wy = linalg.chol_solve(C_L, ym[..., None])[..., 0]
     return _block_posterior(kfn, params, api.PITCState(S, Kss_L, Sdd_L, alpha),
@@ -608,6 +629,19 @@ def init_store(kfn, params, X, y, *, S, runner: Runner):
     centroids."""
     from repro_torch.core import online
     return online.init_pic_store(kfn, params, X, y, S=S, runner=runner)
+
+
+def predict_distributed(kfn, params, S, X, y, U,
+                        runner: Runner) -> ParallelPosterior:
+    """Fully-collective pPIC (the psum inside each machine's program). U's
+    length must divide among the machines. Every process returns the whole
+    posterior (the blocks gathered in machine order), as the
+    ``VmapRunner`` does."""
+    Xb, yb, Ub = (runner.shard_blocks(a) for a in (X, y, U))
+    fn = lambda Xm, ym, Um, params, S: machine_step(
+        kfn, params, S, Xm, ym, Um, axis_name=runner.axis)
+    means, covs = runner.gather(runner.map(fn, (Xb, yb, Ub), (params, S)))
+    return ParallelPosterior(runner.unshard(means), covs)
 
 
 api.register(api.GPMethod("ppic", fit, predict_fn=predict_batch,

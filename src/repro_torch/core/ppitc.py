@@ -1,23 +1,23 @@
 """pPITC — parallel PITC approximation of FGP (paper Sec. 3, Defs. 1-4);
 port of ``repro.core.ppitc``.
 
-Per-machine program, run for all M machines at once over the leading
-machine axis (``parallel.runner.VmapRunner``):
+Per-machine program, batched over the leading axis of the machines one
+process holds (``parallel.runner``: all M on a ``VmapRunner``, L a rank on
+a ``ShardMapRunner``):
 
   Step 1  data arrives block-sharded: machine m holds (D_m, y_{D_m});
   Step 2  local summary  (eqs. 3-4)  — O((|D|/M)^3) local Cholesky;
   Step 3  global summary (eqs. 5-6)  — the one all-reduce of the algorithm,
-          a sum over the machine axis;
+          a psum over the machine axis (Table 1: O(|S|^2 log M));
   Step 4  predict (eqs. 7-8) from the cached S-space factors.
 
 ``fit`` runs steps 1-3 and caches ``api.PITCState`` (Kss_L, Sdd_L, alpha =
 Sdd^{-1} ydd); ``predict_batch``/``predict_batch_diag`` are then
 O(|U||S| + |S|^2) per query batch; ``predict`` is the one-shot wrapper
-(fit + ``predict_blocks``). Zero prior mean assumed (the data pipeline
-centers y). ``init_store`` is the streaming entry point
-(``online.PITCStore``); the collective per-machine program
-(``machine_step``, ``predict_distributed``) comes with the multi-device
-slice.
+(fit + ``predict_blocks``). ``machine_step``/``predict_distributed`` keep
+the fully-collective execution the paper describes, with the psum inside
+each machine's program. Zero prior mean assumed (the data pipeline centers
+y). ``init_store`` is the streaming entry point (``online.PITCStore``).
 """
 from __future__ import annotations
 
@@ -73,30 +73,27 @@ def local_summary(kfn, params, S, Kss_L, Xm, ym):
     return LocalSummary(ydot, Sdot), (Ksd, C_L, Wy)
 
 
-def global_summary(kfn, params, S, local: LocalSummary) -> GlobalSummary:
-    """Eqs. (5)-(6): the single all-reduce of the algorithm — a sum over the
-    stacked machine axis of ``local``."""
+def global_summary(kfn, params, S, local: LocalSummary, *,
+                   axis_name) -> GlobalSummary:
+    """Eqs. (5)-(6): the single all-reduce of the algorithm — a psum over
+    the machine axis ``axis_name`` (a runner's axis object) of ``local``,
+    the (L, ...) stack of this process's summaries."""
     Kss = kfn(params, S, S)
-    return GlobalSummary(local.ydot.sum(0), Kss + local.Sdot.sum(0))
+    return GlobalSummary(axis_name.psum(local.ydot),
+                         Kss + axis_name.psum(local.Sdot))
 
 
-_COLLECTIVE = ("ppitc.{} runs an all-reduce inside each machine's program; "
-               "the collective programs are not yet ported to repro_torch "
-               "(ROADMAP §1 item 12: multi-device, via torch.distributed). "
-               "On one device, fit + predict_blocks computes the same "
-               "posterior (ppitc.predict)")
-
-
-def machine_step(*args, **kwargs):
-    """The fully-collective per-machine program (steps 2-4): waits for the
-    multi-device slice (ROADMAP §1 item 12) and raises."""
-    raise NotImplementedError(_COLLECTIVE.format("machine_step"))
-
-
-def predict_distributed(*args, **kwargs):
-    """Fully-collective pPITC: waits for the multi-device slice (ROADMAP §1
-    item 12) and raises; ``predict`` gives the same posterior."""
-    raise NotImplementedError(_COLLECTIVE.format("predict_distributed"))
+def machine_step(kfn, params, S, Xm, ym, Um, *, axis_name):
+    """The full pPITC per-machine program, steps 2-4, for this process's
+    machine blocks Xm (L, b, d), ym (L, b) and query blocks Um (L, u, d);
+    ``axis_name`` is the runner's machine axis, over which step 3 psums.
+    Returns (mean (L, u), cov (L, u, u)). Its step 4 is
+    ``predict_from_summary``: the reference's Cholesky of the formed Sdd,
+    which breaks down in float32 at the paper's scale (see there)."""
+    Kss_L = linalg.chol(kfn(params, S, S))
+    local, _ = local_summary(kfn, params, S, Kss_L, Xm, ym)
+    glob = global_summary(kfn, params, S, local, axis_name=axis_name)
+    return predict_from_summary(kfn, params, S, Kss_L, glob, Um)
 
 
 def predict_from_summary(kfn, params, S, Kss_L, glob: GlobalSummary, Um):
@@ -172,9 +169,23 @@ def predict(kfn, params, S, X, y, U, runner: Runner) -> ParallelPosterior:
     return predict_blocks(kfn, params, state, U, runner.num_machines)
 
 
+def predict_distributed(kfn, params, S, X, y, U,
+                        runner: Runner) -> ParallelPosterior:
+    """Fully-collective pPITC (the psum inside each machine's program), the
+    execution the paper describes. U's length must divide among the
+    machines. Every process returns the whole posterior (the blocks
+    gathered in machine order), as the ``VmapRunner`` does."""
+    Xb, yb, Ub = (runner.shard_blocks(a) for a in (X, y, U))
+    fn = lambda Xm, ym, Um, params, S: machine_step(
+        kfn, params, S, Xm, ym, Um, axis_name=runner.axis)
+    means, covs = runner.gather(runner.map(fn, (Xb, yb, Ub), (params, S)))
+    return ParallelPosterior(runner.unshard(means), covs)
+
+
 def summaries(kfn, params, S, X, y, runner: Runner):
-    """Stacked per-machine local summaries + the global summary (Sec. 5.2:
-    the global summary is a sum, so machines fold in and out)."""
+    """Stacked (M, ...) per-machine local summaries (gathered to every
+    process) + the global summary (Sec. 5.2: the global summary is a sum,
+    so machines fold in and out)."""
     Xb, yb = runner.shard_blocks(X), runner.shard_blocks(y)
 
     def fn(Xm, ym, params, S):
@@ -183,7 +194,8 @@ def summaries(kfn, params, S, X, y, runner: Runner):
         return local
 
     locals_ = runner.map(fn, (Xb, yb), (params, S))
-    return locals_, global_summary(kfn, params, S, locals_)
+    glob = global_summary(kfn, params, S, locals_, axis_name=runner.axis)
+    return runner.gather(locals_), glob
 
 
 def init_store(kfn, params, X, y, *, S, runner: Runner):

@@ -37,9 +37,12 @@ What differs is only what the two packages name differently:
   tensors it cannot materialize — meta tensors and tensors wrapped by a
   ``torch.func`` transform — and detaches the rest.
 
-Anything unencodable (a bespoke kernel closure, a runner of another kind)
-is recorded as opaque and must be re-supplied through ``kfn=``/``runner=``
-at load time, failing loudly otherwise.
+Anything unencodable (a bespoke kernel closure, a runner of another kind,
+such as a ``ShardMapRunner``, whose mesh and process group belong to one
+process) is recorded as opaque and must be re-supplied through
+``kfn=``/``runner=`` at load time, failing loudly otherwise. A store
+fitted over ranks holds every machine's blocks, so it saves as a whole on
+any rank.
 """
 from __future__ import annotations
 
@@ -326,9 +329,9 @@ def _runner_from_meta(meta: dict, override):
     if meta["kind"] == "vmap":      # the reference's axis_name: ignored
         return VmapRunner(M=meta["M"])
     raise ValueError(
-        f"store checkpoint carries an opaque runner ({meta.get('repr')}); "
-        f"pass load_store(..., runner=<a runner for this process>) to "
-        f"restore")
+        f"store checkpoint carries an opaque runner ({meta.get('repr')} — "
+        f"e.g. a ShardMapRunner, whose mesh is process-local); pass "
+        f"load_store(..., runner=<a runner for this process>) to restore")
 
 
 def _summary_arrays(s) -> dict:

@@ -28,16 +28,35 @@ def select_support(kfn, params, candidates: torch.Tensor, size: int, *,
 def select_support_parallel(kfn, params, candidates: torch.Tensor, size: int,
                             runner: Runner, *, device=None) -> torch.Tensor:
     """Greedy selection over machine-sharded candidates; returns the
-    (size, d) support inputs.
+    (size, d) support inputs, on every process. The candidates must divide
+    among the machines, as in the reference. The route follows the runner:
 
-    The reference runs the pivot loop per machine: each step takes the
-    first machine whose local largest residual is the global largest, and
-    that machine's first index of it, then every machine updates its shard.
-    That is the first index of the largest residual over the machines'
-    blocks in order, which is ``argmax`` on their concatenation, so on one
-    device the M machines' loop is one ICF over the candidates (one launch
-    of the ICF kernel for the SE spec on the card), pivot for pivot the
-    reference's. The candidates must divide among the machines, as there.
+    * a ``VmapRunner`` (one process holds every machine): the reference's
+      per-step pivot, the first machine whose local largest residual is the
+      global largest and that machine's first index of it, is the first
+      index of the largest residual over the machines' blocks in order,
+      which is ``argmax`` on their concatenation. So the M machines' loop
+      is one ICF over the candidates (one launch of the ICF kernel for the
+      SE spec on the card), pivot for pivot the reference's; on ``device``
+      (the card unless named).
+    * a ``ShardMapRunner`` (the machines spread over its ranks, one or
+      more): the reference's collective pivot loop,
+      ``picf.icf_factor_local`` over the runner's machine axis: per step
+      an all-gather of the machines' largest
+      residuals, the owner's input broadcast as a masked psum, and each
+      machine's rank-1 update of its shard. On the runner's device. In
+      float64 its pivots are the ICF kernel's (the column takes the
+      kernel's arithmetic, ``picf._pivot_column``); in float32 the two
+      part at the first near tie (the kernel sums another order), so the
+      selections differ.
     """
-    runner.shard_blocks(candidates)            # the reference's shape check
-    return select_support(kfn, params, candidates, size, device=device)
+    if not runner.axis.distributed:
+        runner.shard_blocks(candidates)        # the reference's shape check
+        return select_support(kfn, params, candidates, size, device=device)
+    from repro_torch.core import picf
+    dev = runner.axis.device if device is None else _device.resolve(device)
+    params = {k: v.to(dev) for k, v in params.items()}
+    Cb = runner.shard_blocks(candidates.to(dev))
+    local = runner.map(lambda Cm, params: picf.icf_factor_local(
+        kfn, params, Cm, size, axis_name=runner.axis), (Cb,), (params,))
+    return local.pivots[0].to(candidates.dtype)

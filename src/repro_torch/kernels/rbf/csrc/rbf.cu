@@ -34,6 +34,13 @@
 //  * a leading batch dimension with a per-operand batch stride (0 for a
 //    broadcast operand) builds K_{S,D_m} for all M machines in one launch,
 //    as vmap over pallas_call did.
+//
+// The exact instance (rbf_covariance_exact, float32 and float64) computes
+// the same function in the input type throughout, with the arithmetic of
+// rbf_icf.cu's pivot column: fma norms and cross term, max, exp. It builds
+// the pivot column K(x_p, D_m) of the collective ICF loop
+// (core/picf.py icf_factor_local), so that a float64 loop over processes
+// picks the ICF kernel's pivots. One thread an output; a column is (1, b).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -202,6 +209,45 @@ rbf_kernel(const T* __restrict__ xq, const T* __restrict__ xk,
 }
 
 template <typename T>
+__global__ void __launch_bounds__(256)
+rbf_exact_kernel(const T* __restrict__ xq, const T* __restrict__ xk,
+                 const T* __restrict__ sig2, T* __restrict__ out, int batch,
+                 int n, int m, int d, long long q_bstride,
+                 long long k_bstride) {
+  const long long total = static_cast<long long>(batch) * n * m;
+  const T s2 = sig2[0];
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long b = e / (static_cast<long long>(n) * m);
+    const int r = static_cast<int>((e / m) % n);
+    const int c = static_cast<int>(e % m);
+    const T* q = xq + b * q_bstride + static_cast<long long>(r) * d;
+    const T* k = xk + b * k_bstride + static_cast<long long>(c) * d;
+    T q2 = 0, k2 = 0, cross = 0;
+    for (int t = 0; t < d; ++t) q2 = fma(q[t], q[t], q2);
+    for (int t = 0; t < d; ++t) k2 = fma(k[t], k[t], k2);
+    for (int t = 0; t < d; ++t) cross = fma(q[t], k[t], cross);
+    const T d2 = max(q2 + k2 - T(2) * cross, T(0));
+    out[e] = s2 * exp(T(-0.5) * d2);
+  }
+}
+
+template <typename T>
+void launch_exact(const void* xq, const void* xk, const void* sig2,
+                  void* out, int batch, int n, int m, int d,
+                  long long q_bstride, long long k_bstride,
+                  cudaStream_t stream) {
+  const long long total = static_cast<long long>(batch) * n * m;
+  const int blocks = static_cast<int>(
+      total / 256 + 1 < 65536 ? total / 256 + 1 : 65536);
+  rbf_exact_kernel<T><<<blocks, 256, 0, stream>>>(
+      static_cast<const T*>(xq), static_cast<const T*>(xk),
+      static_cast<const T*>(sig2), static_cast<T*>(out), batch, n, m, d,
+      q_bstride, k_bstride);
+}
+
+template <typename T>
 void launch(const void* xq, const void* xk, const void* sig2, void* out,
             int batch, int n, int m, int d, long long q_bstride,
             long long k_bstride, cudaStream_t stream) {
@@ -238,6 +284,30 @@ extern "C" int rbf_covariance(int dtype, const void* xq, const void* xk,
     case 2:
       launch<__nv_bfloat16>(xq, xk, sig2, out, batch, n, m, d, q_bstride,
                             k_bstride, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The exact instance: dtype 0 = float32, 1 = float64, computed in that
+// type; sig2 is one value of the same type in device memory. Otherwise as
+// rbf_covariance.
+extern "C" int rbf_covariance_exact(int dtype, const void* xq,
+                                    const void* xk, const void* sig2,
+                                    void* out, int batch, int n, int m,
+                                    int d, long long q_bstride,
+                                    long long k_bstride, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      launch_exact<float>(xq, xk, sig2, out, batch, n, m, d, q_bstride,
+                          k_bstride, s);
+      break;
+    case 1:
+      launch_exact<double>(xq, xk, sig2, out, batch, n, m, d, q_bstride,
+                           k_bstride, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

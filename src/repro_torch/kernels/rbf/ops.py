@@ -5,8 +5,8 @@ Each wrapper takes its kernel's plain version (``ref.py``) for CPU tensors,
 and only because they lie on the CPU. For CUDA tensors it checks device,
 dtype, shape and contiguity, allocates the outputs, launches the kernel on
 the current stream and raises if the launch failed; it never falls back.
-``rbf_launches`` / ``icf_launches`` / ``xcov_launches`` count kernel
-launches (never the plain path), so a run can show that its main path went
+``rbf_launches`` / ``rbf_exact_launches`` / ``icf_launches`` /
+``xcov_launches`` count kernel launches (never the plain path), so a run can show that its main path went
 through the kernels;
 ``xcov_tc_launches`` counts the launches of the tensor-core instance (as
 the C entry reports them), and ``inverse_builds`` the triangular inverses
@@ -28,6 +28,7 @@ from repro_torch.kernels.build import refuse_grad
 from repro_torch.kernels.rbf import ref
 
 rbf_launches = 0
+rbf_exact_launches = 0
 icf_launches = 0
 xcov_launches = 0
 xcov_tc_launches = 0
@@ -44,10 +45,10 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def reset_counts() -> None:
-    global rbf_launches, icf_launches, xcov_launches, xcov_tc_launches, \
-        inverse_builds
-    rbf_launches = icf_launches = xcov_launches = xcov_tc_launches = \
-        inverse_builds = 0
+    global rbf_launches, rbf_exact_launches, icf_launches, xcov_launches, \
+        xcov_tc_launches, inverse_builds
+    rbf_launches = rbf_exact_launches = icf_launches = xcov_launches = \
+        xcov_tc_launches = inverse_builds = 0
 
 
 @functools.cache
@@ -56,7 +57,10 @@ def _rbf_entry():
     fn = lib.rbf_covariance
     fn.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _LL, _LL, _P]
     fn.restype = _I
-    return lib, fn
+    exact = lib.rbf_covariance_exact
+    exact.argtypes = fn.argtypes
+    exact.restype = _I
+    return lib, fn, exact
 
 
 @functools.cache
@@ -105,7 +109,43 @@ def rbf_covariance(Xq: torch.Tensor, Xk: torch.Tensor, sig2) -> torch.Tensor:
     global rbf_launches
     if build.on_cpu(Xq, Xk):
         return ref.rbf_covariance(Xq, Xk, sig2)
-    refuse_grad("rbf_covariance", Xq, Xk, sig2)
+    out, args = _rbf_args("rbf_covariance", Xq, Xk, torch.float32, sig2)
+    if out.numel() == 0:
+        return out
+    lib, fn, _ = _rbf_entry()
+    _rbf_launch(lib, fn, _DTYPE_CODE[Xq.dtype], args, "rbf_covariance")
+    rbf_launches += 1
+    return out
+
+
+def rbf_covariance_exact(Xq: torch.Tensor, Xk: torch.Tensor,
+                         sig2) -> torch.Tensor:
+    """``rbf_covariance`` computed in the inputs' dtype throughout (float32
+    or float64), with the ICF kernel's arithmetic for its pivot column:
+    fma norms and cross term, max, exp. The collective ICF loop's column
+    (``picf.icf_factor_local``), so that a float64 loop picks the ICF
+    kernel's pivots; ``rbf_covariance`` sums in float32 for every dtype.
+    Shapes as ``rbf_covariance``."""
+    global rbf_exact_launches
+    if build.on_cpu(Xq, Xk):
+        return ref.rbf_covariance_exact(Xq, Xk, sig2)
+    if Xq.dtype not in _ICF_DTYPES:
+        raise TypeError(f"rbf_covariance_exact takes float32 or float64; "
+                        f"got {Xq.dtype}")
+    out, args = _rbf_args("rbf_covariance_exact", Xq, Xk, Xq.dtype, sig2)
+    if out.numel() == 0:
+        return out
+    lib, _, fn = _rbf_entry()
+    _rbf_launch(lib, fn, _ICF_DTYPES[Xq.dtype], args,
+                "rbf_covariance_exact")
+    rbf_exact_launches += 1
+    return out
+
+
+def _rbf_args(name, Xq, Xk, sig2_dtype, sig2):
+    """The checked arguments of an rbf.cu entry: the output and
+    (Xq, Xk, sig2, out, B, n, m, d, q stride, k stride)."""
+    refuse_grad(name, Xq, Xk, sig2)
     _check_cuda(Xq=Xq, Xk=Xk)
     if Xq.dtype != Xk.dtype:
         raise TypeError(f"Xq and Xk dtypes differ: {Xq.dtype} vs {Xk.dtype}")
@@ -124,19 +164,19 @@ def rbf_covariance(Xq: torch.Tensor, Xk: torch.Tensor, sig2) -> torch.Tensor:
         raise ValueError(f"n={n} or batch={B} exceeds the kernel's grid")
     out = torch.empty((B, n, m) if batched else (n, m), dtype=Xq.dtype,
                       device=Xq.device)
-    if out.numel() == 0:
-        return out
     sq = n * d if Xq.ndim == 3 else 0
     sk = m * d if Xk.ndim == 3 else 0
-    s2 = torch.as_tensor(sig2, dtype=torch.float32).to(Xq.device).reshape(1)
-    lib, fn = _rbf_entry()
+    s2 = torch.as_tensor(sig2, dtype=sig2_dtype).to(Xq.device).reshape(1)
+    return out, (Xq, Xk, s2, out, B, n, m, d, sq, sk)
+
+
+def _rbf_launch(lib, fn, code: int, args, name: str) -> None:
+    Xq, Xk, s2, out, B, n, m, d, sq, sk = args
     with torch.cuda.device(Xq.device):
         stream = torch.cuda.current_stream(Xq.device).cuda_stream
-        code = fn(_DTYPE_CODE[Xq.dtype], Xq.data_ptr(), Xk.data_ptr(),
-                  s2.data_ptr(), out.data_ptr(), B, n, m, d, sq, sk, stream)
-    build.check(lib, code, "rbf_covariance launch")
-    rbf_launches += 1
-    return out
+        err = fn(code, Xq.data_ptr(), Xk.data_ptr(), s2.data_ptr(),
+                 out.data_ptr(), B, n, m, d, sq, sk, stream)
+    build.check(lib, err, f"{name} launch")
 
 
 _ICF_DTYPES = {torch.float32: 0, torch.float64: 1}

@@ -27,6 +27,17 @@ def rbf_covariance(Xq: torch.Tensor, Xk: torch.Tensor, sig2) -> torch.Tensor:
     return (sig2 * torch.exp(-0.5 * d2)).to(Xq.dtype)
 
 
+def rbf_covariance_exact(Xq: torch.Tensor, Xk: torch.Tensor,
+                         sig2) -> torch.Tensor:
+    """``rbf_covariance`` in the inputs' dtype throughout, as the ICF
+    loop computes its pivot column (``icf_factor`` below)."""
+    q2 = torch.sum(Xq * Xq, dim=-1)[..., :, None]
+    k2 = torch.sum(Xk * Xk, dim=-1)[..., None, :]
+    d2 = torch.clamp(q2 + k2 - 2.0 * (Xq @ Xk.mT), min=0.0)
+    sig2 = torch.as_tensor(sig2, dtype=Xq.dtype, device=Xq.device)
+    return sig2 * torch.exp(-0.5 * d2)
+
+
 def icf_factor(Xs: torch.Tensor, sig2, R: int,
                pivots: torch.Tensor | None = None, *,
                pivot_values: bool = False):

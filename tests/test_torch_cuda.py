@@ -74,6 +74,27 @@ def test_rbf_kernel_vector_and_scalar_stores(cuda, sq, sk, dtype, tol):
     assert float((got.double() - want.double()).abs().max()) < tol
 
 
+@pytest.mark.parametrize("sq,sk", [((1, 5), (20, 1600, 5)), ((1, 3), (300, 3)),
+                                   ((33, 7), (17, 7)), ((4, 9, 5), (4, 9, 5))])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-13)])
+def test_rbf_exact_kernel_matches_plain(cuda, sq, sk, dtype, tol):
+    """rbf.cu's exact instance (the collective ICF loop's pivot column),
+    computed in the inputs' dtype: within a few units of the last place of
+    its plain version, and one count a launch."""
+    rng = np.random.default_rng(5)
+    Xq = torch.tensor(rng.uniform(-1.7, 1.7, size=sq)).to(cuda, dtype)
+    Xk = torch.tensor(rng.uniform(-1.7, 1.7, size=sk)).to(cuda, dtype)
+    before = ops.rbf_exact_launches
+    got = ops.rbf_covariance_exact(Xq, Xk, torch.tensor(1.3, dtype=dtype,
+                                                        device=cuda))
+    torch.cuda.synchronize()
+    assert ops.rbf_exact_launches == before + 1
+    want = ref.rbf_covariance_exact(Xq, Xk, 1.3)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert float((got.double() - want.double()).abs().max()) < tol
+
+
 @pytest.mark.parametrize("n", [1, 8, 16, 33, 256])
 @pytest.mark.parametrize("s,d", [(12, 3), (130, 21)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -1094,3 +1115,99 @@ def test_health_ladder_heals_a_poisoned_block_on_the_card(cuda, tmp_path):
     assert srv.stats.n_revives == 1 and srv.health.dead_blocks() == []
     for (m0, v0, _), (m1, v1, d) in zip(before, serve()):
         assert not d and torch.equal(m0, m1) and torch.equal(v0, v1)
+
+
+# -- the GP programs over two gloo ranks sharing the card --------------------
+
+DIST_TOL = 1e-8      # float64; the ranks' psums add in another order
+
+
+def _dist_problem(dev):
+    rng = np.random.default_rng(0)
+    X, S, U = (rng.normal(size=(k, 3)) for k in (128, 12, 32))
+    y = np.sin(X[:, 0]) * 2 + X[:, 1] + 0.1 * rng.normal(size=128)
+    return tuple(torch.tensor(a, device=dev) for a in (X, S, U, y))
+
+
+def _dist_programs(runner, dev):
+    from repro_torch.core import covariance as cov, picf, ppitc
+    X, S, U, y = _dist_problem(dev)
+    params = cov.init_params(3, signal=1.3, noise=0.3, lengthscale=1.5,
+                             dtype=torch.float64, device=dev)
+    kfn = cov.make_spec("se")
+    post = ppitc.predict_distributed(kfn, params, S, X, y, U, runner)
+    loc = picf.icf_factor_local(kfn, params, runner.shard_blocks(X), 48,
+                                axis_name=runner.axis)
+    return {"mean": post.mean, "blocks": post.blocks,
+            "F": runner.gather(loc.F), "pivots": loc.pivots[0]}
+
+
+def _gloo_rank(rank, rdv, q):
+    import torch.distributed as dist
+    try:
+        from repro_torch.launch import mesh as tmesh
+        from repro_torch.parallel.runner import ShardMapRunner
+        dev = torch.device("cuda", 0)
+        mesh = tmesh.make_mesh((2,), ("data",), rank=rank, world_size=2,
+                               init_method=f"file://{rdv}", backend="gloo",
+                               device=dev, timeout_s=120)
+        sm = ShardMapRunner(mesh=mesh, axis_name="data", local_machines=4)
+        before = ops.rbf_launches, ops.rbf_exact_launches
+        # numpy, pickled by value: a tensor would travel as shared memory
+        # that the rank's exit takes with it
+        out = {k: v.cpu().numpy() for k, v in _dist_programs(sm, dev).items()}
+        out["rbf_launches"] = ops.rbf_launches - before[0]
+        out["rbf_exact_launches"] = ops.rbf_exact_launches - before[1]
+        q.put((rank, out, None))
+    except Exception:
+        import traceback
+        q.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_gp_programs_over_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """``ppitc.predict_distributed`` and ``picf.icf_factor_local`` on two
+    gloo ranks sharing the card (four machines each) against the stacked
+    axis on the card: float64 within DIST_TOL, pivots equal, and the rbf
+    kernel (its exact instance for the pivot columns too) launched in each
+    rank. The loop's pivots are the ICF kernel's (``picf.factor`` on a
+    ``VmapRunner``): in float64 the pivot column takes its arithmetic."""
+    import torch.multiprocessing as mp
+    from repro_torch.parallel.runner import VmapRunner
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_gloo_rank, args=(r, str(tmp_path / "rdv"),
+                                                  q), daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    want = {k: v.cpu().numpy() for k, v in _dist_programs(VmapRunner(M=8),
+                                                          cuda).items()}
+    from repro_torch.core import covariance as cov, picf
+    X = _dist_problem(cuda)[0]
+    params = cov.init_params(3, signal=1.3, noise=0.3, lengthscale=1.5,
+                             dtype=torch.float64, device=cuda)
+    icf_before = ops.icf_launches
+    kern = picf.factor(cov.make_spec("se"), params, X, 48, VmapRunner(M=8))
+    assert ops.icf_launches == icf_before + 1
+    assert np.array_equal(kern.pivots[0].cpu().numpy(), want["pivots"])
+    got = {}
+    try:
+        for _ in procs:
+            rank, out, tb = q.get(timeout=300)
+            assert tb is None, tb
+            got[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    for rank, out in got.items():
+        assert out["rbf_launches"] > 0, rank
+        assert out["rbf_exact_launches"] >= 48, rank
+        assert np.array_equal(out["pivots"], want["pivots"]), rank
+        for k in ("mean", "blocks", "F"):
+            err = float(np.abs(out[k] - want[k]).max())
+            assert err < DIST_TOL, (rank, k, err)

@@ -117,9 +117,3 @@ def test_ppitc_predict_from_summary_matches_reference(prob):
         jkfn, prob["jparams"], jnp.asarray(prob["S"]), jKss_L, jglob,
         jnp.asarray(prob["U"][:6]))
     assert _err(mean, jmean) < TOL and _err(covm, jcovm) < TOL
-
-
-@pytest.mark.parametrize("name", ["machine_step", "predict_distributed"])
-def test_ppitc_collective_programs_raise_naming_item_12(name):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        getattr(ppitc, name)()

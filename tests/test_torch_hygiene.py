@@ -38,7 +38,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.serving.stats", "repro_torch.serving.health",
             "repro_torch.serving.chaos", "repro_torch.serving.registry",
             "repro_torch.serving.scheduler",
-            "repro_torch.runtime.monitor"} <= set(mods)
+            "repro_torch.runtime.monitor", "repro_torch.launch.mesh",
+            "repro_torch.launch.backend_probe",
+            "repro_torch.parallel.collectives",
+            "repro_torch.optim.compression"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

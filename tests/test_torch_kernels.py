@@ -75,6 +75,29 @@ def test_rbf_batched_matches_per_machine_oracle():
         assert np.abs(_np(kdd[m]) - _np(want_dd)).max() < 1e-6
 
 
+@pytest.mark.parametrize("sq,sk", [((1, 5), (4, 40, 5)), ((33, 7), (17, 7)),
+                                   ((4, 9, 3), (4, 9, 3))])
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-6),
+                                       ("float64", 1e-14)])
+def test_rbf_exact_plain_is_the_se_kernel_in_its_dtype(sq, sk, dtype, tol):
+    """The exact instance's plain version (what a CPU tensor takes)
+    computes in the inputs' dtype: against sig2 exp(-|x - z|^2 / 2) from
+    numpy's float64 differences, and the JAX oracle's float32 sum only to
+    float32 rounding."""
+    rng = np.random.default_rng(len(sq) * 7 + sk[-2])
+    q, k = rng.normal(size=sq), rng.normal(size=sk)
+    ops.reset_counts()
+    got = ops.rbf_covariance_exact(torch.tensor(q).to(getattr(torch, dtype)),
+                                   torch.tensor(k).to(getattr(torch, dtype)),
+                                   1.7)
+    assert ops.rbf_exact_launches == 0
+    assert got.dtype == getattr(torch, dtype)
+    diff = q[..., :, None, :] - k[..., None, :, :]
+    want = 1.7 * np.exp(-0.5 * np.sum(diff * diff, -1))
+    assert got.shape == want.shape
+    assert np.abs(_np(got) - want).max() < tol
+
+
 def test_cpu_wrappers_take_the_plain_path_and_count_nothing():
     ops.reset_counts()
     rng = np.random.default_rng(0)

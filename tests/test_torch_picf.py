@@ -241,26 +241,6 @@ def test_picf_on_the_cpu_launches_no_kernel(prob):
         _t(prob["U"][:5]))[0], m) < STATE_TOL
 
 
-@pytest.mark.parametrize("call", [
-    lambda: picf.icf_factor_local(None, None, None, 4, axis_name="m"),
-    lambda: picf.machine_step(None, None, None, None, None, None,
-                              axis_name="m"),
-    lambda: picf.machine_step_sharded_u(None, None, None, None, None, None,
-                                        axis_name="m"),
-    lambda: picf.predict_distributed(None, None, None, None, None, 4, None),
-])
-def test_collective_programs_raise_naming_item_12(call):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        call()
-
-
-def test_sharded_u_predict_raises_naming_item_12(prob):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        picf.predict(prob["kfn"], prob["params"], _t(prob["X"]),
-                     _t(prob["y"]), _t(prob["U"]), R,
-                     VmapRunner(M=prob["M"]), shard_u=True)
-
-
 @pytest.mark.parametrize("op", ["assimilate", "retire", "revive"])
 def test_store_streaming_raises_naming_item_6(prob, op):
     store = picf.init_picf_store(prob["kfn"], prob["params"], _t(prob["X"]),

@@ -234,7 +234,8 @@ def test_predict_from_summary_matches_reference(prob):
     from repro_torch.core import linalg
     Kss_L = linalg.chol(kfn(params, S, S))
     loc, (Ksd, C_L, _) = ppitc.local_summary(kfn, params, S, Kss_L, Xb, yb)
-    glob = ppitc.global_summary(kfn, params, S, loc)
+    glob = ppitc.global_summary(kfn, params, S, loc,
+                                axis_name=VmapRunner(M=M).axis)
     from repro.core import linalg as jlinalg
     jS = jnp.asarray(prob["S"])
     jKss_L = jlinalg.chol(prob["jkfn"](prob["jparams"], jS, jS))
@@ -672,9 +673,11 @@ def _summary_diag(fns, jax_side, kfn, p, S, X, y, U, M):
                                               axis2=-1).reshape(-1)
     Xb, yb = X.reshape(M, -1, 3), y.reshape(M, -1)
     loc, (Ksd, C_L, _) = ppitc_.local_summary(kfn, p, S, Kss_L, Xb, yb)
+    glob = ppitc_.global_summary(kfn, p, S, loc,
+                                 axis_name=VmapRunner(M=M).axis)
     mean, covm = ppic_.predict_from_summary(
-        kfn, p, S, Kss_L, loc, ppitc_.global_summary(kfn, p, S, loc), Xb, yb,
-        U.reshape(M, -1, 3), Ksd=Ksd, C_L=C_L)
+        kfn, p, S, Kss_L, loc, glob, Xb, yb, U.reshape(M, -1, 3), Ksd=Ksd,
+        C_L=C_L)
     return mean.reshape(-1), torch.diagonal(covm, dim1=-2,
                                             dim2=-1).reshape(-1)
 

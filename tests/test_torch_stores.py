@@ -618,9 +618,9 @@ def _spy_downdates(monkeypatch):
         seen["downdates"].append(L.dtype)
         return downdate(L, W)
 
-    def spy_sdd_chol(Kss_L, F):
+    def spy_sdd_chol(Kss_L, F, axis=None):
         seen["refolds"] += 1
-        return sdd_chol(Kss_L, F)
+        return sdd_chol(Kss_L, F, axis)
 
     monkeypatch.setattr(linalg_ops, "chol_downdate", spy_downdate)
     monkeypatch.setattr(online, "_sdd_chol", spy_sdd_chol)
