@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero before the last line:
    card, at the main paths' shapes and at edge cases, within the tolerances
    stated below, and each timed at its main path's shape (flash also
    against ``scaled_dot_product_attention``, a yardstick the port never
-   calls, with its TFLOP/s and the host cost of a decode launch; rbf's
+   calls, with its TFLOP/s and the host cost of a decode launch, and
+   without the causal mask at whisper's encoder, cross-attention and
+   cross decode shapes; rbf's
    block instance by profiler device time, and its ICF instance (all of
    select_support's pivot steps in one launch) against the plain loop in
    float64 (pivots identical) and float32 (replayed along its pivots), with
@@ -162,7 +164,26 @@ Phases, in order; any failure exits non-zero before the last line:
    prompts of 32 tokens, 32 greedy new tokens), every flash launch of
    which must take the sm90 kernel; then, in float32, the forward logits
    against ``decode_step``'s at every position;
-6. LM main path, mamba2-130m, the same;
+5b. LM MoE, qwen3-moe-30b-a3b at full width, 8 of its 48 layers (einsum
+   dispatch, capacity 1.25): the same prefill and generation, with the
+   prefill's dropped fraction and load-balance loss; the float32 check
+   with a capacity that drops nothing; one MoE layer at the prefill's
+   shape in both dispatch modes, which must agree when nothing drops; the
+   prefill again on Zipf, uniform and distinct ids, each MoE layer's
+   dropped pairs held to the overflow of its routed counts, with its
+   busiest expert and the first layer's routing of the embeddings alone;
+5c. LM encoder-decoder, whisper-medium whole: ``encode`` of 4 x 1500
+   frames, ``precompute_cross_kv``, a decoder prefill of 4 x 448 over the
+   encoder, greedy generation over the precomputed cross K/V; the
+   encoder's and the cross-attention's flash launches (non-causal) are
+   counted apart and must number as the layers say; the float32 check
+   over precomputed cross K/V;
+5d. LM VLM input, qwen2-vl-72b at full width, 4 of its 80 layers: a
+   prefill of 4 x 4096 from ``inputs_embeds`` (text embeddings around a
+   block of patch embeddings) with distinct (t, h, w) M-RoPE position
+   rows, finite logits; in float32, ``inputs_embeds`` of the tokens equal
+   to the tokens' forward, bit for bit;
+6. LM main path, mamba2-130m, the same as phase 5;
 7. one JSON line listing each kernel's launches, error, times and bound.
 
 Each main path zeroes its kernels' launch counts just before it and reads
@@ -301,7 +322,45 @@ REQUEST_SIZES = (1, 7, 64, 200, 256, 256, 1000, 3200)
 # mamba2).
 LM_BATCH, LM_SEQ = 4, 4096
 GEN_PROMPT, GEN_NEW = 32, 32
-CONSISTENCY_T = {"qwen3-1.7b": 128, "mamba2-130m": 512}
+CONSISTENCY_T = {"qwen3-1.7b": 128, "mamba2-130m": 512,
+                 "qwen3-moe-30b-a3b": 128, "whisper-medium": 64}
+# Depth cuts of the models whose float32 weights do not fit on one 80 GB
+# card whole (width untouched): qwen3-moe-30b-a3b 48 -> 8 layers (2.49 GB a
+# layer), qwen2-vl-72b 80 -> 4 (3.5 GB a layer + 10 GB of embeddings).
+MOE_LAYERS, VLM_LAYERS = 8, 4
+# qwen2-vl's prefill input: VLM_TEXT text tokens, a (t, h, w) block of
+# patch embeddings at M-RoPE grid positions, then text to LM_SEQ.
+VLM_TEXT, VLM_GRID = 16, (2, 32, 32)
+# einsum against gather dispatch when nothing drops, relative to the
+# largest output: the modes fill each expert's rows in another order and
+# combine in the same one, so only the products' rounding at another row
+# position could part them: one bf16 ulp (2^-8) of the largest output.
+TOL_MOE_MODES = 2.0 ** -8
+# a capacity at which one MoE layer of random normal input overflows its
+# experts (C = 512 of ~1024 pairs an expert at qwen3-moe's prefill)
+MOE_TIGHT_CF = 0.5
+
+# whisper-medium's attention shapes (batch LM_BATCH, 16 heads of 64; 1500
+# encoder frames, 448 decoder positions): flash cases (B, Hq, Hkv, Tq, Tk,
+# D, window, q_offset, causal) held and timed in phase 3, non-causal
+WHISPER_ENC = (LM_BATCH, 16, 16, 1500, 1500, 64, None, 0, False)
+WHISPER_CROSS = (LM_BATCH, 16, 16, 448, 1500, 64, None, 0, False)
+WHISPER_CROSS_DECODE = (LM_BATCH, 16, 16, 1, 1500, 64, None, 0, False)
+# The causal attention shapes of phases 5b-5d beyond qwen3-1.7b's, held in
+# phase 3: qwen3-moe-30b-a3b (32 query heads on 4 K/V heads, GQA 8:1) and
+# qwen2-vl-72b (64 on 8) prefill 4 x 4096; qwen3-moe's decode steps (the
+# cache's GEN_PROMPT + GEN_NEW slots, the first and the last position);
+# whisper's decoder self-attention (16 heads of 64) at its prefill of
+# max_seq 448 and a decode step.
+MAIN_PATH_CAUSAL = [
+    (LM_BATCH, 32, 4, LM_SEQ, LM_SEQ, 128, None, 0, True),
+    (LM_BATCH, 32, 4, 1, GEN_PROMPT + GEN_NEW, 128, None, GEN_PROMPT, True),
+    (LM_BATCH, 32, 4, 1, GEN_PROMPT + GEN_NEW, 128, None,
+     GEN_PROMPT + GEN_NEW - 1, True),
+    (LM_BATCH, 64, 8, LM_SEQ, LM_SEQ, 128, None, 0, True),
+    (LM_BATCH, 16, 16, 448, 448, 64, None, 0, True),
+    (LM_BATCH, 16, 16, 1, GEN_PROMPT + GEN_NEW, 64, None, GEN_PROMPT + 7,
+     True)]
 
 
 def fail(msg: str) -> None:
@@ -792,8 +851,9 @@ def _flash_case(torch, ops, ref, gen, case, dt, strided=False):
     """One flash case, launched FLASH_REPEAT times: each run must equal the
     first (a ring stage released too early shows as a run that differs)
     and meet the absolute and row-scaled limits against the plain version.
-    Returns (max abs error, row-scaled error)."""
-    B, Hq, Hkv, Tq, Tk, Dh, window, off = case
+    Returns (max abs error, row-scaled error). ``case`` is (B, Hq, Hkv,
+    Tq, Tk, D, window, q_offset, causal)."""
+    B, Hq, Hkv, Tq, Tk, Dh, window, off, causal = case
     shapes = ((B, Hq, Tq, Dh), (B, Hkv, Tk, Dh), (B, Hkv, Tk, Dh))
     if strided:      # (B, T, H, D) buffers seen as (B, H, T, D)
         q, k, v = (torch.randn((s[0], s[2], s[1], s[3]), generator=gen,
@@ -804,16 +864,24 @@ def _flash_case(torch, ops, ref, gen, case, dt, strided=False):
                    for s in shapes)
     route = ops.route(q, k, v)
     n0, s0 = ops.flash_launches, ops.flash_sm90_launches
-    runs = [ops.attention(q, k, v, window=window, q_offset=off)
-            for _ in range(FLASH_REPEAT)]
-    want = ref.attention(q, k, v, window=window, q_offset=off)
+    c0 = ops.flash_noncausal_launches
+    runs = [ops.attention(q, k, v, causal=causal, window=window,
+                          q_offset=off) for _ in range(FLASH_REPEAT)]
+    # the plain version one batch row at a time (the same function): its
+    # float32 scores at qwen2-vl's prefill are 17 GB for the whole batch
+    want = torch.cat([ref.attention(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                                    causal=causal, window=window,
+                                    q_offset=off) for b in range(B)])
     torch.cuda.synchronize()
     key = str(dt).split(".")[1]
     want_sm90 = FLASH_REPEAT if key == "bfloat16" else 0
     if ops.flash_launches - n0 != FLASH_REPEAT or \
-            ops.flash_sm90_launches - s0 != want_sm90:
+            ops.flash_sm90_launches - s0 != want_sm90 or \
+            ops.flash_noncausal_launches - c0 != (0 if causal
+                                                  else FLASH_REPEAT):
         fail(f"flash {case} {key}: {ops.flash_launches - n0} launches, "
-             f"{ops.flash_sm90_launches - s0} of the sm90 kernel")
+             f"{ops.flash_sm90_launches - s0} of the sm90 kernel, "
+             f"{ops.flash_noncausal_launches - c0} non-causal")
     if not all(torch.equal(r, runs[0]) for r in runs[1:]):
         fail(f"flash {case} {key}: repeated launches disagree")
     got = runs[0]
@@ -822,7 +890,8 @@ def _flash_case(torch, ops, ref, gen, case, dt, strided=False):
     row = flash_row_err(got, want, r)
     size = float(want.float().abs().mean())
     print(f"  flash B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} D={Dh} "
-          f"window={window} offset={off}{' (B,T,H,D) view' if strided else ''}"
+          f"window={window} offset={off}{'' if causal else ' non-causal'}"
+          f"{' (B,T,H,D) view' if strided else ''}"
           f" {key} [{route} x{FLASH_REPEAT}]: max|err| {err:.3e} (tol "
           f"{TOL_FLASH[key]}), row-scaled {row:.3e} (tol {c}), mean|want| "
           f"{size:.3e}", flush=True)
@@ -835,33 +904,42 @@ def _flash_case(torch, ops, ref, gen, case, dt, strided=False):
 def check_flash(torch, ops, ref, gen):
     """flash attention vs plain in f32 and bf16: the qwen3 prefill shape
     (also as (B, T, H, D) views), the reference's cases (window, offset,
-    ragged Tq != Tk, GQA 4:1), D = 16, 100 and 256, decode steps and the
-    sm90 kernel's tile boundaries, each launched FLASH_REPEAT times; timed
+    ragged Tq != Tk, GQA 4:1), D = 16, 100 and 256, decode steps, the
+    sm90 kernel's tile boundaries, the causal shapes of the MoE, enc-dec
+    and VLM paths and the non-causal ones of whisper's encoder and
+    cross-attention, each launched FLASH_REPEAT times; timed
     at the prefill shape in bf16, beside SDPA, with its TFLOP/s and the
     host cost of a decode launch."""
-    prefill = (LM_BATCH, 16, 8, LM_SEQ, LM_SEQ, 128, None, 0)
+    prefill = (LM_BATCH, 16, 8, LM_SEQ, LM_SEQ, 128, None, 0, True)
     cases = [prefill,
-             (1, 4, 4, 128, 128, 64, None, 0),
-             (2, 8, 2, 128, 128, 64, None, 0),          # GQA 4:1
-             (1, 4, 4, 256, 256, 32, 128, 0),           # sliding window
-             (1, 2, 2, 64, 256, 64, None, 192),         # offset
-             (1, 4, 2, 100, 200, 48, None, 100),        # ragged Tq != Tk
-             (1, 1, 1, 64, 64, 128, 32, 0),
-             (2, 8, 4, 300, 300, 16, None, 0),          # D = 16
-             (2, 8, 4, 300, 300, 256, 100, 0),          # D = 256
-             (2, 4, 2, 33, 33, 100, None, 0),           # D % 8 != 0: pad
-             (LM_BATCH, 16, 8, 1, 2 * GEN_PROMPT, 128, None, 45),  # decode
-             (LM_BATCH, 16, 8, 1, LM_SEQ, 128, None, LM_SEQ - 1),
+             (1, 4, 4, 128, 128, 64, None, 0, True),
+             (2, 8, 2, 128, 128, 64, None, 0, True),     # GQA 4:1
+             (1, 4, 4, 256, 256, 32, 128, 0, True),      # sliding window
+             (1, 2, 2, 64, 256, 64, None, 192, True),    # offset
+             (1, 4, 2, 100, 200, 48, None, 100, True),   # ragged Tq != Tk
+             (1, 1, 1, 64, 64, 128, 32, 0, True),
+             (2, 8, 4, 300, 300, 16, None, 0, True),     # D = 16
+             (2, 8, 4, 300, 300, 256, 100, 0, True),     # D = 256
+             (2, 4, 2, 33, 33, 100, None, 0, True),      # D % 8 != 0: pad
+             (LM_BATCH, 16, 8, 1, 2 * GEN_PROMPT, 128, None, 45, True),
+             (LM_BATCH, 16, 8, 1, LM_SEQ, 128, None, LM_SEQ - 1, True),
              # the sm90 kernel's boundaries: 128 query rows, 128 keys (64 at
              # D = 256), a K/V ring of 3 stages (2 at D = 256)
-             (1, 4, 2, 127, 127, 128, None, 0),
-             (1, 4, 2, 128, 128, 128, None, 0),
-             (1, 4, 2, 129, 129, 128, None, 0),
-             (1, 4, 2, 257, 257, 128, None, 0),
-             (1, 4, 2, 1000, 1000, 128, None, 0),
-             (1, 64, 8, 200, 200, 128, None, 0),        # GQA 8:1
-             (2, 4, 2, 300, 300, 256, 100, 0),          # D = 256, window
-             (2, 16, 8, 1, 1024, 128, None, 700)]       # decode, 6 KV tiles
+             (1, 4, 2, 127, 127, 128, None, 0, True),
+             (1, 4, 2, 128, 128, 128, None, 0, True),
+             (1, 4, 2, 129, 129, 128, None, 0, True),
+             (1, 4, 2, 257, 257, 128, None, 0, True),
+             (1, 4, 2, 1000, 1000, 128, None, 0, True),
+             (1, 64, 8, 200, 200, 128, None, 0, True),   # GQA 8:1
+             (2, 4, 2, 300, 300, 256, 100, 0, True),     # D = 256, window
+             (2, 16, 8, 1, 1024, 128, None, 700, True),  # decode, 6 KV tiles
+             *MAIN_PATH_CAUSAL,
+             # non-causal: whisper's encoder, its cross-attention prefill
+             # and decode step over the encoder's 1500 frames (ragged key
+             # tiles), ragged GQA, a single key
+             WHISPER_ENC, WHISPER_CROSS, WHISPER_CROSS_DECODE,
+             (1, 4, 2, 100, 200, 48, None, 0, False),
+             (2, 4, 2, 16, 1, 64, None, 0, False)]
     worst = worst_row = 0.0
     for case in cases:
         for dt in (torch.float32, torch.bfloat16):
@@ -948,7 +1026,49 @@ def check_flash(torch, ops, ref, gen):
                 library_ms=lib, tflops=tflops, decode_ms=decode_ms,
                 host_us=host_us, encode_us=encode_us,
                 shape=f"B={B}, Hq={Hq}, Hkv={Hkv}, T={T}, D={Dh}, causal, "
-                      f"bf16")
+                      f"bf16",
+                noncausal=[time_noncausal(torch, ops, ref, gen, case)
+                           for case in (WHISPER_ENC, WHISPER_CROSS,
+                                        WHISPER_CROSS_DECODE)])
+
+
+def time_noncausal(torch, ops, ref, gen, case) -> dict:
+    """The non-causal kernel at one of whisper's shapes, bf16: device time
+    (events over back-to-back calls; for a decode step, whose calls are
+    shorter than their host cost, the profiler's kernel time, SDPA's
+    kernels included), beside the plain version, SDPA (``is_causal=False``)
+    and its bound."""
+    B, Hq, Hkv, Tq, Tk, Dh = case[:6]
+    q = torch.randn((B, Hq, Tq, Dh), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    k, v = (torch.randn((B, Hkv, Tk, Dh), generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    call = lambda: ops.attention(q, k, v, causal=False)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_call = lambda: sdpa(q, k, v, is_causal=False)
+    if Tq == 1:
+        ms = kernel_device_ms(torch, call, "flash_sm90", FLASH_HOST_CALLS)
+        lib = kernel_device_ms(torch, lib_call, "", FLASH_HOST_CALLS,
+                               per_call=(1, 2, 3, 4, 5, 6))
+    else:
+        ms, lib = time_ms(call, 20), time_ms(lib_call, 20)
+    plain = time_ms(lambda: ref.attention(q, k, v, causal=False), 3,
+                    warmup=1)
+    row = flash_row_err(call(), lib_call(), TOL_FLASH_ROW["bfloat16"][0])
+    flops = 4 * B * Hq * Dh * Tq * Tk
+    nbytes = 2 * (2 * B * Hq * Tq * Dh + 2 * B * Hkv * Tk * Dh)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    shape = f"B={B}, Hq={Hq}, Hkv={Hkv}, Tq={Tq}, Tk={Tk}, D={Dh}"
+    print(f"  flash non-causal at {shape} bf16: {ms:.4f} ms"
+          f"{' (device, profiler)' if Tq == 1 else ''}, "
+          f"{flops / ms / 1e9:.1f} TFLOP/s; SDPA {lib:.4f} ms (row-scaled "
+          f"{row:.3e} from it); plain {plain:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
+    if not row <= TOL_FLASH_ROW["bfloat16"][1]:
+        fail(f"non-causal flash at {shape} disagrees with SDPA: row-scaled "
+             f"{row}")
+    return dict(shape=shape, ms=ms, plain_ms=plain, library_ms=lib,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def ssd_flops(BC, cs, H, P, N) -> tuple[int, int]:
@@ -1161,30 +1281,22 @@ def check_downdate(torch, ops, ref, gen):
                 shape=f"(n, b) = ({n}, {b}) f32")
 
 
-def lm_path(torch, card: str, name: str, counter) -> int:
-    """Prefill and generation of ``name`` at full width and depth through
-    the port's entry points, then the float32 forward-vs-decode check;
-    returns the launches of the path's kernel (``counter``: its ops
-    module, its count attribute, and the attribute of a count that must
-    equal it, or None) during prefill and generation."""
-    from repro_torch.configs.registry import get_config
+def lm_path(torch, card: str, cfg, counter, params, gen, *,
+            check_cfg=None) -> dict:
+    """Prefill and generation of ``cfg`` at full width (and the depth it
+    gives) through the port's entry points, on ``params`` and inputs drawn
+    from ``gen`` (``init_lm``'s), then the float32 forward-vs-decode check
+    (on ``check_cfg`` when given: an MoE model's with a capacity that drops
+    nothing). Returns the launches of the path's kernel (``counter``: its
+    ops module, its count attribute, and the attribute of a count that must
+    equal it, or None) during prefill and generation, the prefill's Aux,
+    its tokens and its readings."""
     from repro_torch.data import synthetic
     from repro_torch.launch import serve
     from repro_torch.models import transformer as tf
 
+    name = cfg.name
     ops_mod, attr, same = counter
-    cfg = get_config(name)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    params = tf.init_model(cfg, generator=gen)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for p in [params["embed"]] + params["layers"]
-                   for t in _leaves(p))
-    print(f"  [{card}] {name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{n_params / 1e9:.3f} B float32 parameters, init "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
     toks = synthetic.lm_tokens(gen, batch=LM_BATCH, seq=LM_SEQ - 1,
                                vocab=cfg.vocab)
     prompt = synthetic.lm_tokens(gen, batch=LM_BATCH, seq=GEN_PROMPT - 1,
@@ -1194,7 +1306,7 @@ def lm_path(torch, card: str, name: str, counter) -> int:
     tf.forward(params, toks, cfg, logits_last_only=True)      # warm-up
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    logits = tf.forward(params, toks, cfg, logits_last_only=True)
+    logits, aux = tf.forward(params, toks, cfg, logits_last_only=True)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t1
     step_ms: list = []
@@ -1206,22 +1318,25 @@ def lm_path(torch, card: str, name: str, counter) -> int:
     launches_same = getattr(ops_mod, same) if same else launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
-    if logits.shape != (LM_BATCH, 1, cfg.vocab_padded) or not finite:
-        fail(f"{name} prefill logits {tuple(logits.shape)}, finite {finite}")
-    if out.shape != (LM_BATCH, GEN_PROMPT + GEN_NEW) \
-            or not torch.equal(out[:, :GEN_PROMPT], prompt) \
-            or int(out.min()) < 0 or int(out.max()) >= cfg.vocab:
-        fail(f"{name} generation gave {tuple(out.shape)} tokens in "
-             f"[{int(out.min())}, {int(out.max())}]")
-    lat = sorted(step_ms)
+    check_logits(torch, name, logits, (LM_BATCH, 1, cfg.vocab_padded),
+                 cfg.vocab)
+    check_generation(torch, name, out, prompt, cfg.vocab)
+    p50 = sorted(step_ms)[len(step_ms) // 2]
     print(f"  [{card}] {name} prefill {LM_BATCH} x {LM_SEQ} tokens: "
           f"{prefill_s * 1e3:.1f} ms, {LM_BATCH * LM_SEQ / prefill_s:.0f} "
-          f"tokens/s; logits finite {finite}", flush=True)
+          f"tokens/s; logits finite", flush=True)
+    n_moe = sum(d.moe for d in cfg.plan())
+    if n_moe:
+        print(f"  [{card}] {name} prefill MoE ({n_moe} layers, "
+              f"{cfg.moe_dispatch} dispatch, capacity factor "
+              f"{cfg.capacity_factor}): dropped fraction "
+              f"{float(aux.dropped):.5f}, load-balance loss "
+              f"{float(aux.moe_loss):.5f} (means over the MoE layers)",
+              flush=True)
     print(f"  [{card}] {name} generation B={LM_BATCH}, prompt {GEN_PROMPT}, "
-          f"{GEN_NEW} greedy tokens: per-token latency p50 "
-          f"{lat[len(lat) // 2]:.3f} ms, max {lat[-1]:.3f} ms; peak device "
-          f"memory {peak_gb:.2f} GB", flush=True)
+          f"{GEN_NEW} greedy tokens: per-token latency p50 {p50:.3f} ms, "
+          f"max {max(step_ms):.3f} ms; peak device memory {peak_gb:.2f} GB",
+          flush=True)
     print(f"  {name} launches of {attr} during prefill + generation: "
           f"{launches}", flush=True)
     if launches <= 0:
@@ -1232,36 +1347,411 @@ def lm_path(torch, card: str, name: str, counter) -> int:
             fail(f"{name}: {launches - launches_same} of {launches} "
                  f"{attr} did not take {same}")
 
-    # forward vs decode_step logits at every position, float32 compute
-    T = CONSISTENCY_T[name]
+    consistency(torch, params, check_cfg or cfg, gen, CONSISTENCY_T[name])
+    return {"launches": launches, "aux": aux, "tokens": toks,
+            "prefill_ms": prefill_s * 1e3, "p50_ms": p50, "peak_gb": peak_gb}
+
+
+def init_lm(torch, card: str, cfg):
+    """``cfg``'s random float32 parameters on the card (seed 0), with
+    their count (the encoder's too) and init time printed; returns them
+    and the generator, for the inputs."""
+    from repro_torch.models import transformer as tf
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = tf.init_model(cfg, generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    enc = (f" ({cfg.enc_layers} encoder layers)" if cfg.enc_dec else "")
+    print(f"  [{card}] {cfg.name}: {cfg.n_layers} layers{enc}, d "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B float32 parameters, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB, init "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return params, gen
+
+
+def check_logits(torch, name: str, logits, shape: tuple, vocab: int):
+    finite = bool(torch.isfinite(logits[..., :vocab]).all())
+    if tuple(logits.shape) != shape or not finite:
+        fail(f"{name} logits {tuple(logits.shape)} (want {shape}), finite "
+             f"{finite}")
+
+
+def check_generation(torch, name: str, out, prompt, vocab: int):
+    if out.shape != (LM_BATCH, GEN_PROMPT + GEN_NEW) \
+            or not torch.equal(out[:, :GEN_PROMPT], prompt) \
+            or int(out.min()) < 0 or int(out.max()) >= vocab:
+        fail(f"{name} generation gave {tuple(out.shape)} tokens in "
+             f"[{int(out.min())}, {int(out.max())}]")
+
+
+def consistency(torch, params, cfg, gen, T: int, frames=None) -> float:
+    """Forward vs ``decode_step`` logits at every one of T positions, B =
+    2, float32 compute; an enc-dec model encodes ``frames`` (float32) and
+    decodes over the cross K/V projected once."""
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer as tf
     f32 = torch.float32
-    toks2 = synthetic.lm_tokens(gen, batch=2, seq=T - 1, vocab=cfg.vocab)
-    full = tf.forward(params, toks2, cfg, compute_dtype=f32)
-    last = tf.forward(params, toks2, cfg, compute_dtype=f32,
-                      logits_last_only=True)
+    toks = synthetic.lm_tokens(gen, batch=2, seq=T - 1, vocab=cfg.vocab)
+    enc = None if frames is None else tf.encode(params, frames, cfg,
+                                                compute_dtype=f32)
+    full, aux = tf.forward(params, toks, cfg, enc_kv=enc, compute_dtype=f32)
+    last, _ = tf.forward(params, toks, cfg, enc_kv=enc, compute_dtype=f32,
+                         logits_last_only=True)
     state = tf.init_serve(cfg, 2, T, cache_dtype=f32)
+    if enc is not None:
+        state = state._replace(cross_kv=tf.precompute_cross_kv(
+            params, enc, cfg, compute_dtype=f32))
     errs = []
     for t in range(T):
-        lg, state = tf.decode_step(params, toks2[:, t:t + 1], state, cfg,
+        lg, state = tf.decode_step(params, toks[:, t:t + 1], state, cfg,
                                    compute_dtype=f32)
         errs.append((lg[:, 0, :cfg.vocab] - full[:, t, :cfg.vocab]).abs()
                     .max())
     err = float(torch.stack(errs).max())
     err_last = max_err(last[:, 0, :cfg.vocab], full[:, -1, :cfg.vocab])
     scale = float(full[..., :cfg.vocab].abs().max())
-    print(f"  {name} float32 forward vs decode_step over {T} positions, "
+    moe = (f"; capacity factor {cfg.capacity_factor}, dropped "
+           f"{float(aux.dropped)}" if cfg.moe_experts else "")
+    cross = "; over precomputed cross K/V" if enc is not None else ""
+    print(f"  {cfg.name} float32 forward vs decode_step over {T} positions, "
           f"B=2: max|dlogit| {err:.3e} (tol {TOL_CONSISTENCY}; max|logit| "
-          f"{scale:.3f}); logits_last_only vs full {err_last:.3e}",
-          flush=True)
+          f"{scale:.3f}); logits_last_only vs full {err_last:.3e}{moe}"
+          f"{cross}", flush=True)
     if not (err <= TOL_CONSISTENCY and err_last <= TOL_CONSISTENCY):
-        fail(f"{name} forward and decode disagree: {err}, {err_last}")
-    del params, state, full
-    return launches
+        fail(f"{cfg.name} forward and decode disagree: {err}, {err_last}")
+    if cfg.moe_experts and float(aux.dropped) != 0:
+        fail(f"{cfg.name}: the consistency check's forward dropped "
+             f"{float(aux.dropped)}")
+    return err
+
+
+def moe_modes(torch, card: str, params, cfg, gen) -> None:
+    """One MoE layer at the prefill's shape (LM_BATCH x LM_SEQ tokens of
+    random normal input, bf16) in both dispatch modes, each call timed
+    (host clock, synchronized): at a capacity that drops nothing they must
+    agree (TOL_MOE_MODES); at MOE_TIGHT_CF they must drop as many pairs,
+    not the same ones; at the config's capacity they are timed."""
+    from repro_torch.models import moe
+    p = params["layers"][0]["moe"]
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    N = LM_BATCH * LM_SEQ
+    x = torch.randn((LM_BATCH, LM_SEQ, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    _, _, idx = moe.route(p, x.reshape(1, N, -1), k)
+    most = int(torch.bincount(idx.flatten(), minlength=E).max())
+    roomy = (most + 1) * E / (N * k)
+    if moe.capacity(N, k, E, roomy) < most:
+        fail(f"MoE check: capacity factor {roomy} leaves fewer than {most} "
+             f"slots")
+    runs = {}
+    for cf in (cfg.capacity_factor, roomy, MOE_TIGHT_CF):
+        for mode in moe.DISPATCH:
+            moe.moe_ffn(p, x, top_k=k, capacity_factor=cf, dispatch=mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y, aux = moe.moe_ffn(p, x, top_k=k, capacity_factor=cf,
+                                 dispatch=mode)
+            torch.cuda.synchronize()
+            runs[cf, mode] = (y, float(aux.dropped_fraction),
+                              (time.perf_counter() - t0) * 1e3)
+    for cf in (cfg.capacity_factor, roomy, MOE_TIGHT_CF):
+        (ye, de, te), (yg, dg, tg) = runs[cf, "einsum"], runs[cf, "gather"]
+        print(f"  [{card}] one MoE layer at {LM_BATCH} x {LM_SEQ} tokens, "
+              f"bf16, capacity factor {cf:.4f} (C = "
+              f"{moe.capacity(N, k, E, cf)}; the busiest expert has {most} "
+              f"pairs): einsum {te:.3f} ms, gather {tg:.3f} ms; dropped "
+              f"{de:.5f} / {dg:.5f}; max|einsum - gather| "
+              f"{max_err(ye, yg):.3e}, bitwise {bool(torch.equal(ye, yg))}",
+              flush=True)
+    (ye, de, _), (yg, dg, _) = runs[roomy, "einsum"], runs[roomy, "gather"]
+    err, tol = max_err(ye, yg), TOL_MOE_MODES * float(ye.abs().max())
+    (yt, dt, _), (ytg, dtg, _) = (runs[MOE_TIGHT_CF, "einsum"],
+                                  runs[MOE_TIGHT_CF, "gather"])
+    parted = max_err(yt, ytg)
+    if not (de == dg == 0 and err <= tol):
+        fail(f"MoE dispatch modes disagree with nothing dropped: dropped "
+             f"{de} / {dg}, error {err} > {tol}")
+    if not (dt == dtg > 0 and parted > tol):
+        fail(f"MoE dispatch modes under capacity {MOE_TIGHT_CF}: dropped "
+             f"{dt} / {dtg}, outputs apart by {parted} (the modes keep "
+             f"other pairs)")
+
+
+def moe_drops(torch, card: str, params, cfg, gen, toks, aux) -> None:
+    """Where the prefill's drops come from. The prefill's forward (bf16,
+    the config's capacity and dispatch) again on three token streams of
+    LM_BATCH x LM_SEQ: the main path's Zipf stream ``toks`` (its Aux must
+    equal the main path's ``aux``), uniform ids and distinct ids (no id
+    repeats). Each MoE layer's input is routed once more beside the layer
+    (``moe.route`` on the layer's router, as ``moe_ffn`` routes it) for its
+    per-expert pair counts: the layer's dropped pairs must be the overflow
+    those counts give at its C, sum_e max(0, count_e - C), plus at most its
+    zero gates (einsum mode), or the dispatch dropped pairs that fit.
+    Prints each layer's dropped fraction, its busiest expert's pairs and
+    the share of its input's energy in the input's mean over all tokens
+    and, averaged over the sequences, over each sequence's tokens (a
+    direction the tokens share); and the first MoE layer's routing of the
+    token embeddings alone (its own norm and router, no attention before
+    it): the drops that the stream's id repeats cause by themselves."""
+    from repro_torch.models import layers, moe
+    from repro_torch.models import transformer as tf
+    E, k = cfg.moe_experts, cfg.moe_top_k
+    N = LM_BATCH * LM_SEQ
+    C = moe.capacity(N, k, E, cfg.capacity_factor)
+    shape = (LM_BATCH, LM_SEQ)
+    first = params["layers"][[d.moe for d in cfg.plan()].index(True)]
+    _, norm = layers.make_norm(cfg)
+
+    def share(xf):                    # (..., tokens, d) float32
+        return (xf.mean(-2).pow(2).sum(-1)
+                / xf.pow(2).sum(-1).mean(-1)).mean()
+
+    def overflow(counts):
+        return int((counts - C).clamp(min=0).sum())
+
+    streams = {
+        "Zipf (the main path's)": toks,
+        "uniform": torch.randint(0, cfg.vocab, shape, generator=gen,
+                                 device="cuda"),
+        "distinct": torch.randperm(cfg.vocab, generator=gen,
+                                   device="cuda")[:N].reshape(shape)}
+    plain, rows = moe.moe_ffn, []
+
+    def recorded(p, x, **kw):
+        y, a = plain(p, x, **kw)
+        _, gates, idx = moe.route(p, x.reshape(1, N, -1), k)
+        counts = torch.bincount(idx.flatten(), minlength=E)
+        xf = x.reshape(LM_BATCH, LM_SEQ, -1).to(torch.float32)
+        rows.append(dict(
+            dropped=round(float(a.dropped_fraction) * N * k),
+            overflow=overflow(counts), zero=int((gates == 0).sum()),
+            busiest=int(counts.max()), shared=float(share(xf.reshape(N, -1))),
+            shared_seq=float(share(xf))))
+        return y, a
+
+    moe.moe_ffn = recorded
+    try:
+        for name, t in streams.items():
+            rows.clear()
+            _, a = tf.forward(params, t, cfg, logits_last_only=True)
+            ids = torch.bincount(t.flatten())
+            emb = norm(layers.embed(params["embed"], t).to(torch.bfloat16),
+                       first["ln2"])
+            _, _, idx = moe.route(first["moe"], emb.reshape(1, N, -1), k)
+            counts = torch.bincount(idx.flatten(), minlength=E)
+            print(f"  [{card}] {cfg.name} prefill MoE drops, {name} stream "
+                  f"({int((ids > 0).sum())} distinct ids, the commonest "
+                  f"{float(ids.max()) / N:.4f} of the tokens), C = {C}: "
+                  f"mean dropped {float(a.dropped):.5f}, load-balance loss "
+                  f"{float(a.moe_loss):.5f}; the first MoE layer routing "
+                  f"the embeddings alone: dropped "
+                  f"{overflow(counts) / (N * k):.5f}, busiest expert "
+                  f"{int(counts.max())} pairs", flush=True)
+            for i, r in enumerate(rows):
+                print(f"    MoE layer {i}: dropped {r['dropped'] / (N * k):.5f}"
+                      f" ({r['dropped']} pairs; overflow of the counts "
+                      f"{r['overflow']}, zero gates {r['zero']}), busiest "
+                      f"expert {r['busiest']} pairs, shared-direction share "
+                      f"{r['shared']:.4f} of all tokens, "
+                      f"{r['shared_seq']:.4f} within a sequence", flush=True)
+                if not r["overflow"] <= r["dropped"] <= (r["overflow"]
+                                                         + r["zero"]):
+                    fail(f"{cfg.name} MoE layer {i} ({name} stream) dropped "
+                         f"{r['dropped']} pairs; its counts overflow "
+                         f"{r['overflow']} slots, zero gates {r['zero']}")
+            if t is toks and not (torch.equal(a.dropped, aux.dropped) and
+                                  torch.equal(a.moe_loss, aux.moe_loss)):
+                fail(f"{cfg.name}: the drop reading's forward on the main "
+                     f"path's tokens gave {a}, the main path {aux}")
+    finally:
+        moe.moe_ffn = plain
+
+
+def encdec_path(torch, card: str, ops) -> dict:
+    """whisper-medium whole: ``encode`` of LM_BATCH x 1500 frames,
+    ``precompute_cross_kv``, a decoder prefill ``forward(enc_kv=...)`` at
+    T = max_seq, greedy generation over the cross K/V, then the float32
+    forward-vs-decode check; every attention launches the flash kernel
+    (bf16: flash_sm90), the encoder's and the cross-attention's without
+    the causal mask, counted apart."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("whisper-medium")
+    params, gen = init_lm(torch, card, cfg)
+    frames = torch.randn((LM_BATCH, cfg.enc_seq, cfg.d_model), generator=gen,
+                         device="cuda")
+    toks = synthetic.lm_tokens(gen, batch=LM_BATCH, seq=cfg.max_seq - 1,
+                               vocab=cfg.vocab)
+    prompt = synthetic.lm_tokens(gen, batch=LM_BATCH, seq=GEN_PROMPT - 1,
+                                 vocab=cfg.vocab)
+    enc = tf.encode(params, frames, cfg)                       # warm-up
+    tf.forward(params, toks, cfg, enc_kv=enc, logits_last_only=True)
+    torch.cuda.synchronize()
+
+    ops.reset_counts()
+    times = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[key] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    enc = timed("encode", lambda: tf.encode(params, frames, cfg))
+    timed("cross_kv", lambda: tf.precompute_cross_kv(params, enc, cfg))
+    logits, _ = timed("prefill", lambda: tf.forward(
+        params, toks, cfg, enc_kv=enc, logits_last_only=True))
+    step_ms: list = []
+    out = serve.prefill_then_decode(params, prompt, cfg,
+                                    max_len=GEN_PROMPT + GEN_NEW,
+                                    n_decode=GEN_NEW, step_ms=step_ms,
+                                    enc_kv=enc)
+    torch.cuda.synchronize()
+    launches = {"flash": ops.flash_launches, "sm90": ops.flash_sm90_launches,
+                "noncausal": ops.flash_noncausal_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_logits(torch, cfg.name, logits, (LM_BATCH, 1, cfg.vocab_padded),
+                 cfg.vocab)
+    check_generation(torch, cfg.name, out, prompt, cfg.vocab)
+    steps = GEN_PROMPT + GEN_NEW
+    want_nc = cfg.enc_layers + cfg.n_layers * (1 + steps)
+    want = want_nc + cfg.n_layers * (1 + steps)
+    p50 = sorted(step_ms)[len(step_ms) // 2]
+    print(f"  [{card}] {cfg.name} encode {LM_BATCH} x {cfg.enc_seq} frames: "
+          f"{times['encode']:.2f} ms; precompute_cross_kv "
+          f"{times['cross_kv']:.2f} ms; decoder prefill {LM_BATCH} x "
+          f"{cfg.max_seq} tokens over the encoder: {times['prefill']:.2f} ms",
+          flush=True)
+    print(f"  [{card}] {cfg.name} generation B={LM_BATCH}, prompt "
+          f"{GEN_PROMPT}, {GEN_NEW} greedy tokens over precomputed cross "
+          f"K/V: per-token latency p50 {p50:.3f} ms, max {max(step_ms):.3f} "
+          f"ms; peak device memory {peak_gb:.2f} GB", flush=True)
+    print(f"  {cfg.name} flash launches: {launches['flash']} ({want} "
+          f"expected), {launches['sm90']} flash_sm90, "
+          f"{launches['noncausal']} non-causal ({want_nc} expected: "
+          f"{cfg.enc_layers} encoder, {cfg.n_layers} x {1 + steps} cross)",
+          flush=True)
+    if not (launches["flash"] == launches["sm90"] == want
+            and launches["noncausal"] == want_nc):
+        fail(f"{cfg.name}: flash launches {launches}, expected {want} "
+             f"({want_nc} non-causal), all flash_sm90")
+    frames2 = torch.randn((2, cfg.enc_seq, cfg.d_model), generator=gen,
+                          device="cuda")
+    consistency(torch, params, cfg, gen, CONSISTENCY_T[cfg.name],
+                frames=frames2)
+    del params, enc, frames, frames2
+    torch.cuda.empty_cache()
+    return {"launches": launches, "times_ms": times, "p50_ms": p50,
+            "peak_gb": peak_gb}
+
+
+def mrope_positions(torch, batch: int, n_text: int, grid: tuple,
+                    n_after: int):
+    """Qwen2-VL's (t, h, w) position rows: ``n_text`` text tokens, a
+    t x h x w block of patches offset by the text before it, then text
+    positions from one past the block's largest; (batch, 3, T) on the
+    card."""
+    t, h, w = grid
+    text = torch.arange(n_text).expand(3, n_text)
+    tt, hh, ww = torch.meshgrid(torch.arange(t), torch.arange(h),
+                                torch.arange(w), indexing="ij")
+    vis = torch.stack([tt.flatten(), hh.flatten(), ww.flatten()]) + n_text
+    start = int(vis.max()) + 1
+    after = torch.arange(start, start + n_after).expand(3, n_after)
+    pos = torch.cat([text, vis, after], dim=1)
+    return pos.expand(batch, 3, pos.shape[1]).contiguous().to("cuda")
+
+
+def vlm_path(torch, card: str, ops) -> dict:
+    """qwen2-vl-72b at full width, VLM_LAYERS of its layers: a prefill of
+    LM_BATCH x LM_SEQ through ``forward(inputs_embeds=..., positions=(B,
+    3, T))``, text embeddings around a block of random patch embeddings at
+    M-RoPE grid positions; then, in float32, ``forward(inputs_embeds=
+    embed(tokens))`` with broadcast positions against ``forward(tokens)``,
+    bit for bit."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+
+    full = get_config("qwen2-vl-72b")
+    print(f"  reduced: n_layers {full.n_layers} -> {VLM_LAYERS} (float32 "
+          f"weights; all {full.n_layers} take "
+          f"{4 * full.param_counts()['total'] / 1e9:.0f} GB)", flush=True)
+    cfg = full.scaled(n_layers=VLM_LAYERS)
+    params, gen = init_lm(torch, card, cfg)
+    n_text, grid = VLM_TEXT, VLM_GRID
+    n_vis = grid[0] * grid[1] * grid[2]
+    pos = mrope_positions(torch, LM_BATCH, n_text, grid,
+                          LM_SEQ - n_text - n_vis)
+    toks = synthetic.lm_tokens(gen, batch=LM_BATCH, seq=LM_SEQ - 1,
+                               vocab=cfg.vocab)
+    embeds = layers.embed(params["embed"], toks)
+    embeds[:, n_text:n_text + n_vis] = torch.randn(
+        (LM_BATCH, n_vis, cfg.d_model), generator=gen, device="cuda") * 0.02
+    distinct = bool((pos[:, 0] != pos[:, 1]).any()
+                    and (pos[:, 1] != pos[:, 2]).any())
+    if not distinct:
+        fail("the M-RoPE position rows are not distinct")
+
+    ops.reset_counts()
+    tf.forward(params, None, cfg, inputs_embeds=embeds, positions=pos,
+               logits_last_only=True)                          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = tf.forward(params, None, cfg, inputs_embeds=embeds,
+                           positions=pos, logits_last_only=True)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.flash_launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check_logits(torch, cfg.name, logits, (LM_BATCH, 1, cfg.vocab_padded),
+                 cfg.vocab)
+    print(f"  [{card}] {cfg.name} prefill {LM_BATCH} x {LM_SEQ} from "
+          f"inputs_embeds ({n_text} text, {grid[0]}x{grid[1]}x{grid[2]} "
+          f"patches, {LM_SEQ - n_text - n_vis} text), (B, 3, T) positions: "
+          f"{prefill_ms:.1f} ms, {LM_BATCH * LM_SEQ / prefill_ms * 1e3:.0f} "
+          f"tokens/s; logits finite; flash launches {launches} "
+          f"({ops.flash_sm90_launches} flash_sm90); peak device memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    if not (launches == ops.flash_sm90_launches == 2 * cfg.n_layers):
+        fail(f"{cfg.name}: {launches} flash launches "
+             f"({ops.flash_sm90_launches} sm90), expected "
+             f"{2 * cfg.n_layers}")
+
+    f32 = torch.float32
+    T = CONSISTENCY_T["qwen3-1.7b"]
+    toks2 = synthetic.lm_tokens(gen, batch=2, seq=T - 1, vocab=cfg.vocab)
+    pos3 = torch.arange(T, device="cuda").expand(2, 3, T)
+    a, _ = tf.forward(params, None, cfg, compute_dtype=f32, positions=pos3,
+                      inputs_embeds=layers.embed(params["embed"], toks2))
+    b, _ = tf.forward(params, toks2, cfg, compute_dtype=f32)
+    same = bool(torch.equal(a, b))
+    print(f"  {cfg.name} float32 forward(inputs_embeds=embed(tokens), "
+          f"(B, 3, T) broadcast positions) vs forward(tokens), B=2, T={T}: "
+          f"bitwise {same}, max|d| {max_err(a, b):.3e}", flush=True)
+    if not same:
+        fail(f"{cfg.name}: inputs_embeds of the tokens changed the logits")
+    del params, embeds, a, b
+    torch.cuda.empty_cache()
+    return {"launches": launches, "prefill_ms": prefill_ms,
+            "peak_gb": peak_gb}
 
 
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
             yield from _leaves(v)
     elif tree is not None:
         yield tree
@@ -3670,14 +4160,54 @@ def main() -> int:
     del data
     torch.cuda.empty_cache()
 
+    from repro_torch.configs.registry import get_config
+    flash = (attn_ops, "flash_launches", "flash_sm90_launches")
     print("phase 5: LM main path, qwen3-1.7b", flush=True)
-    launches["flash_attention"] = lm_path(
-        torch, card, "qwen3-1.7b",
-        (attn_ops, "flash_launches", "flash_sm90_launches"))
+    cfg = get_config("qwen3-1.7b")
+    params, gen = init_lm(torch, card, cfg)
+    launches["flash_attention"] = lm_path(torch, card, cfg, flash, params,
+                                          gen)["launches"]
+    del params
+    torch.cuda.empty_cache()
+
+    print("phase 5b: LM MoE, qwen3-moe-30b-a3b", flush=True)
+    full = get_config("qwen3-moe-30b-a3b")
+    print(f"  reduced: n_layers {full.n_layers} -> {MOE_LAYERS} (float32 "
+          f"weights; all {full.n_layers} take "
+          f"{4 * full.param_counts()['total'] / 1e9:.0f} GB)", flush=True)
+    moe_cfg = full.scaled(n_layers=MOE_LAYERS)
+    params, gen = init_lm(torch, card, moe_cfg)
+    moe_run = lm_path(
+        torch, card, moe_cfg, flash, params, gen,
+        # every pair fits: C = int(n k / E * E / k) = n tokens
+        check_cfg=moe_cfg.scaled(
+            capacity_factor=moe_cfg.moe_experts / moe_cfg.moe_top_k))
+    moe_modes(torch, card, params, moe_cfg, gen)
+    moe_drops(torch, card, params, moe_cfg, gen, moe_run["tokens"],
+              moe_run["aux"])
+    del params
+    torch.cuda.empty_cache()
+
+    print("phase 5c: LM encoder-decoder, whisper-medium", flush=True)
+    encdec = encdec_path(torch, card, attn_ops)
+
+    print("phase 5d: LM VLM input, qwen2-vl-72b", flush=True)
+    vlm = vlm_path(torch, card, attn_ops)
+    flash_row = next(r for r in rows if r["name"] == "flash_attention")
+    flash_row.update(launches_moe=moe_run["launches"],
+                     launches_encdec=encdec["launches"]["flash"],
+                     launches_encdec_noncausal=encdec["launches"][
+                         "noncausal"],
+                     launches_vlm=vlm["launches"])
 
     print("phase 6: LM main path, mamba2-130m", flush=True)
+    cfg = get_config("mamba2-130m")
+    params, gen = init_lm(torch, card, cfg)
     launches["ssd_intra_chunk"] = lm_path(
-        torch, card, "mamba2-130m", (ssd_ops, "ssd_launches", None))
+        torch, card, cfg, (ssd_ops, "ssd_launches", None), params,
+        gen)["launches"]
+    del params
+    torch.cuda.empty_cache()
 
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -19,7 +19,6 @@ import numpy as np
 import torch
 
 from repro_torch.core import api, picf
-from repro_torch.models import transformer as tf
 from repro_torch.optim.adam import AdamState
 
 _PARAM_KEYS = ("log_signal", "log_noise", "log_lengthscale")
@@ -65,7 +64,7 @@ def adam_state_from_arrays(state, *, device, dtype=None) -> AdamState:
                      _tree(state.nu, device, dtype))
 
 
-_NORM_KEYS = ("ln1", "ln2", "norm", "q_norm", "k_norm")
+_NORM_KEYS = ("ln1", "ln2", "ln_x", "norm", "q_norm", "k_norm")
 
 
 def _tree(node, device, dtype, index=None):
@@ -94,9 +93,11 @@ def lm_params_from_arrays(tree: Mapping, cfg, *, device, dtype=None) -> dict:
     ``tree["rest"]``. The port's ``params["layers"][i * period + pos]`` is
     stacked entry ``i`` of position ``pos``; the remainder layers follow.
     Leaves keep their layouts (``conv_w`` stays (K, conv_dim): the port's
-    causal conv is the same sum of shifted products).
+    causal conv is the same sum of shifted products). A layer's
+    ``ln_x``/``cross`` (enc-dec) and ``moe`` come across with it; an
+    enc-dec model's ``encoder`` stack (leading axis ``enc_layers``) becomes
+    the list ``params["encoder"]``, beside ``enc_norm``.
     """
-    tf.check_supported(cfg)
     period = cfg.period
     n_full = cfg.n_layers // period
     stack = tree.get("stack", ())
@@ -110,6 +111,11 @@ def lm_params_from_arrays(tree: Mapping, cfg, *, device, dtype=None) -> dict:
     layer_list = [_tree(stack[pos], device, dtype, index=i)
                   for i in range(n_full) for pos in range(period)]
     layer_list += [_tree(r, device, dtype) for r in rest]
-    return {"embed": _tree(tree["embed"], device, dtype),
-            "layers": layer_list,
-            "final_norm": _tree(tree["final_norm"], device, None)}
+    params = {"embed": _tree(tree["embed"], device, dtype),
+              "layers": layer_list,
+              "final_norm": _tree(tree["final_norm"], device, None)}
+    if cfg.enc_dec:
+        params["encoder"] = [_tree(tree["encoder"], device, dtype, index=i)
+                             for i in range(cfg.enc_layers)]
+        params["enc_norm"] = _tree(tree["enc_norm"], device, None)
+    return params

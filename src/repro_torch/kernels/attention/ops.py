@@ -19,9 +19,11 @@ back. ``route`` picks the kernel from the inputs alone:
   consistency checks.
 
 ``flash_launches`` counts every kernel launch; ``flash_sm90_launches`` those
-of the Hopper kernel. No kernel has a backward: given CUDA tensors that
-require grad, in grad mode, ``attention`` raises (``build.refuse_grad``)
-rather than return a tensor cut from the graph.
+of the Hopper kernel, ``flash_noncausal_launches`` those without the causal
+mask (an encoder's self-attention, cross-attention). No kernel has a
+backward: given CUDA tensors that require grad, in grad mode,
+``attention`` raises (``build.refuse_grad``) rather than return a tensor
+cut from the graph.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from repro_torch.kernels.attention import ref
 
 flash_launches = 0
 flash_sm90_launches = 0
+flash_noncausal_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 _GRID_MAX = 65535      # the f32 kernel's B * Hq, the sm90 kernel's tiles
@@ -43,8 +46,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
 def reset_counts() -> None:
-    global flash_launches, flash_sm90_launches
-    flash_launches = flash_sm90_launches = 0
+    global flash_launches, flash_sm90_launches, flash_noncausal_launches
+    flash_launches = flash_sm90_launches = flash_noncausal_launches = 0
 
 
 @functools.cache
@@ -107,7 +110,7 @@ def _strides(t: torch.Tensor) -> list[int]:
 
 
 def _launch(q, k, v, out, causal, window, scale, q_offset) -> None:
-    global flash_launches, flash_sm90_launches
+    global flash_launches, flash_sm90_launches, flash_noncausal_launches
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     strides = torch.tensor([s for t in (q, k, v, out) for s in _strides(t)],
@@ -122,6 +125,7 @@ def _launch(q, k, v, out, causal, window, scale, q_offset) -> None:
     build.check(lib, code, "flash_attention launch")
     flash_launches += 1
     flash_sm90_launches += q.dtype == torch.bfloat16
+    flash_noncausal_launches += not causal
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,6 +1,8 @@
 """Generation loop of the LM — port of ``prefill_then_decode`` from
-``repro.launch.serve``. The sharded serve step (``make_serve_step``,
-``serve_state_specs``) waits for the multi-device slice of the port.
+``repro.launch.serve``, which also serves an enc-dec model given its
+encoder's output (the loop of ``examples/lm_serve.py``, over cross K/V
+projected once). The sharded serve step (``make_serve_step``,
+``serve_state_specs``) waits for the LM's sharding over a mesh.
 """
 from __future__ import annotations
 
@@ -16,12 +18,17 @@ def prefill_then_decode(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                         *, max_len: int, n_decode: int,
                         temperature: float = 0.0,
                         generator: torch.Generator | None = None,
-                        step_ms: list | None = None) -> torch.Tensor:
+                        step_ms: list | None = None,
+                        enc_kv: torch.Tensor | None = None) -> torch.Tensor:
     """Reference generation loop: the prompt goes through decode steps one
     token at a time (simple and exact, as in the reference), then
     ``n_decode`` tokens are chosen greedily, or sampled at ``temperature``
     from ``generator`` when both are given. bfloat16 compute and caches, the
     reference's defaults. Returns (B, T + n_decode).
+
+    ``enc_kv``: an enc-dec model's encoder output (``transformer.encode``);
+    every decoder layer's cross K/V are projected from it once
+    (``precompute_cross_kv``) and every step attends over them.
 
     ``step_ms``: when a list is given, each generated token's step (choose
     the token, then the decode step) is synchronised with the device and
@@ -36,6 +43,9 @@ def prefill_then_decode(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
         raise ValueError(f"prompt {T} + {n_decode} new tokens exceed "
                          f"max_len {max_len}")
     state = tf.init_serve(cfg, B, max_len, device=tokens.device)
+    if enc_kv is not None:
+        state = state._replace(cross_kv=tf.precompute_cross_kv(params,
+                                                               enc_kv, cfg))
     logits = None
     for t in range(T):
         logits, state = tf.decode_step(params, tokens[:, t:t + 1], state, cfg)

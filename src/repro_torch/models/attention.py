@@ -1,12 +1,15 @@
-"""Attention layer: GQA projections, RoPE/M-RoPE, qk-norm, sliding window and
-the KV cache for decode — port of ``repro.models.attention`` (cross
-attention for enc-dec models is not ported yet).
+"""Attention layer: GQA projections, RoPE/M-RoPE, qk-norm, sliding window,
+the KV cache for decode and cross-attention for enc-dec models — port of
+``repro.models.attention``.
 
-Both the full-sequence path and the decode step score through
-``kernels.attention.ops.attention``: the flash CUDA kernel for CUDA tensors
-(the JAX package sends its decode call to the jnp path; here it is the same
-kernel with Tq = 1 and q_offset = the cache length), the plain version for
-CPU tensors. The ring-buffer decode branch stays inline PyTorch, as in JAX.
+The full-sequence path, the decode step and cross-attention all score
+through ``kernels.attention.ops.attention``: the flash CUDA kernel for CUDA
+tensors, the plain version for CPU tensors. The JAX package sends its
+decode and cross-attention calls to the jnp path; here they are the same
+kernel, with Tq = 1 and q_offset = the cache length for decode, and
+``causal=False`` against the encoder's keys for cross-attention (and for
+the encoder's own self-attention). The ring-buffer decode branch stays
+inline PyTorch, as in JAX.
 
 The KV cache is updated in place: ``attend_decode`` writes the new key and
 value into the cache's buffers and returns a ``KVCache`` over the same
@@ -29,8 +32,11 @@ class KVCache(NamedTuple):
     length: int        # filled prefix
 
 
-def init_attn(gen: torch.Generator, cfg, *, device,
+def init_attn(gen: torch.Generator, cfg, *, cross: bool = False, device,
               dtype=torch.float32) -> dict:
+    """The projections of one attention layer. A cross-attention layer
+    (``cross``) has the same leaves: its wk and wv project the encoder's
+    states."""
     d, hd = cfg.d_model, cfg.head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     s = d ** -0.5
@@ -142,6 +148,36 @@ def attend_decode(params: dict, x: torch.Tensor, cfg, cache: KVCache, *,
                                q_offset=n)
     y = _merge(o, params, x, compute_dtype)
     return y, KVCache(cache.k, cache.v, n + 1)
+
+
+def project_cross_kv(params: dict, enc_kv: torch.Tensor, cfg,
+                     compute_dtype=torch.bfloat16):
+    """Encoder-side K and V of one cross-attention layer, (B, Hkv, Te, hd)
+    each: computed once per request, not at every decode step."""
+    B, Te, _ = enc_kv.shape
+    hd = cfg.head_dim
+    k = _heads(layers.matmul(enc_kv, params["wk"], compute_dtype), B, Te,
+               cfg.n_kv_heads, hd)
+    v = _heads(layers.matmul(enc_kv, params["wv"], compute_dtype), B, Te,
+               cfg.n_kv_heads, hd)
+    return k, v
+
+
+def attend_cross(params: dict, x: torch.Tensor, enc_kv, cfg,
+                 compute_dtype=torch.bfloat16, kv=None) -> torch.Tensor:
+    """Cross-attention of x (B, T, d) over the encoder's output ``enc_kv``,
+    or over its precomputed (k, v) given as ``kv``: no RoPE, no mask. The
+    queries take qk-norm as the reference's do; the encoder's keys do
+    not."""
+    B, T, _ = x.shape
+    q = _heads(layers.matmul(x, params["wq"], compute_dtype), B, T,
+               cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
+    k, v = kv if kv is not None else project_cross_kv(params, enc_kv, cfg,
+                                                      compute_dtype)
+    o = attn_ops.attention(q, k, v, causal=False)
+    return _merge(o, params, x, compute_dtype)
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device,

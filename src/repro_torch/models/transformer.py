@@ -1,12 +1,14 @@
-"""Generic LM stack for the dense and SSM families — port of
-``repro.models.transformer``, driven by ``ModelConfig.layer_pattern``.
+"""Generic LM stack: decoder-only, hybrid SSM/attention, MoE interleaves and
+encoder-decoder — port of ``repro.models.transformer``, driven by
+``ModelConfig.layer_pattern``.
 
 The JAX package stacks the layer parameters per pattern position and scans
 over periods. The port keeps a flat list instead: ``params["layers"][i]`` is
 layer i of ``cfg.plan()``, so stacked leaf ``[pos][i]`` of the reference is
-layer ``i * period + pos``, and the remainder layers follow. Configurations
-with MoE layers or an encoder raise ``NotImplementedError``: those paths
-are still to be ported (ROADMAP queue 1, "MoE/enc-dec/VLM").
+layer ``i * period + pos``, and the remainder layers follow. An enc-dec
+model's encoder is the list ``params["encoder"]`` (``enc_layers`` layers,
+the reference's stacked leaf ``[i]``), and its precomputed cross K/V are one
+(k, v) pair per decoder layer, in layer order.
 """
 from __future__ import annotations
 
@@ -17,19 +19,12 @@ import torch
 from repro_torch import device as _device
 from repro_torch.configs.base import LayerDesc, ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, ssm
+from repro_torch.models import layers, moe, ssm
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the reference not ported yet."""
-    if cfg.enc_dec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet "
-            f"(ROADMAP queue 1, MoE/enc-dec/VLM)")
-    if any(d.moe for d in cfg.layer_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP queue 1, "
-            f"MoE/enc-dec/VLM)")
+class Aux(NamedTuple):
+    moe_loss: torch.Tensor    # load-balance loss, mean over the MoE layers
+    dropped: torch.Tensor     # dropped fraction, mean over the MoE layers
 
 
 # ---------------------------------------------------------------------------
@@ -37,14 +32,21 @@ def check_supported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, desc: LayerDesc, *,
-               device, dtype=torch.float32) -> dict:
+               cross: bool = False, device, dtype=torch.float32) -> dict:
     norm_init, _ = layers.make_norm(cfg)
     p = {"ln1": norm_init(device), "ln2": norm_init(device)}
     if desc.kind == "attn":
         p["attn"] = attn.init_attn(gen, cfg, device=device, dtype=dtype)
     else:
         p["ssm"] = ssm.init_ssm(gen, cfg, device=device, dtype=dtype)
-    if cfg.d_ff > 0:
+    if cross:
+        p["ln_x"] = norm_init(device)
+        p["cross"] = attn.init_attn(gen, cfg, cross=True, device=device,
+                                    dtype=dtype)
+    if desc.moe:
+        p["moe"] = moe.init_moe(gen, cfg.d_model, cfg.moe_d_ff,
+                                cfg.moe_experts, device=device, dtype=dtype)
+    elif cfg.d_ff > 0:
         p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff,
                                    device=device, dtype=dtype)
     else:
@@ -57,17 +59,23 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
     """Random parameters with the reference's scales (in distribution, not
     bit for bit), on the CUDA card unless ``device`` names another.
     ``generator`` must live on that device."""
-    check_supported(cfg)
     dev = _device.resolve(device)
     params = {
         "embed": layers.init_embed(generator, cfg.vocab_padded, cfg.d_model,
                                    cfg.tie_embeddings, device=dev,
                                    dtype=dtype),
-        "layers": [init_layer(generator, cfg, desc, device=dev, dtype=dtype)
+        "layers": [init_layer(generator, cfg, desc, cross=cfg.enc_dec,
+                              device=dev, dtype=dtype)
                    for desc in cfg.plan()],
     }
     norm_init, _ = layers.make_norm(cfg)
     params["final_norm"] = norm_init(dev)
+    if cfg.enc_dec:
+        enc_desc = LayerDesc(kind="attn")
+        params["encoder"] = [init_layer(generator, cfg, enc_desc, device=dev,
+                                        dtype=dtype)
+                             for _ in range(cfg.enc_layers)]
+        params["enc_norm"] = norm_init(dev)
     return params
 
 
@@ -75,9 +83,21 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
 # layer application (shared by prefill and decode)
 # ---------------------------------------------------------------------------
 
+def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
+         compute_dtype):
+    """The layer's FFN on its normed input: (y, MoEAux or None)."""
+    if desc.moe:
+        return moe.moe_ffn(p["moe"], h, top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.capacity_factor,
+                           dispatch=cfg.moe_dispatch,
+                           compute_dtype=compute_dtype)
+    return layers.mlp(p["mlp"], h, compute_dtype=compute_dtype), None
+
+
 def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
-                *, positions=None, causal: bool = True,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
+                *, positions=None, enc_kv=None, causal: bool = True,
+                compute_dtype=torch.bfloat16):
+    """One layer of the full sequence: (x, MoEAux or None)."""
     _, norm = layers.make_norm(cfg)
     h = norm(x, p["ln1"])
     if desc.kind == "attn":
@@ -87,14 +107,18 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
     else:
         h = ssm.ssm_mixer(p["ssm"], h, cfg, compute_dtype=compute_dtype)
     x = x + h
+    if enc_kv is not None and "cross" in p:
+        x = x + attn.attend_cross(p["cross"], norm(x, p["ln_x"]), enc_kv,
+                                  cfg, compute_dtype=compute_dtype)
     if "ln2" not in p:                       # pure-mixer block (no FFN)
-        return x
-    return x + layers.mlp(p["mlp"], norm(x, p["ln2"]),
-                          compute_dtype=compute_dtype)
+        return x, None
+    y, aux = _ffn(p, norm(x, p["ln2"]), cfg, desc, compute_dtype)
+    return x + y, aux
 
 
 def apply_layer_decode(p: dict, x: torch.Tensor, cache, cfg: ModelConfig,
-                       desc: LayerDesc, *, compute_dtype=torch.bfloat16):
+                       desc: LayerDesc, *, enc_kv=None, cross_kv=None,
+                       compute_dtype=torch.bfloat16):
     _, norm = layers.make_norm(cfg)
     h = norm(x, p["ln1"])
     if desc.kind == "attn":
@@ -105,37 +129,72 @@ def apply_layer_decode(p: dict, x: torch.Tensor, cache, cfg: ModelConfig,
         h, cache = ssm.ssm_decode(p["ssm"], h, cfg, cache,
                                   compute_dtype=compute_dtype)
     x = x + h
+    if (enc_kv is not None or cross_kv is not None) and "cross" in p:
+        x = x + attn.attend_cross(p["cross"], norm(x, p["ln_x"]), enc_kv,
+                                  cfg, compute_dtype=compute_dtype,
+                                  kv=cross_kv)
     if "ln2" not in p:
         return x, cache
-    return x + layers.mlp(p["mlp"], norm(x, p["ln2"]),
-                          compute_dtype=compute_dtype), cache
+    y, _ = _ffn(p, norm(x, p["ln2"]), cfg, desc, compute_dtype)
+    return x + y, cache
 
 
 # ---------------------------------------------------------------------------
-# forward (prefill)
+# encoder and forward (prefill)
 # ---------------------------------------------------------------------------
 
-def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
-            positions=None, compute_dtype=torch.bfloat16,
-            logits_last_only: bool = False) -> torch.Tensor:
-    """tokens: (B, T) -> float32 logits (B, T, vocab_padded), or (B, 1,
-    vocab_padded) with ``logits_last_only`` (serving prefill: the unembed of
-    the last position only). The JAX function also returns an MoE aux; the
-    port has no MoE layer, so it returns the logits alone."""
-    check_supported(cfg)
-    x = layers.embed(params["embed"], tokens).to(compute_dtype)
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
+           compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Encoder of an enc-dec model. ``frames``: the frontend's embeddings
+    (B, Te, d), a stub in the reference too. Bidirectional self-attention
+    with RoPE; the residual stream stays in ``frames``' dtype, as in the
+    reference."""
+    _, norm = layers.make_norm(cfg)
+    x = frames
+    for p in params["encoder"]:
+        h = attn.attend(p["attn"], norm(x, p["ln1"]), cfg, causal=False,
+                        compute_dtype=compute_dtype)
+        x = x + h
+        x = x + layers.mlp(p["mlp"], norm(x, p["ln2"]),
+                           compute_dtype=compute_dtype)
+    return norm(x, params["enc_norm"])
+
+
+def forward(params: dict, tokens, cfg: ModelConfig, *, positions=None,
+            enc_kv=None, inputs_embeds=None, compute_dtype=torch.bfloat16,
+            logits_last_only: bool = False):
+    """tokens: (B, T) -> (float32 logits (B, T, vocab_padded), Aux), or
+    logits (B, 1, vocab_padded) with ``logits_last_only`` (serving prefill:
+    the unembed of the last position only).
+
+    ``inputs_embeds`` (B, T, d) replaces the token embedding (a VLM's patch
+    embeddings; ``tokens`` is then not read); ``positions`` is (B, T), or
+    (B, 3, T) (t, h, w) rows for M-RoPE; ``enc_kv`` is ``encode``'s output
+    for the decoder's cross-attention. ``Aux`` holds the MoE layers' mean
+    load-balance loss and dropped fraction (zeros without MoE layers)."""
+    x = (inputs_embeds if inputs_embeds is not None
+         else layers.embed(params["embed"], tokens)).to(compute_dtype)
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
+    loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    dropped = torch.zeros((), dtype=torch.float32, device=x.device)
+    n_moe = 0
     for p, desc in zip(params["layers"], cfg.plan()):
-        x = apply_layer(p, x, cfg, desc, positions=positions,
-                        compute_dtype=compute_dtype)
+        x, aux = apply_layer(p, x, cfg, desc, positions=positions,
+                             enc_kv=enc_kv, compute_dtype=compute_dtype)
+        if aux is not None:
+            loss = loss + aux.load_balance_loss
+            dropped = dropped + aux.dropped_fraction
+            n_moe += 1
     _, norm = layers.make_norm(cfg)
     if logits_last_only:
         x = x[:, -1:, :]
     x = norm(x, params["final_norm"])
-    return layers.unembed(params["embed"], x, compute_dtype=compute_dtype,
-                          n_valid=cfg.vocab)
+    logits = layers.unembed(params["embed"], x, compute_dtype=compute_dtype,
+                            n_valid=cfg.vocab)
+    n_moe = max(n_moe, 1)
+    return logits, Aux(loss / n_moe, dropped / n_moe)
 
 
 # ---------------------------------------------------------------------------
@@ -143,7 +202,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 class ServeState(NamedTuple):
-    caches: tuple    # one KVCache / SSMState per layer, in layer order
+    caches: tuple         # one KVCache / SSMState per layer, in layer order
+    enc_kv: object = None    # encoder output (enc-dec) or None
+    cross_kv: object = None  # per-layer (k, v) from precompute_cross_kv
 
 
 def _init_cache_for(cfg, desc: LayerDesc, batch: int, max_len: int, *,
@@ -156,29 +217,43 @@ def _init_cache_for(cfg, desc: LayerDesc, batch: int, max_len: int, *,
     return ssm.init_state(cfg, batch, device=device, conv_dtype=dtype)
 
 
-def init_serve(cfg: ModelConfig, batch: int, max_len: int, *, device=None,
-               cache_dtype=torch.bfloat16,
+def init_serve(cfg: ModelConfig, batch: int, max_len: int, *, enc_kv=None,
+               device=None, cache_dtype=torch.bfloat16,
                ring_cache: bool = False) -> ServeState:
-    check_supported(cfg)
     dev = _device.resolve(device)
     return ServeState(tuple(
         _init_cache_for(cfg, d, batch, max_len, device=dev,
                         dtype=cache_dtype, ring_cache=ring_cache)
-        for d in cfg.plan()))
+        for d in cfg.plan()), enc_kv)
+
+
+def precompute_cross_kv(params: dict, enc_kv: torch.Tensor, cfg: ModelConfig,
+                        compute_dtype=torch.bfloat16) -> tuple:
+    """Every decoder layer's encoder K/V, once per request: attach with
+    ``state._replace(cross_kv=..., enc_kv=None)`` and decode never projects
+    the encoder's states again."""
+    return tuple(attn.project_cross_kv(p["cross"], enc_kv, cfg,
+                                       compute_dtype)
+                 for p in params["layers"])
 
 
 def decode_step(params: dict, token: torch.Tensor, state: ServeState,
                 cfg: ModelConfig, *, compute_dtype=torch.bfloat16):
     """token: (B, 1) int -> (logits (B, 1, vocab_padded) float32, new
-    state). KV caches are updated in place (see ``models.attention``)."""
+    state). KV caches are updated in place (see ``models.attention``). An
+    enc-dec model attends over ``state.cross_kv`` when it is given, else
+    projects ``state.enc_kv`` at every layer."""
     x = layers.embed(params["embed"], token).to(compute_dtype)
+    cross = state.cross_kv or (None,) * len(params["layers"])
     caches = []
-    for p, desc, cache in zip(params["layers"], cfg.plan(), state.caches):
+    for p, desc, cache, ckv in zip(params["layers"], cfg.plan(),
+                                   state.caches, cross):
         x, cache = apply_layer_decode(p, x, cache, cfg, desc,
+                                      enc_kv=state.enc_kv, cross_kv=ckv,
                                       compute_dtype=compute_dtype)
         caches.append(cache)
     _, norm = layers.make_norm(cfg)
     x = norm(x, params["final_norm"])
     logits = layers.unembed(params["embed"], x, compute_dtype=compute_dtype,
                             n_valid=cfg.vocab)
-    return logits, ServeState(tuple(caches))
+    return logits, ServeState(tuple(caches), state.enc_kv, state.cross_kv)

@@ -99,3 +99,28 @@ def test_rows_sum_to_one():
     v = torch.full((1, 2, 128, 64), 3.5)
     out = ops.attention(tq, tk, v)
     assert float((out - 3.5).abs().max()) < 1e-5
+
+
+# non-causal, as an encoder's self-attention and cross-attention call it:
+# against the Pallas kernel in interpret mode where both lengths divide its
+# blocks, and against the oracle at whisper-like ragged lengths and Tq = 1
+NONCAUSAL_PALLAS = [(1, 4, 2, 64, 128, 64), (2, 4, 4, 128, 128, 32)]
+NONCAUSAL_ORACLE = [(2, 4, 2, 1, 150, 16), (1, 4, 4, 45, 150, 16),
+                    (1, 2, 1, 7, 1, 16)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D",
+                         NONCAUSAL_PALLAS + NONCAUSAL_ORACLE)
+def test_plain_non_causal_matches_the_reference(B, Hq, Hkv, Tq, Tk, D):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(B, Hq, Hkv, Tq, Tk, D, "float32",
+                                      Tq + Tk + D)
+    ops.reset_counts()
+    got = ops.attention(tq, tk, tv, causal=False)
+    assert ops.flash_launches == ops.flash_noncausal_launches == 0
+    oracle = jref.attention(jq, jk, jv, causal=False)
+    assert _err(got, oracle) < TOL["float32"]
+    if (B, Hq, Hkv, Tq, Tk, D) in NONCAUSAL_PALLAS:
+        pallas = jops.attention(jq, jk, jv, causal=False,
+                                impl="pallas_interpret", block_q=64,
+                                block_k=64)
+        assert _err(got, pallas) < TOL["float32"]

@@ -738,6 +738,35 @@ def test_flash_kernel_matches_plain(cuda, B, Hq, Hkv, Tq, Tk, D, window, off,
     assert flash_row_err(got, want, r) <= c
 
 
+# non-causal (an encoder's self-attention, cross-attention): whisper's
+# encoder, its cross prefill and decode step over 1500 frames, ragged GQA,
+# and a single key
+FLASH_NONCAUSAL_CASES = [(2, 16, 16, 1500, 1500, 64),
+                         (1, 16, 16, 448, 1500, 64),
+                         (4, 16, 16, 1, 1500, 64),
+                         (1, 4, 2, 100, 200, 48),
+                         (2, 4, 2, 16, 1, 64),
+                         (1, 4, 2, 129, 257, 128)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D", FLASH_NONCAUSAL_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_non_causal_matches_plain(cuda, B, Hq, Hkv, Tq, Tk, D,
+                                               dtype):
+    q, k, v = _qkv(cuda, dtype, B, Hq, Hkv, Tq, Tk, D, seed=4)
+    attn_ops.reset_counts()
+    runs = [attn_ops.attention(q, k, v, causal=False) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert attn_ops.flash_launches == attn_ops.flash_noncausal_launches == 3
+    assert attn_ops.flash_sm90_launches == 3 * (dtype == torch.bfloat16)
+    got = runs[0]
+    assert all(torch.equal(r, got) for r in runs[1:])
+    want = attn_ref.attention(q, k, v, causal=False)
+    assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
+    r, c = FLASH_ROW_TOL[dtype]
+    assert flash_row_err(got, want, r) <= c
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_takes_strided_views(cuda, dtype):
     """q/k/v as (B, T, H, D) buffers seen as (B, H, T, D), the layout the
@@ -867,12 +896,55 @@ def test_lm_on_the_card_matches_the_cpu(cuda, name, counter):
                          generator=torch.Generator().manual_seed(1))
     attn_ops.reset_counts()
     ssd_ops.reset_counts()
-    got = tf.forward(on_card, toks.to(cuda), cfg, compute_dtype=torch.float32)
+    got, _ = tf.forward(on_card, toks.to(cuda), cfg,
+                        compute_dtype=torch.float32)
     launches = {"flash": attn_ops.flash_launches,
                 "ssd": ssd_ops.ssd_launches}
     assert launches[counter] == cfg.n_layers
-    want = tf.forward(params, toks, cfg, compute_dtype=torch.float32)
+    want, _ = tf.forward(params, toks, cfg, compute_dtype=torch.float32)
     assert float((got.cpu() - want).abs().max()) < 1e-3
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return None if tree is None else tree.to(device)
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "whisper-medium"])
+def test_moe_and_encdec_on_the_card_match_the_cpu(cuda, name):
+    """MoE dispatch (einsum) and whisper's encoder and cross-attention on
+    the card against the CPU's plain path, float32 at smoke widths; every
+    attention launches the flash kernel, the encoder's and the cross
+    attention's without the causal mask."""
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.models import transformer as tf
+    cfg = smoke_config(name)
+    params = tf.init_model(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 32),
+                         generator=torch.Generator().manual_seed(1))
+    frames = torch.randn((2, cfg.enc_seq, cfg.d_model),
+                         generator=torch.Generator().manual_seed(2))
+    f32 = torch.float32
+
+    def run(p, device):
+        enc = (tf.encode(p, frames.to(device), cfg, compute_dtype=f32)
+               if cfg.enc_dec else None)
+        return tf.forward(p, toks.to(device), cfg, enc_kv=enc,
+                          compute_dtype=f32)
+
+    attn_ops.reset_counts()
+    got, aux = run(_to(params, cuda), cuda)
+    torch.cuda.synchronize()
+    n_cross = cfg.n_layers if cfg.enc_dec else 0
+    assert attn_ops.flash_launches == cfg.n_layers + cfg.enc_layers + n_cross
+    assert attn_ops.flash_noncausal_launches == cfg.enc_layers + n_cross
+    want, want_aux = run(params, "cpu")
+    assert float((got.cpu() - want).abs().max()) < 1e-3
+    assert float(aux.dropped) == float(want_aux.dropped)
 
 
 # --- routed pPIC serving (scatter, invariants, overflow) ---------------------

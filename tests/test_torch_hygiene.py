@@ -32,7 +32,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.runtime.fault", "repro_torch.runtime.straggler",
             "repro_torch.runtime.elastic",
             "repro_torch.kernels.attention.ops", "repro_torch.kernels.ssd.ops",
-            "repro_torch.models.transformer", "repro_torch.launch.serve",
+            "repro_torch.models.transformer", "repro_torch.models.moe",
+            "repro_torch.launch.serve",
             "repro_torch.configs.registry", "repro_torch.core.serialize",
             "repro_torch.launch.gp_serve", "repro_torch.serving",
             "repro_torch.serving.stats", "repro_torch.serving.health",

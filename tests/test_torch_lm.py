@@ -3,6 +3,9 @@
 qwen3-1.7b (attention, GQA, qk-norm) and mamba2-130m (SSD): the JAX model's
 weights are carried across by ``convert.lm_params_from_arrays``, the tokens
 are made with numpy from a seed, and both packages compute in float32.
+Every registered config builds, serves and converts at its smoke widths;
+the MoE, enc-dec and VLM-input paths are held against the JAX package in
+``test_torch_moe.py`` and ``test_torch_encdec.py``.
 """
 import dataclasses
 
@@ -54,11 +57,12 @@ def test_forward_logits_match(model):
     jcfg, cfg, jparams, params, toks = model
     want, _ = jtf.forward(jparams, jnp.asarray(toks), jcfg,
                           compute_dtype=jnp.float32)
-    got = tf.forward(params, torch.tensor(toks), cfg,
-                     compute_dtype=torch.float32)
+    got, aux = tf.forward(params, torch.tensor(toks), cfg,
+                          compute_dtype=torch.float32)
     assert got.shape == (B, T, cfg.vocab_padded)
     assert np.abs(_np(got) - _np(want)).max() < TOL_F32
-    last = tf.forward(params, torch.tensor(toks), cfg,
+    assert float(aux.moe_loss) == float(aux.dropped) == 0     # no MoE layer
+    last, _ = tf.forward(params, torch.tensor(toks), cfg,
                       compute_dtype=torch.float32, logits_last_only=True)
     want_last, _ = jtf.forward(jparams, jnp.asarray(toks), jcfg,
                                compute_dtype=jnp.float32,
@@ -123,8 +127,8 @@ def test_sampling_uses_the_generator(model):
 
 def test_forward_matches_decode_in_the_port(model):
     _, cfg, _, params, toks = model
-    full = tf.forward(params, torch.tensor(toks), cfg,
-                      compute_dtype=torch.float32)
+    full, _ = tf.forward(params, torch.tensor(toks), cfg,
+                         compute_dtype=torch.float32)
     state = tf.init_serve(cfg, B, T, device="cpu", cache_dtype=torch.float32)
     for t in range(T):
         lg, state = tf.decode_step(params, torch.tensor(toks[:, t:t + 1]),
@@ -159,14 +163,42 @@ def test_registry_names():
         registry.get_config("nope")
 
 
-@pytest.mark.parametrize("name", ["mixtral-8x22b", "qwen3-moe-30b-a3b",
-                                  "jamba-1.5-large-398b", "whisper-medium"])
-def test_moe_and_enc_dec_are_not_ported(name):
+@pytest.mark.parametrize("name", jreg.ARCH_NAMES)
+def test_every_config_builds_serves_and_converts(name):
+    """Every registered config, at its smoke widths: ``init_model``,
+    ``forward`` (over an encoder's output for enc-dec), ``init_serve`` and
+    a decode step run, and ``convert.lm_params_from_arrays`` carries the
+    JAX package's tree across with the port's own leaves and shapes."""
     cfg = registry.smoke_config(name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.init_model(cfg, generator=torch.Generator(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.init_serve(cfg, 1, 8, device="cpu")
+    p = tf.init_model(cfg, generator=torch.Generator().manual_seed(0),
+                      device="cpu")
+    toks = torch.zeros((1, 8), dtype=torch.long)
+    enc = None
+    if cfg.enc_dec:
+        enc = tf.encode(p, torch.zeros((1, cfg.enc_seq, cfg.d_model)), cfg,
+                        compute_dtype=torch.float32)
+    logits, aux = tf.forward(p, toks, cfg, enc_kv=enc,
+                             compute_dtype=torch.float32)
+    assert logits.shape == (1, 8, cfg.vocab_padded)
+    assert bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+    assert bool(torch.isfinite(aux.moe_loss)) and 0 <= float(aux.dropped) < 1
+    state = tf.init_serve(cfg, 1, 8, enc_kv=enc, device="cpu",
+                          cache_dtype=torch.float32)
+    lg, _ = tf.decode_step(p, toks[:, :1], state, cfg,
+                           compute_dtype=torch.float32)
+    assert lg.shape == (1, 1, cfg.vocab_padded)
+    tree = jax.tree.map(np.asarray, jtf.init_model(jax.random.PRNGKey(0),
+                                                   jreg.smoke_config(name)))
+    got = convert.lm_params_from_arrays(tree, cfg, device="cpu")
+
+    def shapes(t):
+        if isinstance(t, dict):
+            return {k: shapes(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [shapes(v) for v in t]
+        return None if t is None else tuple(t.shape)
+
+    assert shapes(got) == shapes(p)
 
 
 def test_init_model_needs_a_card_unless_told(monkeypatch):
@@ -257,8 +289,8 @@ def test_sliding_window_ring_cache_matches():
     toks = np.random.default_rng(4).integers(0, cfg.vocab, (B, T))
     want, _ = jtf.forward(jparams, jnp.asarray(toks), jcfg,
                           compute_dtype=jnp.float32)
-    got = tf.forward(params, torch.tensor(toks), cfg,
-                     compute_dtype=torch.float32)
+    got, _ = tf.forward(params, torch.tensor(toks), cfg,
+                        compute_dtype=torch.float32)
     assert np.abs(_np(got) - _np(want)).max() < TOL_F32
     jstate = jtf.init_serve(jcfg, B, 32, cache_dtype=jnp.float32,
                             ring_cache=True)
