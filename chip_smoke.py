@@ -7,8 +7,9 @@ card. Run from the root of a checkout, with one card visible:
 Phases, in order; any failure exits non-zero before the last line:
 
 1. card: name and power limit (nvidia-smi);
-2. build: the six CUDA sources (rbf, rbf_icf, xcov_diag,
-   flash_attention, ssd_intra_chunk, chol_downdate) from the checkout
+2. build: the eight CUDA sources (rbf, rbf_icf, xcov_diag,
+   flash_attention, flash_attention_bwd, ssd_intra_chunk,
+   ssd_intra_chunk_bwd, chol_downdate) from the checkout
    (nvcc, sm_90a, one compiler per source, started together) into
    build/kernels/; every float32 xcov_diag instance must hold wgmma (HGMMA)
    in its SASS;
@@ -33,7 +34,15 @@ Phases, in order; any failure exits non-zero before the last line:
    grid barriers and the plain version). Each flash, SSD, xcov_diag, ICF
    and downdate case runs three times and every run must equal the first
    (an ICF case also with fewer factor rows kept on chip); every float32
-   xcov_diag launch must take the tensor-core instance;
+   xcov_diag launch must take the tensor-core instance; the two backward
+   kernels against autograd through their plain versions (flash at qwen3's
+   training shape as phase 8 launches it, a microbatch on (B, T, H, D)
+   views, and at its prefill shape, whisper's encoder and cross shapes, a
+   sliding window and small edge cases in bf16 and f32; SSD in f32 at
+   mamba2's training shape, whose head groups are phase 8's, at its
+   prefill shape and at edges), each case launched twice (equal: no
+   atomics), timed at the training and prefill shapes beside their
+   bounds, the plain versions and, for flash, SDPA's backward;
 4. GP main path: pPITC at the paper's AIMPEAK configuration (|D| = 32000,
    M = 20, |S| = 2048, d = 5, float32): support selection, fit, plan,
    warm-up, 8 requests through ``plan.diag``; support selection must be
@@ -184,7 +193,19 @@ Phases, in order; any failure exits non-zero before the last line:
    rows, finite logits; in float32, ``inputs_embeds`` of the tokens equal
    to the tokens' forward, bit for bit;
 6. LM main path, mamba2-130m, the same as phase 5;
+8. LM training through ``launch.train`` (``init_state``,
+   ``make_train_step``, ``TokenLoader``), remat on, bf16 compute, f32
+   weights and Adam: qwen3-1.7b whole at seq 4096, global batch cut
+   256 -> 4 (2 microbatches of 2), and mamba2-130m whole at 8 x 4096; a
+   warm-up step, then 3 timed steps (s, tokens/s, losses finite, peak
+   memory), each step's forward and backward kernel launches equal to the
+   layers x microbatches (twice for the forward: remat); mamba2's state at
+   step 2 through a ``CheckpointManager`` (async save), the next step
+   retaken from the restored state bit for bit; then one float32 gradient
+   at smoke width on the card (the kernels) against the CPU (the plain
+   versions);
 7. one JSON line listing each kernel's launches, error, times and bound.
+   Phase 8 runs before it; every phase prints its seconds.
 
 Each main path zeroes its kernels' launch counts just before it and reads
 them just after; a kernel of the path that was not launched fails the run.
@@ -292,6 +313,22 @@ DOWNDATE_REPEAT = 3      # launches of each downdate case (each equal)
 # Published FP64 peak of one H100 SXM outside the tensor cores (NVIDIA data
 # sheet): the downdate's float64 arithmetic runs there.
 F64_FLOPS_PER_S = 34e12
+#  The backward kernels against their plain versions (autograd through
+#  ref.attention / ref.intra_chunk in float32 on the same inputs), max abs
+#  error per gradient <= tol x max|want| of that gradient.
+#  flash f32 1e-4: the FMA kernel sums in another order, nothing else.
+#  flash bf16 2e-2: the kernel rounds P and dS to bf16 for their products
+#  (2^-9 a term) and dq, dk, dv to bf16 (2^-8 of each value). A term's
+#  rounding is at most 2^-9 |P_ij dO_i|; summed over a causal row of n
+#  keys against a gradient of size ~sqrt(sum P^2), the worst case is
+#  ~ln(n) / 1.3 x 2^-9 = 1.2% at n = 4096, random signs far less; a wrong
+#  tile or mask errs by the gradient's own size.
+#  SSD f32 1e-4: both sum in float32 in other orders (the kernel's cumsum
+#  is the forward's compensated scan, torch.cumsum another); cum reaches
+#  ~-20 at cs = 256, so exp(cum_i - cum_j) carries ~1e-6 relative.
+TOL_BWD = {"flash": {"float32": 1e-4, "bfloat16": 2e-2},
+           "ssd": {"float32": 1e-4, "bfloat16": 1e-2}}
+BWD_REPEAT = 2      # launches of each backward case (each equal: no atomics)
 
 
 def ssd_tol(want, base: float) -> float:
@@ -331,6 +368,25 @@ MOE_LAYERS, VLM_LAYERS = 8, 4
 # qwen2-vl's prefill input: VLM_TEXT text tokens, a (t, h, w) block of
 # patch embeddings at M-RoPE grid positions, then text to LM_SEQ.
 VLM_TEXT, VLM_GRID = 16, (2, 32, 32)
+# LM training (phase 8): warm-up plus TRAIN_STEPS steps at full width and
+# depth, seq LM_SEQ (qwen3-1.7b's train_4k cell), remat on, bf16 compute.
+# qwen3-1.7b's global batch is cut 256 -> 4 (2 microbatches of 2): its
+# float32 parameters, gradients and Adam moments take 27.5 GB and a
+# microbatch's float32 logits 5 GB. mamba2-130m: batch 8, one microbatch.
+TRAIN_STEPS = 3
+TRAIN_QWEN = dict(batch=4, microbatches=2, full_batch=256)
+TRAIN_MAMBA = dict(batch=8, microbatches=1)
+# Adam's first steps move every element by ~lr along the gradient's sign:
+# at lr 1e-4 that is a 0.35 spectral-norm change of qwen3's 2048 x 6144
+# matrices (a rank-one gradient's sign pattern), and its loss rose after
+# the first step on the card; 1e-5 keeps the steps small.
+TRAIN_LR = 1e-5
+# The card's step against the CPU's on a smoke-width model in float32: the
+# same function summed in other orders (cuBLAS against the CPU's BLAS, the
+# kernels against the plain versions), the CPU tests' own limits
+# (tests/test_torch_train.py): the loss to 1e-5, each gradient leaf to
+# 1e-4 of its largest entry.
+TOL_TRAIN_LOSS, TOL_TRAIN_GRAD = 1e-5, 1e-4
 # einsum against gather dispatch when nothing drops, relative to the
 # largest output: the modes fill each expert's rows in another order and
 # combine in the same one, so only the products' rounding at another row
@@ -1165,6 +1221,266 @@ def check_ssd(torch, ops, ref, gen):
                 bound_ms=b_ms, bound_by=b_by, library_ms=None,
                 bound_f32_ms=b_f32_ms, tflops=tflops,
                 shape=f"BC={BC}, cs={cs}, H={H}, P={P}, N={N}, f32")
+
+
+def _bwd_errs(torch, got, want, tol: float) -> tuple[list, list, float]:
+    """Per gradient: max|err| and its limit tol x max|want| (+ 1e-6, for
+    gradients that are all zero); and the largest max|err| / max|want|."""
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    sizes = [float(w.double().abs().max()) for w in want]
+    lims = [tol * m + 1e-6 for m in sizes]
+    rel = max((e / m if m > 0 else 0.0) for e, m in zip(errs, sizes))
+    return errs, lims, rel
+
+
+def _flash_bwd_inputs(torch, gen, case, dt, bthd: bool):
+    """q, k, v, dO of a case; with ``bthd``, (B, H, T, D) views of (B, T,
+    H, D) buffers, as training hands them to the backward: q, k, v are the
+    projections' heads and dO the gradient through the output's merge."""
+    B, Hq, Hkv, Tq, Tk, Dh = case[:6]
+
+    def one(H, T):
+        if not bthd:
+            return torch.randn((B, H, T, Dh), generator=gen,
+                               device="cuda").to(dt)
+        return torch.randn((B, T, H, Dh), generator=gen,
+                           device="cuda").to(dt).transpose(1, 2)
+    return one(Hq, Tq), one(Hkv, Tk), one(Hkv, Tk), one(Hq, Tq)
+
+
+def _flash_bwd_case(torch, ops, ref, gen, case, dt, bthd=False) -> float:
+    """One backward case, BWD_REPEAT launches (each equal to the first),
+    against the plain version one batch row at a time; returns the largest
+    error relative to its gradient's size."""
+    B, Hq, Hkv, Tq, Tk, Dh, window, off, causal = case
+    q, k, v, do = _flash_bwd_inputs(torch, gen, case, dt, bthd)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    with torch.no_grad():
+        o = ops.attention(q, k, v, **kw)
+    n0 = ops.flash_bwd_launches
+    runs = [ops.attention_backward(q, k, v, o, do, **kw)
+            for _ in range(BWD_REPEAT)]
+    want = [torch.cat(parts) for parts in zip(*(
+        ref.attention_backward(q[b:b + 1], k[b:b + 1], v[b:b + 1],
+                               do[b:b + 1], **kw) for b in range(B)))]
+    torch.cuda.synchronize()
+    key = str(dt).split(".")[1]
+    if ops.flash_bwd_launches - n0 != BWD_REPEAT:
+        fail(f"flash backward {case} {key}: "
+             f"{ops.flash_bwd_launches - n0} launches")
+    if not all(torch.equal(a, b) for run in runs[1:]
+               for a, b in zip(run, runs[0])):
+        fail(f"flash backward {case} {key}: repeated launches disagree")
+    errs, lims, rel = _bwd_errs(torch, runs[0], want,
+                                TOL_BWD["flash"][key])
+    print(f"  flash backward B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} D={Dh} "
+          f"window={window} offset={off}{'' if causal else ' non-causal'} "
+          f"{key}{' (B, T, H, D) views' if bthd else ''} x{BWD_REPEAT}: "
+          f"max|err| dq {errs[0]:.3e}, dk {errs[1]:.3e},"
+          f" dv {errs[2]:.3e} (tol {lims[0]:.3e}, {lims[1]:.3e}, "
+          f"{lims[2]:.3e})", flush=True)
+    if not all(e <= t for e, t in zip(errs, lims)):
+        fail(f"flash backward {case} {key}: errors {errs} > {lims}")
+    return rel
+
+
+def _flash_bwd_timing(torch, ops, ref, gen, case, bthd: bool) -> dict:
+    """The flash backward at ``case`` (bf16, causal GQA): kernel time, the
+    two kernels apart (profiler device time; the dq kernel's first pass,
+    the LSE recompute, is one of its four products), the plain version,
+    SDPA's backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention``, a yardstick the port never calls;
+    its gradients held to the kernel's under the bf16 limit) and the
+    bound."""
+    B, Hq, Hkv, T, _, Dh = case[:6]
+    q, k, v, do = _flash_bwd_inputs(torch, gen, case, torch.bfloat16, bthd)
+    with torch.no_grad():
+        o = ops.attention(q, k, v)
+    call = lambda: ops.attention_backward(q, k, v, o, do)
+    ms = time_ms(call, 10)
+    dq_ms = kernel_device_ms(torch, call, "bwd_dq_bf16", 5)
+    kv_ms = kernel_device_ms(torch, call, "bwd_dkdv_bf16", 5)
+    plain = time_ms(lambda: ref.attention_backward(q, k, v, do), 2,
+                    warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    lo = sdpa(*leaves, is_causal=True, enable_gqa=True)
+    lib = time_ms(lambda: torch.autograd.grad(lo, leaves, do,
+                                              retain_graph=True), 10)
+    lib_grads = torch.autograd.grad(lo, leaves, do)
+    errs, lims, _ = _bwd_errs(torch, call(), lib_grads,
+                              TOL_BWD["flash"]["bfloat16"])
+    shape = (f"B={B}, Hq={Hq}, Hkv={Hkv}, T={T}, D={Dh}, causal, bf16"
+             f"{', (B, T, H, D) views' if bthd else ''}")
+    print(f"  flash backward vs SDPA's at {shape}: max|err| dq "
+          f"{errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e} (tol "
+          f"{lims[0]:.3e}, {lims[1]:.3e}, {lims[2]:.3e})", flush=True)
+    if not all(e <= t for e, t in zip(errs, lims)):
+        fail(f"the flash backward disagrees with SDPA's: {errs} > {lims}")
+    pairs = T * (T + 1) // 2
+    flops = 6 * 2 * B * Hq * Dh * pairs   # 5 products + the LSE recompute
+    # q, o, dO, k, v read once, dq, dk, dv written once, all bf16
+    nbytes = 2 * 4 * B * T * Dh * (Hq + Hkv)
+    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    tflops = flops / ms / 1e9
+    print(f"  flash backward at {shape}: {ms:.4f} ms, {tflops:.1f} TFLOP/s "
+          f"of the bound's {flops / 1e9:.0f} GFLOP (the kernels run 8 "
+          f"products, {8 / 6 * tflops:.1f} TFLOP/s executed); SDPA's "
+          f"backward {lib:.4f} ms; plain {plain:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}); device: dq kernel {dq_ms:.4f} ms (its LSE pass, one "
+          f"of its four products: ~{dq_ms / 4:.4f} ms, modelled), dk/dv "
+          f"kernel {kv_ms:.4f} ms", flush=True)
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib, tflops=tflops, dq_ms=dq_ms, dkdv_ms=kv_ms,
+                lse_ms_modelled=dq_ms / 4, shape=shape)
+
+
+def check_flash_bwd(torch, ops, ref, gen):
+    """The flash backward kernel against autograd through the plain version:
+    qwen3's training shape as phase 8 launches it (a microbatch of
+    TRAIN_QWEN's batch; q, k, v and dO as (B, T, H, D) views), its prefill
+    shape (causal GQA, D = 128), whisper's encoder and cross-attention
+    shapes (non-causal, D = 64), a sliding window, and the kernel's other
+    modes at small shapes (q_offset with Tq != Tk, D = 256, the pad route
+    at D = 12, a row with no valid key) in bf16 and on the f32 instance.
+    Timed at the training shape (the row) and at the prefill shape."""
+    train = (TRAIN_QWEN["batch"] // TRAIN_QWEN["microbatches"], 16, 8,
+             LM_SEQ, LM_SEQ, 128, None, 0, True)
+    prefill = (LM_BATCH, 16, 8, LM_SEQ, LM_SEQ, 128, None, 0, True)
+    bf16_cases = [prefill, WHISPER_ENC, WHISPER_CROSS,
+                  (2, 16, 8, 2048, 2048, 128, 512, 0, True)]
+    small = [(2, 8, 2, 300, 300, 128, None, 0, True),
+             (1, 4, 2, 100, 200, 128, None, 100, True),
+             (2, 4, 2, 300, 300, 256, 100, 0, True),
+             (1, 4, 1, 96, 96, 12, None, 0, True),
+             (2, 4, 4, 45, 150, 64, None, 0, False),
+             (1, 2, 2, 4, 8, 64, 2, 20, True)]
+    worst = _flash_bwd_case(torch, ops, ref, gen, train, torch.bfloat16,
+                            bthd=True)
+    for case in bf16_cases + small:
+        worst = max(worst, _flash_bwd_case(torch, ops, ref, gen, case,
+                                           torch.bfloat16))
+    for case in small:
+        _flash_bwd_case(torch, ops, ref, gen, case, torch.float32)
+    _flash_bwd_case(torch, ops, ref, gen, small[0], torch.float32, bthd=True)
+
+    row = _flash_bwd_timing(torch, ops, ref, gen, train, bthd=True)
+    pre = _flash_bwd_timing(torch, ops, ref, gen, prefill, bthd=False)
+    row.update({f"prefill_{k}": v for k, v in pre.items()})
+    row.update(name="flash_attention_bwd", route="cuda",
+               source="src/repro_torch/kernels/attention/csrc/"
+                      "flash_attention_bwd.cu",
+               replaces="src/repro/kernels/attention/flash.py:90",
+               pallas="none: the port's own backward (the reference "
+                      "defines none; its training differentiates the jnp "
+                      "reference)",
+               max_abs_err=worst, tol=TOL_BWD["flash"]["bfloat16"],
+               err_is="max|err| / max|want| over the three gradients")
+    return row
+
+
+def ssd_bwd_flops(BC, cs, H, P, N) -> int:
+    """The SSD backward's flops (multiply-adds x 2): G's causal half
+    (recomputed), per head the causal halves of E = dY xdt^T and of
+    (G o L)^T dY, the products xdt dS and B dS^T, then dC = dG B and
+    dB = dG^T C over the causal half."""
+    half = cs * (cs + 1) // 2
+    return 2 * BC * N * half + BC * H * (2 * 2 * P * half
+                                         + 2 * 2 * P * N * cs) \
+        + 2 * 2 * BC * N * half
+
+
+def _ssd_bwd_inputs(torch, gen, BC, cs, H, P, N, dt):
+    xdt = torch.randn((BC, cs, H, P), generator=gen, device="cuda")
+    dA = -torch.randn((BC, H, cs), generator=gen, device="cuda").abs() * 0.1
+    Bc, Cc = (torch.randn((BC, cs, N), generator=gen, device="cuda")
+              for _ in range(2))
+    douts = [torch.randn(s, generator=gen, device="cuda")
+             for s in ((BC, cs, H, P), (BC, H, P, N), (BC, H, cs))]
+    return [t.to(dt) for t in (xdt, dA, Bc, Cc)], douts
+
+
+def _ssd_bwd_timing(torch, ops, ref, gen, shape) -> dict:
+    """The SSD backward at ``shape`` in f32: kernel time, the plain
+    version's, and the bound (3xTF32 operations or bytes; and on the f32
+    CUDA cores, where the kernel runs)."""
+    BC, cs, H, P, N = shape
+    args, douts = _ssd_bwd_inputs(torch, gen, *shape, torch.float32)
+    ms = time_ms(lambda: ops.intra_chunk_backward(*args, *douts), 10)
+    plain = time_ms(lambda: ref.intra_chunk_backward(*args, *douts), 3,
+                    warmup=1)
+    flops = ssd_bwd_flops(*shape)
+    # xdt, dY, dxdt; dA, dcum, ddA; B, C, dB, dC; dS: each read or
+    # written once, float32
+    nbytes = 4 * (3 * BC * cs * H * P + 3 * BC * H * cs + 4 * BC * cs * N
+                  + BC * H * P * N)
+    b_ms, b_by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
+    b_f32_ms, _ = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    desc = f"BC={BC}, cs={cs}, H={H}, P={P}, N={N}, f32"
+    print(f"  ssd backward at {desc}: {ms:.4f} ms, {flops / ms / 1e9:.1f} "
+          f"TFLOP/s of the function's {flops / 1e9:.2f} GFLOP (f32 on the "
+          f"CUDA cores); bound {b_ms:.4f} ms ({b_by}, 3xTF32), f32 "
+          f"CUDA-core bound {b_f32_ms:.4f} ms; plain {plain:.4f} ms",
+          flush=True)
+    return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, bound_f32_ms=b_f32_ms,
+                tflops=flops / ms / 1e9, shape=desc)
+
+
+def check_ssd_bwd(torch, ops, ref, gen):
+    """The SSD backward kernel against autograd through the plain version,
+    in f32 (as training feeds it) at mamba2's training shape as phase 8
+    launches it (BC = TRAIN_MAMBA's batch x LM_SEQ / 256 chunks, so the
+    wrapper splits the heads into the main path's groups) and at its
+    prefill shape (another split), and at edges (ragged cs, H not a
+    multiple of anything, a bf16 case); timed at the training shape (the
+    row) and at the prefill shape."""
+    train = (TRAIN_MAMBA["batch"] * LM_SEQ // 256, 256, 24, 64, 128)
+    prefill = (LM_BATCH * LM_SEQ // 256, 256, 24, 64, 128)
+    cases = [(train, torch.float32), (prefill, torch.float32),
+             ((2, 200, 5, 64, 128), torch.float32),
+             ((3, 100, 2, 80, 150), torch.float32),
+             ((2, 256, 3, 64, 128), torch.bfloat16)]
+    worst = 0.0
+    for shape, dt in cases:
+        args, douts = _ssd_bwd_inputs(torch, gen, *shape, dt)
+        hpg, ng = ops.bwd_head_groups(shape[0], shape[2])
+        n0 = ops.ssd_bwd_launches
+        runs = [ops.intra_chunk_backward(*args, *douts)
+                for _ in range(BWD_REPEAT)]
+        want = ref.intra_chunk_backward(*args, *douts)
+        torch.cuda.synchronize()
+        key = str(dt).split(".")[1]
+        if ops.ssd_bwd_launches - n0 != BWD_REPEAT:
+            fail(f"ssd backward {shape} {key}: "
+                 f"{ops.ssd_bwd_launches - n0} launches")
+        if not all(torch.equal(a, b) for run in runs[1:]
+                   for a, b in zip(run, runs[0])):
+            fail(f"ssd backward {shape} {key}: repeated launches disagree")
+        errs, lims, rel = _bwd_errs(torch, runs[0], want,
+                                    TOL_BWD["ssd"][key])
+        print(f"  ssd backward (BC, cs, H, P, N)={shape} {key} ({ng} head "
+              f"groups of {hpg}) x{BWD_REPEAT}: max|err| dxdt "
+              f"{errs[0]:.3e}, ddA {errs[1]:.3e}, dB {errs[2]:.3e}, dC "
+              f"{errs[3]:.3e} (tol {', '.join(f'{t:.3e}' for t in lims)})",
+              flush=True)
+        if not all(e <= t for e, t in zip(errs, lims)):
+            fail(f"ssd backward {shape} {key}: errors {errs} > {lims}")
+        if key == "float32":
+            worst = max(worst, rel)
+    row = _ssd_bwd_timing(torch, ops, ref, gen, train)
+    pre = _ssd_bwd_timing(torch, ops, ref, gen, prefill)
+    row.update({f"prefill_{k}": v for k, v in pre.items()})
+    row.update(name="ssd_intra_chunk_bwd", route="cuda",
+               source="src/repro_torch/kernels/ssd/csrc/"
+                      "ssd_intra_chunk_bwd.cu",
+               replaces="src/repro/kernels/ssd/ssd.py:57",
+               pallas="none: the port's own backward (the reference "
+                      "defines none; its training differentiates the jnp "
+                      "reference)",
+               max_abs_err=worst, tol=TOL_BWD["ssd"]["float32"],
+               err_is="max|err| / max|want| over the four gradients")
+    return row
 
 
 def downdate_bytes(n: int, b: int, itemsize: int) -> int:
@@ -4031,6 +4347,182 @@ def fit_spread(torch, card: str, ds, spec, params, S) -> list:
     return pairs
 
 
+def _launch_counts(counters) -> dict:
+    return {name: getattr(mod, attr) for mod, attr, name in counters}
+
+
+def train_path(torch, card: str, cfg, counters, *, batch: int,
+               microbatches: int, resume: bool = False) -> dict:
+    """LM training through the port's entry points (``launch.train``:
+    ``init_state``, ``make_train_step``, ``TokenLoader``) at ``cfg``'s full
+    width and depth: a warm-up step, then TRAIN_STEPS timed steps, each
+    with its loss (finite), seconds, tokens/s and the launches of the
+    forward and backward kernels (``counters``: (module, count, kernel
+    name) of each), which must be the attention or SSD layers x
+    microbatches for the backward and twice that for the forward (remat
+    runs each period's forward again). With ``resume``: the state at step
+    2 goes through a ``CheckpointManager`` (async save), the next step is
+    retaken from the restored state and must give the same bits."""
+    import tempfile
+    from repro_torch.checkpoint import io
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.launch import train
+    from repro_torch.optim.adam import Adam, tree_leaves
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = Adam(lr=TRAIN_LR)
+    t0 = time.perf_counter()
+    state = train.init_state(
+        cfg, opt, generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state.params))
+    print(f"  [{card}] {cfg.name} training state: {cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {n_params / 1e9:.3f} B float32 parameters with "
+          f"Adam's moments, {torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+          f"init {time.perf_counter() - t0:.2f} s", flush=True)
+    step, _ = train.make_train_step(cfg, None, opt,
+                                    microbatches=microbatches, remat=True)
+    loader = TokenLoader(cfg, batch=batch, seq=LM_SEQ, seed=0)
+    batches = [next(loader) for _ in range(1 + TRAIN_STEPS)]
+    kind = cfg.plan()[0].kind
+    n_kind = sum(d.kind == kind for d in cfg.plan())
+    full = cfg.n_layers // cfg.period * cfg.period
+    n_remat = sum(d.kind == kind for d in cfg.plan()[:full])
+    want_bwd = n_kind * microbatches
+    want_fwd = (n_kind + n_remat) * microbatches
+    fwd_name, bwd_name = counters[0][2], counters[1][2]
+
+    tmp = tempfile.TemporaryDirectory() if resume else None
+    mgr = CheckpointManager(tmp.name, keep=2) if resume else None
+    losses, secs, per_step = [], [], []
+    saved = None
+    for mod in {c[0] for c in counters}:
+        mod.reset_counts()
+    for i, b in enumerate(batches):
+        if resume and int(state.step) == 2:
+            t1 = time.perf_counter()
+            mgr.save(2, state, sync=False)
+            snap_s = time.perf_counter() - t1
+            mgr.wait()
+            save_s = time.perf_counter() - t1
+            saved = dict(batch=b, save_s=save_s, snapshot_s=snap_s,
+                         bytes=(Path(tmp.name) / "ckpt_0000000002.msgpack")
+                         .stat().st_size)
+        c0 = _launch_counts(counters)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        c1 = _launch_counts(counters)
+        per_step.append({k: c1[k] - c0[k] for k in c1})
+        if saved is not None and "after" not in saved:
+            saved["after"] = state
+        if i:
+            secs.append(dt)
+            losses.append(float(m.loss))
+        if not math.isfinite(float(m.loss)):
+            fail(f"{cfg.name} training: step {i} loss {float(m.loss)}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = _launch_counts(counters)
+    toks = batch * LM_SEQ
+    p50 = sorted(secs)[len(secs) // 2]
+    print(f"  [{card}] {cfg.name} training, batch {batch} x {LM_SEQ} tokens "
+          f"({microbatches} microbatch{'es' if microbatches > 1 else ''}), "
+          f"remat: step s {', '.join(f'{x:.3f}' for x in secs)} (p50 "
+          f"{p50:.3f} s, {toks / p50:.0f} tokens/s); losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; peak device memory "
+          f"{peak_gb:.2f} GB", flush=True)
+    print(f"  {cfg.name} launches a step (warm-up first): "
+          f"{per_step}; want {fwd_name} {want_fwd} ({n_kind} {kind} layers "
+          f"x {microbatches}, twice: remat), {bwd_name} {want_bwd}",
+          flush=True)
+    for n, d in enumerate(per_step):
+        if d[bwd_name] != want_bwd or d[fwd_name] != want_fwd:
+            fail(f"{cfg.name} training step {n}: launches {d}, want "
+                 f"{fwd_name} {want_fwd} and {bwd_name} {want_bwd}")
+    out = dict(launches=launches, step_s=secs, tokens_per_s=toks / p50,
+               losses=losses, peak_gb=peak_gb)
+    if resume:
+        t1 = time.perf_counter()
+        back = mgr.restore(2, state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t1
+        if int(back.step) != 2:
+            fail(f"{cfg.name} resume: restored step {int(back.step)}")
+        again, _ = step(back, saved["batch"])
+        torch.cuda.synchronize()
+        diff = [k for (k, a), (_, b) in zip(
+            io.flatten(again), io.flatten(saved["after"]))
+            if not torch.equal(a, b)]
+        print(f"  [{card}] {cfg.name} resume: state at step 2 "
+              f"{saved['bytes']:,} bytes, async save {saved['save_s']:.3f} s "
+              f"(host snapshot {saved['snapshot_s']:.3f} s), restore "
+              f"{load_s:.3f} s; the step retaken from it equals the first "
+              f"{'bit for bit' if not diff else 'NOT: ' + str(diff[:5])}",
+              flush=True)
+        if diff:
+            fail(f"{cfg.name} resume: {len(diff)} leaves differ after the "
+                 f"retaken step, first {diff[:5]}")
+        tmp.cleanup()
+        out.update(ckpt_bytes=saved["bytes"], save_s=saved["save_s"],
+                   load_s=load_s)
+    return out
+
+
+def train_card_vs_cpu(torch, card: str) -> None:
+    """One gradient of the float32 loss (remat on) at smoke width, on the
+    card through the kernels and on the CPU through the plain versions:
+    qwen3-1.7b's (the f32 flash instances) and mamba2-130m's (the SSD
+    kernels); loss and every gradient leaf within TOL_TRAIN_*."""
+    import numpy as np
+    from repro_torch.configs.registry import smoke_config
+    from repro_torch.data import synthetic
+    from repro_torch.kernels.attention import ops as attn_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adam import tree_leaves, tree_map
+
+    for name, mod, fwd, bwd in (
+            ("qwen3-1.7b", attn_ops, "flash_launches", "flash_bwd_launches"),
+            ("mamba2-130m", ssd_ops, "ssd_launches", "ssd_bwd_launches")):
+        cfg = smoke_config(name)
+        params = tf.init_model(cfg, generator=torch.Generator()
+                               .manual_seed(0), device="cpu")
+        toks = synthetic.lm_tokens(np.random.default_rng(0), batch=2,
+                                   seq=64, vocab=cfg.vocab)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+        def loss(p, b):
+            return tf.lm_loss(p, b["tokens"], b["labels"], cfg,
+                              compute_dtype=torch.float32, remat=True)
+
+        (l_cpu, _), g_cpu = train.value_and_grad(loss, params, batch)
+        mod.reset_counts()
+        on = lambda t: t.to("cuda")
+        (l_gpu, _), g_gpu = train.value_and_grad(
+            loss, tree_map(on, params), {k: on(v) for k, v in batch.items()})
+        torch.cuda.synchronize()
+        n_fwd, n_bwd = getattr(mod, fwd), getattr(mod, bwd)
+        l_err = abs(float(l_gpu) - float(l_cpu)) / abs(float(l_cpu))
+        worst = max(max_err(a.cpu(), b) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(tree_leaves(g_gpu), tree_leaves(g_cpu)))
+        print(f"  [{card}] {cfg.name} float32 gradient, card vs CPU: loss "
+              f"{float(l_gpu):.6f} vs {float(l_cpu):.6f} (rel {l_err:.2e}, "
+              f"tol {TOL_TRAIN_LOSS}); worst leaf max|err| / max|g| "
+              f"{worst:.2e} (tol {TOL_TRAIN_GRAD}); launches on the card "
+              f"{fwd} {n_fwd}, {bwd} {n_bwd}", flush=True)
+        if n_fwd <= 0 or n_bwd <= 0:
+            fail(f"{cfg.name} card-vs-CPU gradient: the kernels were not "
+                 f"launched ({n_fwd}, {n_bwd})")
+        if not (l_err <= TOL_TRAIN_LOSS and worst <= TOL_TRAIN_GRAD):
+            fail(f"{cfg.name} card and CPU gradients disagree: loss {l_err}, "
+                 f"leaf {worst}")
+
+
 def main() -> int:
     try:
         import torch
@@ -4050,13 +4542,25 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.rbf import ops, ref
 
-    print("phase 1: card", flush=True)
+    clock = {"name": None, "t": time.perf_counter()}
+
+    def phase(title: str) -> None:
+        """Print the last phase's seconds, then this one's title."""
+        now = time.perf_counter()
+        if clock["name"]:
+            print(f"  ({clock['name']}: {now - clock['t']:.1f} s)",
+                  flush=True)
+        clock.update(name=title.split(":")[0], t=now)
+        if title:
+            print(title, flush=True)
+
+    phase("phase 1: card")
     card = card_line()
     print(card, flush=True)
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}", flush=True)
 
-    print("phase 2: build", flush=True)
+    phase("phase 2: build")
     t0 = time.perf_counter()
     built = build.build_all()
     print(f"  built {built or 'nothing (up to date)'} in "
@@ -4077,7 +4581,7 @@ def main() -> int:
     if not tc or not all(tc.values()):
         fail("a float32 xcov_diag instance has no HGMMA")
 
-    print("phase 3: kernel vs plain", flush=True)
+    phase("phase 3: kernel vs plain")
     from repro_torch.kernels.attention import ops as attn_ops, ref as attn_ref
     from repro_torch.kernels.linalg import ops as lin_ops, ref as lin_ref
     from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
@@ -4085,24 +4589,26 @@ def main() -> int:
     rows = [check_rbf(torch, ops, ref, gen), check_xcov(torch, ops, ref, gen),
             check_flash(torch, attn_ops, attn_ref, gen),
             check_ssd(torch, ssd_ops, ssd_ref, gen),
-            check_downdate(torch, lin_ops, lin_ref, gen)]
+            check_downdate(torch, lin_ops, lin_ref, gen),
+            check_flash_bwd(torch, attn_ops, attn_ref, gen),
+            check_ssd_bwd(torch, ssd_ops, ssd_ref, gen)]
     rows[0].update(check_icf(torch, ops, ref, gen))
     torch.cuda.empty_cache()
 
-    print("phase 4: GP main path", flush=True)
+    phase("phase 4: GP main path")
     launches, gp, data, cold_state = main_path(torch, card)
     rows[0].update(gp)
     del gp
     torch.cuda.empty_cache()
 
-    print("phase 4b: GP pPIC routed", flush=True)
+    phase("phase 4b: GP pPIC routed")
     ppic_launches, cold_pic = ppic_path(torch, card, **data)
     for row in rows:
         if row["name"] in ppic_launches:
             row["launches_ppic"] = ppic_launches[row["name"]]
     torch.cuda.empty_cache()
 
-    print("phase 4c: GP pICF and MLE", flush=True)
+    phase("phase 4c: GP pICF and MLE")
     torch.cuda.reset_peak_memory_stats()
     rows[0].update(check_icf_picf(torch, ops, ref, data["ds"],
                                   data["params"]))
@@ -4116,7 +4622,7 @@ def main() -> int:
     del picf
     torch.cuda.empty_cache()
 
-    print("phase 4d: GP streaming and faults", flush=True)
+    phase("phase 4d: GP streaming and faults")
     stream = stream_path(torch, card, **data, cold_state=cold_state,
                          cold_pic=cold_pic)
     side = stream["yardstick_launches"]
@@ -4127,16 +4633,17 @@ def main() -> int:
             row["launches_stream"] = stream["launches"][row["name"]]
             row["launches_stream_yardsticks"] = side[row["name"]]
     launches["chol_downdate"] = stream["launches"]["chol_downdate"]
-    rows[-1].update(stream_retire_s=stream["times"]["retire"],
-                    stream_f64_retire_s=stream["times"]["f64 retire"],
-                    stream_f64_refold_s=stream["times"]["f64 refold"],
-                    stream_f32_refold_s=stream["times"]["f32 refold"],
-                    stream_peak_gb=stream["peak_gb"])
+    next(r for r in rows if r["name"] == "chol_downdate").update(
+        stream_retire_s=stream["times"]["retire"],
+        stream_f64_retire_s=stream["times"]["f64 retire"],
+        stream_f64_refold_s=stream["times"]["f64 refold"],
+        stream_f32_refold_s=stream["times"]["f32 refold"],
+        stream_peak_gb=stream["peak_gb"])
     yard = stream["yardsticks"]
     del stream
     torch.cuda.empty_cache()
 
-    print("phase 4f: GP serving runtime", flush=True)
+    phase("phase 4f: GP serving runtime")
     torch.cuda.reset_peak_memory_stats()
     serving = serving_path(torch, card, **data, cold_state=cold_state,
                            cold_pic=cold_pic, yard=yard)
@@ -4151,18 +4658,18 @@ def main() -> int:
     del cold_state, cold_pic, yard, serving
     torch.cuda.empty_cache()
 
-    print("phase 4g: GP over processes", flush=True)
+    phase("phase 4g: GP over processes")
     rows[0].update(dist_path(torch, card, **data))
     torch.cuda.empty_cache()
 
-    print("phase 4e: the pPITC fit's spread", flush=True)
+    phase("phase 4e: the pPITC fit's spread")
     rows[0]["fit_spread_s"] = fit_spread(torch, card, **data)
     del data
     torch.cuda.empty_cache()
 
     from repro_torch.configs.registry import get_config
     flash = (attn_ops, "flash_launches", "flash_sm90_launches")
-    print("phase 5: LM main path, qwen3-1.7b", flush=True)
+    phase("phase 5: LM main path, qwen3-1.7b")
     cfg = get_config("qwen3-1.7b")
     params, gen = init_lm(torch, card, cfg)
     launches["flash_attention"] = lm_path(torch, card, cfg, flash, params,
@@ -4170,7 +4677,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    print("phase 5b: LM MoE, qwen3-moe-30b-a3b", flush=True)
+    phase("phase 5b: LM MoE, qwen3-moe-30b-a3b")
     full = get_config("qwen3-moe-30b-a3b")
     print(f"  reduced: n_layers {full.n_layers} -> {MOE_LAYERS} (float32 "
           f"weights; all {full.n_layers} take "
@@ -4188,10 +4695,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
-    print("phase 5c: LM encoder-decoder, whisper-medium", flush=True)
+    phase("phase 5c: LM encoder-decoder, whisper-medium")
     encdec = encdec_path(torch, card, attn_ops)
 
-    print("phase 5d: LM VLM input, qwen2-vl-72b", flush=True)
+    phase("phase 5d: LM VLM input, qwen2-vl-72b")
     vlm = vlm_path(torch, card, attn_ops)
     flash_row = next(r for r in rows if r["name"] == "flash_attention")
     flash_row.update(launches_moe=moe_run["launches"],
@@ -4200,7 +4707,7 @@ def main() -> int:
                          "noncausal"],
                      launches_vlm=vlm["launches"])
 
-    print("phase 6: LM main path, mamba2-130m", flush=True)
+    phase("phase 6: LM main path, mamba2-130m")
     cfg = get_config("mamba2-130m")
     params, gen = init_lm(torch, card, cfg)
     launches["ssd_intra_chunk"] = lm_path(
@@ -4209,14 +4716,50 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    phase("phase 8: LM training")
+    cfg = get_config("qwen3-1.7b")
+    print(f"  reduced: qwen3-1.7b global batch {TRAIN_QWEN['full_batch']} -> "
+          f"{TRAIN_QWEN['batch']} ({TRAIN_QWEN['microbatches']} microbatches "
+          f"of {TRAIN_QWEN['batch'] // TRAIN_QWEN['microbatches']}), seq "
+          f"{LM_SEQ}; width and depth whole", flush=True)
+    qwen_train = train_path(
+        torch, card, cfg,
+        [(attn_ops, "flash_launches", "flash_attention"),
+         (attn_ops, "flash_bwd_launches", "flash_attention_bwd")],
+        batch=TRAIN_QWEN["batch"], microbatches=TRAIN_QWEN["microbatches"])
+    torch.cuda.empty_cache()
+    mamba_train = train_path(
+        torch, card, get_config("mamba2-130m"),
+        [(ssd_ops, "ssd_launches", "ssd_intra_chunk"),
+         (ssd_ops, "ssd_bwd_launches", "ssd_intra_chunk_bwd")],
+        batch=TRAIN_MAMBA["batch"], microbatches=TRAIN_MAMBA["microbatches"],
+        resume=True)
+    torch.cuda.empty_cache()
+    train_card_vs_cpu(torch, card)
+    launches["flash_attention_bwd"] = \
+        qwen_train["launches"]["flash_attention_bwd"]
+    launches["ssd_intra_chunk_bwd"] = \
+        mamba_train["launches"]["ssd_intra_chunk_bwd"]
+    for row in rows:
+        run = {"flash_attention": qwen_train, "flash_attention_bwd":
+               qwen_train, "ssd_intra_chunk": mamba_train,
+               "ssd_intra_chunk_bwd": mamba_train}.get(row["name"])
+        if run is not None:
+            row["launches_train"] = run["launches"][row["name"]]
+    for tag, run in (("qwen3-1.7b", qwen_train), ("mamba2-130m",
+                                                   mamba_train)):
+        rows[0].setdefault("train", {})[tag] = {
+            k: v for k, v in run.items() if k != "launches"}
+
     for row in rows:
         row["launches"] = launches[row["name"]]
 
-    print("phase 7: kernels", flush=True)
+    phase("phase 7: kernels")
     for row in rows:
         if not all(math.isfinite(row[k]) for k in ("ms", "plain_ms",
                                                    "bound_ms")):
             fail(f"non-finite timing for {row['name']}")
+    phase("")
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

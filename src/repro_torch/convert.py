@@ -9,7 +9,10 @@ module needs nothing of the JAX package: the caller hands over
 NamedTuple itself), or an ``AdamState``, and gets the same on ``device``
 in ``dtype``.
 ``lm_params_from_arrays`` takes an LM's parameter tree with numpy leaves
-(``jax.tree.map(np.asarray, params)`` on the caller's side).
+(``jax.tree.map(np.asarray, params)`` on the caller's side), and
+``train_state_from_arrays`` a whole training state: the reference's
+``TrainState`` with numpy leaves, or the nested dicts of a checkpoint file
+the JAX package wrote (``checkpoint.io.nest(io.read(path))``).
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import api, picf
-from repro_torch.optim.adam import AdamState
+from repro_torch.optim.adam import AdamState, TrainState
+from repro_torch.optim.compression import EFState
 
 _PARAM_KEYS = ("log_signal", "log_noise", "log_lengthscale")
 _STATES = (api.PITCState, api.PICState, api.FGPState, api.PICFState,
@@ -113,9 +117,47 @@ def lm_params_from_arrays(tree: Mapping, cfg, *, device, dtype=None) -> dict:
     layer_list += [_tree(r, device, dtype) for r in rest]
     params = {"embed": _tree(tree["embed"], device, dtype),
               "layers": layer_list,
-              "final_norm": _tree(tree["final_norm"], device, None)}
+              "final_norm": _tree(tree.get("final_norm"), device, None)}
     if cfg.enc_dec:
         params["encoder"] = [_tree(tree["encoder"], device, dtype, index=i)
                              for i in range(cfg.enc_layers)]
-        params["enc_norm"] = _tree(tree["enc_norm"], device, None)
+        params["enc_norm"] = _tree(tree.get("enc_norm"), device, None)
+    if cfg.nonparametric_ln:
+        # a checkpoint file has no leaf for a None norm weight: put it back
+        for layer in layer_list + params.get("encoder", []):
+            for key, there in (("ln1", True),
+                               ("ln2", "mlp" in layer or "moe" in layer),
+                               ("ln_x", "cross" in layer)):
+                if there:
+                    layer.setdefault(key, None)
     return params
+
+
+def _field(obj, name: str):
+    """``obj.name`` of a NamedTuple, ``obj[name]`` of a mapping; None when
+    absent (a checkpoint file has no leaf for a None field)."""
+    if isinstance(obj, Mapping):
+        return obj.get(name)
+    return getattr(obj, name)
+
+
+def train_state_from_arrays(state, cfg, *, device, dtype=None):
+    """The JAX package's LM ``TrainState`` (params, Adam's (step, mu, nu),
+    the error feedback or None, step) as the port's ``TrainState``
+    (``optim.adam``) on ``device``: parameters and both moments through
+    ``lm_params_from_arrays``, the steps int32. ``state`` is the
+    NamedTuple with numpy leaves or a checkpoint file's nested dicts."""
+    opt = _field(state, "opt")
+    ef = _field(state, "ef")
+    err = None if ef is None else _field(ef, "error")
+    return TrainState(
+        lm_params_from_arrays(_field(state, "params"), cfg, device=device,
+                              dtype=dtype),
+        AdamState(_tensor(_field(opt, "step"), device, torch.int32),
+                  lm_params_from_arrays(_field(opt, "mu"), cfg,
+                                        device=device, dtype=dtype),
+                  lm_params_from_arrays(_field(opt, "nu"), cfg,
+                                        device=device, dtype=dtype)),
+        None if err is None else EFState(lm_params_from_arrays(
+            err, cfg, device=device, dtype=dtype)),
+        _tensor(_field(state, "step"), device, torch.int32))

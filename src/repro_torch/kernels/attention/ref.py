@@ -2,7 +2,8 @@
 — port of ``repro.kernels.attention.ref``.
 
 ``ops.attention`` takes these for CPU tensors; ``chip_smoke.py`` and the
-card's tests hold the CUDA kernel against ``attention`` on the card.
+card's tests hold the CUDA kernel against ``attention`` on the card, and
+the backward kernel against ``attention_backward``.
 
 One deliberate difference from the JAX oracle: a query row that sees no
 valid key (possible only with a window or a q_offset past the keys) returns
@@ -53,6 +54,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1) * mask.any(-1, keepdim=True)
     out = probs @ vf
     return out.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       dout: torch.Tensor, *, causal: bool = True,
+                       window: int | None = None, scale: float | None = None,
+                       q_offset: int = 0):
+    """(dq, dk, dv) of ``attention`` at (q, k, v) for the output gradient
+    ``dout``: autograd through ``attention`` in float32 (float64 for float64
+    inputs). A row with no valid key contributes nothing."""
+    ct = torch.promote_types(q.dtype, torch.float32)
+    with torch.enable_grad():
+        leaves = [t.detach().to(ct).requires_grad_(True) for t in (q, k, v)]
+        out = attention(*leaves, causal=causal, window=window, scale=scale,
+                        q_offset=q_offset)
+        return torch.autograd.grad(out, leaves, dout.to(ct))
 
 
 def attention_windowed_chunked(q: torch.Tensor, k: torch.Tensor,

@@ -12,9 +12,12 @@ Pointers cross the C boundary as ``ctypes.c_void_p`` and the stream as
 ``torch.cuda.current_stream().cuda_stream``; each C entry point returns
 ``cudaGetLastError()`` and the wrapper raises when it is not 0.
 
-No kernel here has a backward, so every wrapper calls ``refuse_grad``
-before it launches: a kernel's fresh output has no ``grad_fn``, and a graph
-through it would otherwise be cut without a word.
+The flash-attention and SSD kernels have backward kernels
+(``flash_attention_bwd.cu``, ``ssd_intra_chunk_bwd.cu``) that their wrappers
+record through ``torch.autograd.Function``s. The others (rbf, its ICF and
+exact instances, ``xcov_diag``, the downdate) have none, so their wrappers
+call ``refuse_grad`` before they launch: a kernel's fresh output has no
+``grad_fn``, and a graph through it would otherwise be cut without a word.
 """
 from __future__ import annotations
 
@@ -123,14 +126,13 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 def refuse_grad(what: str, *tensors) -> None:
     """Raise where autograd would record ``what`` on these tensors (other
     arguments, such as a Python-float scale, are ignored): grad mode is on
-    and one of them requires grad. The kernels return fresh tensors with no
-    ``grad_fn`` (none has a backward kernel, as none of the reference's
-    Pallas kernels has one), so a graph through them would be cut without a
-    word: an MLE objective would lose dK/dθ and keep the noise term's
-    gradient, and a loss through attention or SSD would lose every gradient
-    that passes through them. The plain versions (``ref.py``; for the GP
-    covariance ``covariance.make_kernel("se")``, what ``core.hyper`` takes)
-    are differentiable."""
+    and one of them requires grad. The GP kernels (rbf, ICF, ``xcov_diag``)
+    and the downdate return fresh tensors with no ``grad_fn`` (none has a
+    backward kernel, as none of the reference's Pallas kernels has one), so
+    a graph through them would be cut without a word: an MLE objective
+    would lose dK/dθ and keep the noise term's gradient. The plain versions
+    (``ref.py``; for the GP covariance ``covariance.make_kernel("se")``,
+    what ``core.hyper`` takes) are differentiable."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
         raise RuntimeError(

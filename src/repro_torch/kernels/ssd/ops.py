@@ -7,9 +7,16 @@ only because they lie on the CPU; for CUDA tensors it launches
 the same steps on either device: the intra-chunk block through
 ``intra_chunk``, then the O(n_chunks) inter-chunk state recurrence and the
 off-diagonal combine in PyTorch, as the JAX package leaves them to XLA.
-``ssd_launches`` counts kernel launches. The kernel has no backward:
-given CUDA tensors that require grad, in grad mode, ``intra_chunk`` raises
-(``build.refuse_grad``) rather than return tensors cut from the graph.
+``ssd_launches`` counts kernel launches.
+
+The backward is ``csrc/ssd_intra_chunk_bwd.cu`` (float32 on the CUDA cores:
+G = C B^T recomputed, the heads' dG and dB partials, dxdt, ddA, then dB and
+dC summed over head groups in a fixed order, no atomics). ``intra_chunk``
+records it through ``_SSD`` only when grad mode is on and an input
+requires grad; otherwise it launches the forward alone.
+``ssd_bwd_launches`` counts its C entry's calls (three kernels each).
+bfloat16 inputs are differentiated in float32 (the forward casts them so)
+and their gradients returned in bfloat16.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ssd import ref
 
 ssd_launches = 0
+ssd_bwd_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 _MAX_CS = 1024
@@ -29,9 +37,22 @@ _GRID_Y_MAX = 65535
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
+# the backward's head groups: enough (chunk, group) blocks to fill the
+# card's 132 SMs twice
+_BWD_BLOCKS = 264
+
+
+def bwd_head_groups(BC: int, H: int) -> tuple[int, int]:
+    """(heads a group, groups) of the backward's (chunk, head group)
+    blocks for BC chunks of H heads: the fewest heads a group that still
+    gives _BWD_BLOCKS blocks (the last group may hold fewer)."""
+    hpg = -(-H // max(1, min(H, -(-_BWD_BLOCKS // BC))))
+    return hpg, -(-H // hpg)
+
+
 def reset_counts() -> None:
-    global ssd_launches
-    ssd_launches = 0
+    global ssd_launches, ssd_bwd_launches
+    ssd_launches = ssd_bwd_launches = 0
 
 
 @functools.cache
@@ -47,16 +68,28 @@ def intra_chunk(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
                 Cc: torch.Tensor):
     """xdt: (BC, cs, H, P); dA: (BC, H, cs); Bc/Cc: (BC, cs, N), float32 or
     bfloat16 (one dtype on the card). Returns Y_diag (BC, cs, H, P),
-    S (BC, H, P, N) and cum (BC, H, cs), all float32."""
-    global ssd_launches
+    S (BC, H, P, N) and cum (BC, H, cs), all float32; in grad mode, with an
+    input that requires grad, differentiable through the backward
+    kernel."""
     args = (xdt, dA, Bc, Cc)
     if build.on_cpu(*args):
         return ref.intra_chunk(xdt, dA, Bc, Cc)
-    build.refuse_grad("ssd_intra_chunk", *args)
-    if xdt.dtype not in _DTYPE_CODE or any(t.dtype != xdt.dtype
-                                           for t in args):
-        raise TypeError(f"the SSD kernel takes float32 or bfloat16 inputs of "
-                        f"one dtype; got {[t.dtype for t in args]}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SSD.apply(*args)
+    return _forward(*args)
+
+
+@functools.cache
+def _bwd_entry():
+    lib = build.library("ssd_intra_chunk_bwd")
+    fn = lib.ssd_intra_chunk_bwd
+    fn.argtypes = [_P] * 14 + [_I] * 6 + [_P]
+    fn.restype = _I
+    return lib, fn
+
+
+def _shapes(xdt, dA, Bc, Cc) -> tuple[int, ...]:
+    """(BC, cs, H, P, N) of inputs both kernels take; raises otherwise."""
     if xdt.ndim != 4:
         raise ValueError(f"xdt must be (BC, cs, H, P); got {tuple(xdt.shape)}")
     BC, cs, H, P = xdt.shape
@@ -69,6 +102,17 @@ def intra_chunk(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
     if not 1 <= cs <= _MAX_CS or BC > _GRID_Y_MAX:
         raise ValueError(f"the kernel takes 1 <= cs <= {_MAX_CS} and "
                          f"BC <= {_GRID_Y_MAX}; got cs={cs}, BC={BC}")
+    return BC, cs, H, P, N
+
+
+def _forward(xdt, dA, Bc, Cc):
+    global ssd_launches
+    args = (xdt, dA, Bc, Cc)
+    if xdt.dtype not in _DTYPE_CODE or any(t.dtype != xdt.dtype
+                                           for t in args):
+        raise TypeError(f"the SSD kernel takes float32 or bfloat16 inputs of "
+                        f"one dtype; got {[t.dtype for t in args]}")
+    BC, cs, H, P, N = _shapes(*args)
     xdt, dA, Bc, Cc = (t.contiguous() for t in args)
     dev = xdt.device
     Y = torch.empty((BC, cs, H, P), dtype=torch.float32, device=dev)
@@ -85,6 +129,59 @@ def intra_chunk(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
     build.check(lib, code, "ssd_intra_chunk launch")
     ssd_launches += 1
     return Y, S, cum
+
+
+def intra_chunk_backward(xdt, dA, Bc, Cc, dY, dS, dcum):
+    """(dxdt, ddA, dB, dC) of ``intra_chunk`` at (xdt, dA, Bc, Cc) for the
+    output gradients (None reads as zero), in the inputs' dtypes. CPU
+    tensors take the plain version; CUDA tensors launch
+    ``csrc/ssd_intra_chunk_bwd.cu`` or raise."""
+    global ssd_bwd_launches
+    args = (xdt, dA, Bc, Cc)
+    if build.on_cpu(*args):
+        grads = ref.intra_chunk_backward(*args, dY, dS, dcum)
+        return tuple(g.to(t.dtype) for g, t in zip(grads, args))
+    BC, cs, H, P, N = _shapes(*args)
+    if any(t.dtype not in _DTYPE_CODE for t in args):
+        raise TypeError(f"the SSD backward takes float32 or bfloat16 inputs;"
+                        f" got {[t.dtype for t in args]}")
+    dev = xdt.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = ((BC, cs, H, P), (BC, H, P, N), (BC, H, cs))
+    dY, dS, dcum = (torch.zeros(s, **f32) if g is None
+                    else g.to(torch.float32).contiguous()
+                    for g, s in zip((dY, dS, dcum), outs))
+    ins = [t.to(torch.float32).contiguous() for t in args]
+    grads = [torch.empty_like(t) for t in ins]
+    if BC == 0 or H == 0 or P == 0 or N == 0:
+        return tuple(g.zero_().to(t.dtype) for g, t in zip(grads, args))
+    hpg, ng = bwd_head_groups(BC, H)
+    G = torch.empty((BC, cs, cs), **f32)
+    dGp = torch.zeros((BC, ng, cs, cs), **f32)
+    dBp = torch.zeros((BC, ng, cs, N), **f32)
+    lib, fn = _bwd_entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = fn(*(t.data_ptr() for t in (*ins, dY, dS, dcum, *grads, G,
+                                           dGp, dBp)),
+                  BC, cs, H, P, N, hpg, stream)
+    build.check(lib, code, "ssd_intra_chunk_bwd launch")
+    ssd_bwd_launches += 1
+    return tuple(g.to(t.dtype) for g, t in zip(grads, args))
+
+
+class _SSD(torch.autograd.Function):
+    """The intra-chunk kernel, with ``csrc/ssd_intra_chunk_bwd.cu`` as its
+    backward."""
+
+    @staticmethod
+    def forward(ctx, xdt, dA, Bc, Cc):
+        ctx.save_for_backward(xdt, dA, Bc, Cc)
+        return _forward(xdt, dA, Bc, Cc)
+
+    @staticmethod
+    def backward(ctx, dY, dS, dcum):
+        return intra_chunk_backward(*ctx.saved_tensors, dY, dS, dcum)
 
 
 def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

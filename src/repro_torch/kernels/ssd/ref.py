@@ -2,7 +2,8 @@
 ``repro.kernels.ssd.ref``, batched over (batch * chunk, head).
 
 ``ops.intra_chunk`` takes it for CPU tensors; ``chip_smoke.py`` and the
-card's tests hold the CUDA kernel against it on the card.
+card's tests hold the CUDA kernel against it on the card, and the backward
+kernel against ``intra_chunk_backward``.
 """
 from __future__ import annotations
 
@@ -34,3 +35,16 @@ def intra_chunk(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
     decay_end = torch.exp(cum[..., -1:] - cum)             # (BC, H, cs)
     S = torch.einsum("bjhp,bjn,bhj->bhpn", xdt, Bc, decay_end)
     return Y, S, cum
+
+
+def intra_chunk_backward(xdt, dA, Bc, Cc, dY, dS, dcum):
+    """(dxdt, ddA, dB, dC) of ``intra_chunk`` at (xdt, dA, Bc, Cc) for the
+    output gradients (dY, dS, dcum; None reads as zero): autograd through
+    ``intra_chunk`` in float32."""
+    with torch.enable_grad():
+        leaves = [t.detach().to(torch.float32).requires_grad_(True)
+                  for t in (xdt, dA, Bc, Cc)]
+        outs = intra_chunk(*leaves)
+        grads = [torch.zeros_like(o) if g is None else g.to(torch.float32)
+                 for o, g in zip(outs, (dY, dS, dcum))]
+        return torch.autograd.grad(outs, leaves, grads)

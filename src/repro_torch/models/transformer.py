@@ -15,6 +15,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as _device
 from repro_torch.configs.base import LayerDesc, ModelConfig
@@ -84,19 +86,19 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
-         compute_dtype):
+         compute_dtype, moe_groups: int = 1):
     """The layer's FFN on its normed input: (y, MoEAux or None)."""
     if desc.moe:
         return moe.moe_ffn(p["moe"], h, top_k=cfg.moe_top_k,
                            capacity_factor=cfg.capacity_factor,
-                           dispatch=cfg.moe_dispatch,
+                           n_groups=moe_groups, dispatch=cfg.moe_dispatch,
                            compute_dtype=compute_dtype)
     return layers.mlp(p["mlp"], h, compute_dtype=compute_dtype), None
 
 
 def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
                 *, positions=None, enc_kv=None, causal: bool = True,
-                compute_dtype=torch.bfloat16):
+                moe_groups: int = 1, compute_dtype=torch.bfloat16):
     """One layer of the full sequence: (x, MoEAux or None)."""
     _, norm = layers.make_norm(cfg)
     h = norm(x, p["ln1"])
@@ -112,7 +114,8 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
                                   cfg, compute_dtype=compute_dtype)
     if "ln2" not in p:                       # pure-mixer block (no FFN)
         return x, None
-    y, aux = _ffn(p, norm(x, p["ln2"]), cfg, desc, compute_dtype)
+    y, aux = _ffn(p, norm(x, p["ln2"]), cfg, desc, compute_dtype,
+                  moe_groups)
     return x + y, aux
 
 
@@ -162,6 +165,7 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
 
 def forward(params: dict, tokens, cfg: ModelConfig, *, positions=None,
             enc_kv=None, inputs_embeds=None, compute_dtype=torch.bfloat16,
+            remat: bool = False, remat_policy=None, moe_groups: int = 1,
             logits_last_only: bool = False):
     """tokens: (B, T) -> (float32 logits (B, T, vocab_padded), Aux), or
     logits (B, 1, vocab_padded) with ``logits_last_only`` (serving prefill:
@@ -171,29 +175,55 @@ def forward(params: dict, tokens, cfg: ModelConfig, *, positions=None,
     embeddings; ``tokens`` is then not read); ``positions`` is (B, T), or
     (B, 3, T) (t, h, w) rows for M-RoPE; ``enc_kv`` is ``encode``'s output
     for the decoder's cross-attention. ``Aux`` holds the MoE layers' mean
-    load-balance loss and dropped fraction (zeros without MoE layers)."""
+    load-balance loss and dropped fraction (zeros without MoE layers).
+
+    ``remat=True`` rematerializes each full period of ``cfg.layer_pattern``
+    (``torch.utils.checkpoint``, non-reentrant), as the reference's
+    ``jax.checkpoint`` over its period scan: the backward keeps only each
+    period's input and runs the period's forward again. The remainder
+    layers are not rematerialized, as in the reference. ``remat_policy``
+    (JAX's ``checkpoint_policies``) has no counterpart and must be None.
+    ``moe_groups`` is the MoE layers' routing-group count."""
+    if remat_policy is not None:
+        raise NotImplementedError(
+            "remat_policy: JAX's checkpoint policies have no counterpart in "
+            "the port; remat=True recomputes each whole period")
     x = (inputs_embeds if inputs_embeds is not None
          else layers.embed(params["embed"], tokens)).to(compute_dtype)
     B, T, _ = x.shape
     if positions is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
-    loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    dropped = torch.zeros((), dtype=torch.float32, device=x.device)
-    n_moe = 0
-    for p, desc in zip(params["layers"], cfg.plan()):
-        x, aux = apply_layer(p, x, cfg, desc, positions=positions,
-                             enc_kv=enc_kv, compute_dtype=compute_dtype)
-        if aux is not None:
-            loss = loss + aux.load_balance_loss
-            dropped = dropped + aux.dropped_fraction
-            n_moe += 1
+    plan = cfg.plan()
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(first: int, n: int, x, loss, dropped):
+        for i in range(first, first + n):
+            x, aux = apply_layer(params["layers"][i], x, cfg, plan[i],
+                                 positions=positions, enc_kv=enc_kv,
+                                 moe_groups=moe_groups,
+                                 compute_dtype=compute_dtype)
+            if aux is not None:
+                loss = loss + aux.load_balance_loss
+                dropped = dropped + aux.dropped_fraction
+        return x, loss, dropped
+
+    period = cfg.period
+    n_full = len(plan) // period * period
+    loss, dropped = zero, zero
+    for first in range(0, n_full, period):
+        if remat:
+            x, loss, dropped = checkpoint(run, first, period, x, loss,
+                                          dropped, use_reentrant=False)
+        else:
+            x, loss, dropped = run(first, period, x, loss, dropped)
+    x, loss, dropped = run(n_full, len(plan) - n_full, x, loss, dropped)
     _, norm = layers.make_norm(cfg)
     if logits_last_only:
         x = x[:, -1:, :]
     x = norm(x, params["final_norm"])
     logits = layers.unembed(params["embed"], x, compute_dtype=compute_dtype,
                             n_valid=cfg.vocab)
-    n_moe = max(n_moe, 1)
+    n_moe = max(sum(d.moe for d in plan), 1)
     return logits, Aux(loss / n_moe, dropped / n_moe)
 
 
@@ -257,3 +287,24 @@ def decode_step(params: dict, token: torch.Tensor, state: ServeState,
     logits = layers.unembed(params["embed"], x, compute_dtype=compute_dtype,
                             n_valid=cfg.vocab)
     return logits, ServeState(tuple(caches), state.enc_kv, state.cross_kv)
+
+
+# ---------------------------------------------------------------------------
+# loss
+# ---------------------------------------------------------------------------
+
+def lm_loss(params: dict, tokens, labels: torch.Tensor, cfg: ModelConfig, *,
+            enc_kv=None, inputs_embeds=None, moe_loss_weight: float = 0.01,
+            compute_dtype=torch.bfloat16, remat: bool = False,
+            remat_policy=None, moe_groups: int = 1):
+    """Mean next-token cross-entropy over (B, T) ``labels`` (float32 log
+    softmax over the padded vocabulary, whose padding columns are -1e30),
+    plus ``moe_loss_weight`` times the MoE load-balance loss. Returns
+    (loss, Aux); the arguments are ``forward``'s."""
+    logits, aux = forward(params, tokens, cfg, enc_kv=enc_kv,
+                          inputs_embeds=inputs_embeds,
+                          compute_dtype=compute_dtype, remat=remat,
+                          remat_policy=remat_policy, moe_groups=moe_groups)
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
+    return torch.mean(nll) + moe_loss_weight * aux.moe_loss, aux

@@ -1,6 +1,7 @@
 """Adam/AdamW over dicts of tensors — port of ``repro.optim.adam``.
 
-Used by GP hyperparameter MLE (``core/hyper.py``). Supports global-norm
+Used by GP hyperparameter MLE (``core/hyper.py``) and LM training
+(``launch/train.py``: trees of dicts and lists). Supports global-norm
 clipping, decoupled weight decay and schedule callables. The bias
 corrections are computed in float32 from the step count, as the reference
 computes them, so that float64 loss trajectories match it. The update runs
@@ -9,30 +10,51 @@ outside autograd (it is the optimizer, not part of the objective).
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 
 def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts (and over the matching leaves
-    of ``rest``), keeping the structure."""
+    """``fn`` over the leaves of nested dicts, lists, tuples and
+    NamedTuples (and over the matching leaves of ``rest``), keeping the
+    structure; ``None`` (an LM's absent norm weights) stays ``None``. The
+    port's optimizer, gradient compression and training step share it."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    if tree is None:
+        return None
     return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
-    return [tree]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [] if tree is None else [tree]
 
 
 class AdamState(NamedTuple):
     step: torch.Tensor    # () int32
     mu: dict
     nu: dict
+
+
+class TrainState(NamedTuple):
+    """An LM's training state (``launch.train``; the reference's
+    ``repro.launch.train.TrainState``)."""
+    params: Any
+    opt: AdamState
+    ef: Any                # optim.compression.EFState | None
+    step: torch.Tensor     # () int32
 
 
 class Adam(NamedTuple):

@@ -21,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.parallel.runner import _tree_map
+from repro_torch.optim.adam import tree_leaves, tree_map
 
 
 class EFState(NamedTuple):
@@ -29,7 +29,7 @@ class EFState(NamedTuple):
 
 
 def init_ef(params) -> EFState:
-    return EFState(_tree_map(torch.zeros_like, params))
+    return EFState(tree_map(torch.zeros_like, params))
 
 
 def _quantize(x: torch.Tensor):
@@ -45,16 +45,10 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(dt) * scale
 
 
-def _leaves(tree) -> list:
-    out = []
-    _tree_map(out.append, tree)
-    return out
-
-
 def compress_grads(grads, ef: EFState):
     """Quantize (with error feedback) each gradient leaf; returns
     (grads', ef')."""
-    g_l, e_l = _leaves(grads), _leaves(ef.error)
+    g_l, e_l = tree_leaves(grads), tree_leaves(ef.error)
     deq, err = [], []
     for g, e in zip(g_l, e_l):
         corrected = g.to(torch.float32) + e
@@ -64,8 +58,8 @@ def compress_grads(grads, ef: EFState):
         err.append((g.to(torch.float32) + e
                     - d.to(torch.float32)).to(e.dtype))
     it_d, it_e = iter(deq), iter(err)
-    return (_tree_map(lambda _: next(it_d), grads),
-            EFState(_tree_map(lambda _: next(it_e), ef.error)))
+    return (tree_map(lambda _: next(it_d), grads),
+            EFState(tree_map(lambda _: next(it_e), ef.error)))
 
 
 def compressed_psum(x: torch.Tensor, axis_name) -> torch.Tensor:

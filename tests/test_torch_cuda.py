@@ -478,43 +478,65 @@ def test_picf_plan_on_the_card_matches_the_plain_path(cuda):
     assert bool(torch.isfinite(mk).all() and torch.isfinite(vk).all())
 
 
-@pytest.mark.parametrize("call", ["rbf", "icf", "xcov", "downdate", "flash",
-                                  "ssd"])
+@pytest.mark.parametrize("call", ["rbf", "icf", "xcov", "downdate"])
 def test_kernel_wrappers_refuse_a_graph(cuda, call):
-    """Asked for a gradient, each CUDA wrapper raises (it would return a
-    tensor cut from the graph); under no_grad, or with no input requiring
-    grad, it launches."""
+    """Asked for a gradient, each CUDA wrapper without a backward kernel
+    raises (it would return a tensor cut from the graph); under no_grad, or
+    with no input requiring grad, it launches. (Flash and SSD have backward
+    kernels: ``test_flash_and_ssd_wrappers_record_a_graph``.)"""
     from repro_torch.kernels.linalg import ops as linalg_ops
     X = torch.randn(64, 3, device=cuda, dtype=torch.float64)
     s2 = torch.tensor(1.3, device=cuda, dtype=torch.float64,
                       requires_grad=True)
     L1, _, alpha = _factors(16, torch.float64, cuda)
-    # the flash, SSD and downdate wrappers take no scalar: the graph comes
-    # in through a second tensor input instead
-    q = torch.randn(1, 2, 16, 64, device=cuda, dtype=torch.bfloat16,
-                    requires_grad=True)
-    dA = (-torch.rand(1, 2, 16, device=cuda)).requires_grad_(True)
+    # the downdate wrapper takes no scalar: the graph comes in through a
+    # second tensor input instead
     W = torch.randn(16, 3, device=cuda, dtype=torch.float64) * 0.1
     W.requires_grad_(True)
     run = {"rbf": lambda x: ops.rbf_covariance(x, X[:16], s2),
            "icf": lambda x: ops.icf_factor(x, s2, 8),
            "xcov": lambda x: ops.xcov_diag(x, X[:16], L1, alpha, s2),
-           "downdate": lambda x: linalg_ops.chol_downdate(L1, W),
-           "flash": lambda x: attn_ops.attention(q, q.detach(), q.detach()),
-           "ssd": lambda x: ssd_ops.intra_chunk(
-               torch.randn(1, 16, 2, 8, device=cuda), dA,
-               torch.randn(1, 16, 8, device=cuda),
-               torch.randn(1, 16, 8, device=cuda))}[call]
+           "downdate": lambda x: linalg_ops.chol_downdate(L1, W)}[call]
     with pytest.raises(RuntimeError, match="no backward"):
         run(X)
     with torch.no_grad():
         run(X)
-    for t in (s2, q, dA, W):
+    for t in (s2, W):
         t.requires_grad_(False)
     if call in ("rbf", "icf", "xcov"):
         with pytest.raises(RuntimeError, match="no backward"):
             run(X.clone().requires_grad_(True))
     run(X)
+
+
+@pytest.mark.parametrize("call", ["flash", "ssd"])
+def test_flash_and_ssd_wrappers_record_a_graph(cuda, call):
+    """In grad mode, with an input that requires grad, the output has a
+    ``grad_fn`` and ``backward`` launches the backward kernel once; under
+    no_grad the forward alone runs and the output has none."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    if call == "flash":
+        q = torch.randn((1, 2, 16, 64), generator=g, device=cuda,
+                        dtype=torch.bfloat16).requires_grad_(True)
+        run = lambda: attn_ops.attention(q, q.detach(), q.detach())
+        mod, attr, leaf = attn_ops, "flash_bwd_launches", q
+    else:
+        dA = (-torch.rand((1, 2, 16), generator=g, device=cuda)
+              ).requires_grad_(True)
+        args = [torch.randn(s, generator=g, device=cuda)
+                for s in ((1, 16, 2, 8), (1, 16, 8), (1, 16, 8))]
+        run = lambda: ssd_ops.intra_chunk(args[0], dA, args[1], args[2])[0]
+        mod, attr, leaf = ssd_ops, "ssd_bwd_launches", dA
+    with torch.no_grad():
+        assert run().grad_fn is None
+    out = run()
+    assert out.grad_fn is not None
+    before = getattr(mod, attr)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert getattr(mod, attr) == before + 1
+    assert leaf.grad is not None and bool(torch.isfinite(leaf.grad).all())
+    assert float(leaf.grad.float().abs().max()) > 0
 
 
 # --- the Cholesky downdate (the streaming stores' retire) ----------------------
@@ -1283,3 +1305,167 @@ def test_gp_programs_over_two_gloo_ranks_on_the_card(cuda, tmp_path):
         for k in ("mean", "blocks", "F"):
             err = float(np.abs(out[k] - want[k]).max())
             assert err < DIST_TOL, (rank, k, err)
+
+
+# --- the backward kernels ------------------------------------------------------
+
+# (B, Hq, Hkv, Tq, Tk, D, window, q_offset, causal): causal, sliding window,
+# non-causal (Tq != Tk, whisper's cross shape cut down), GQA 4:1, q_offset,
+# D in {64, 128, 256} and 12 (padded to 16 in bf16), ragged tiles, a row
+# with no valid key (window 2 at offset 20 over 8 keys)
+FLASH_BWD_CASES = [(2, 4, 2, 128, 128, 64, None, 0, True),
+                   (1, 4, 4, 200, 200, 128, None, 0, True),
+                   (1, 2, 2, 300, 300, 256, 100, 0, True),
+                   (1, 4, 1, 96, 96, 12, None, 0, True),
+                   (1, 8, 2, 130, 130, 64, 48, 0, True),
+                   (2, 4, 4, 45, 150, 64, None, 0, False),
+                   (1, 4, 2, 100, 200, 128, None, 100, True),
+                   (1, 2, 2, 33, 70, 256, None, 0, False),
+                   (1, 2, 2, 4, 8, 64, 2, 20, True)]
+# max|err| <= tol x max|want| per gradient. f32: rounding order only.
+# bf16: P and dS are rounded to bf16 for their products (2^-9 a term) and
+# dq, dk, dv to bf16 (2^-8); the plain version differentiates in float32
+# from the same bf16 inputs.
+FLASH_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _flash_bwd_inputs(cuda, dtype, B, Hq, Hkv, Tq, Tk, D, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    shapes = ((B, Hq, Tq, D), (B, Hkv, Tk, D), (B, Hkv, Tk, D),
+              (B, Hq, Tq, D))
+    return [torch.randn(s, generator=g, device=cuda).to(dtype)
+            for s in shapes]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,window,off,causal",
+                         FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_kernel_matches_plain(cuda, B, Hq, Hkv, Tq, Tk, D,
+                                             window, off, causal, dtype):
+    q, k, v, do = _flash_bwd_inputs(cuda, dtype, B, Hq, Hkv, Tq, Tk, D)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    with torch.no_grad():
+        out = attn_ops.attention(q, k, v, **kw)
+    before = attn_ops.flash_bwd_launches
+    runs = [attn_ops.attention_backward(q, k, v, out, do, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert attn_ops.flash_bwd_launches == before + 2
+    want = attn_ref.attention_backward(q, k, v, do, **kw)
+    for got, again, w, name in zip(runs[0], runs[1], want, "qkv"):
+        assert torch.equal(got, again), name          # no atomics
+        assert got.dtype == dtype and got.shape == w.shape
+        scale = float(w.abs().max())
+        err = float((got.float() - w).abs().max())
+        assert err <= FLASH_BWD_TOL[dtype] * scale + 1e-6, (name, err, scale)
+
+
+def test_flash_backward_rows_without_a_key_are_zero(cuda):
+    q, k, v, do = _flash_bwd_inputs(cuda, torch.bfloat16, 1, 2, 2, 4, 8, 64)
+    dq, dk, dv = attn_ops.attention_backward(
+        q, k, v, torch.zeros_like(q), do, causal=True, window=2, q_offset=20)
+    for t in (dq, dk, dv):
+        assert torch.equal(t, torch.zeros_like(t))
+
+
+def test_flash_backward_strided_views_and_autograd(cuda):
+    """q, k, v as (B, T, H, D) buffers seen as (B, H, T, D), through
+    autograd: the same gradients as contiguous copies."""
+    ts = _flash_bwd_inputs(cuda, torch.bfloat16, 2, 8, 4, 80, 80, 64, seed=1)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2).requires_grad_()
+             for t in ts[:3]]
+    conts = [t.detach().contiguous().requires_grad_() for t in views]
+    for leaves in (views, conts):
+        attn_ops.attention(*leaves).backward(ts[3])
+    for a, b in zip(views, conts):
+        assert torch.equal(a.grad, b.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_in_trainings_layout_matches_plain(cuda, dtype):
+    """q, k, v and dO as (B, H, T, D) views of (B, T, H, D) buffers, as a
+    training step hands them over (qwen3's heads, D = 128), against the
+    plain version."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, Hq, Hkv, T, D = 2, 16, 8, 256, 128
+    q, k, v, do = (torch.randn((B, T, H, D), generator=g, device=cuda)
+                   .to(dtype).transpose(1, 2) for H in (Hq, Hkv, Hkv, Hq))
+    with torch.no_grad():
+        out = attn_ops.attention(q, k, v)
+    got = attn_ops.attention_backward(q, k, v, out, do)
+    want = attn_ref.attention_backward(q, k, v, do)
+    for a, w, name in zip(got, want, "qkv"):
+        scale = float(w.abs().max())
+        err = float((a.float() - w).abs().max())
+        assert err <= FLASH_BWD_TOL[dtype] * scale + 1e-6, (name, err, scale)
+
+
+def test_flash_f32_backward_is_the_forwards_derivative(cuda):
+    """gradcheck-style: the f32 backward kernel's directional derivative
+    of <attention(q, k, v), dO> against a central difference of the f32
+    forward kernel (eps 1e-2: truncation ~1e-4, rounding ~1e-4 of the
+    derivative's size)."""
+    q, k, v, do = _flash_bwd_inputs(cuda, torch.float32, 1, 4, 2, 40, 40, 16,
+                                    seed=5)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    dirs = [torch.randn(t.shape, generator=g, device=cuda) for t in (q, k, v)]
+    for kw in (dict(causal=True), dict(causal=True, window=9),
+               dict(causal=False)):
+        with torch.no_grad():
+            out = attn_ops.attention(q, k, v, **kw)
+            grads = attn_ops.attention_backward(q, k, v, out, do, **kw)
+            eps = 1e-2
+
+            def loss(sign):
+                args = [t + sign * eps * d for t, d in zip((q, k, v), dirs)]
+                return float((attn_ops.attention(*args, **kw).double()
+                              * do.double()).sum())
+
+            fd = (loss(1) - loss(-1)) / (2 * eps)
+        an = sum(float((gr.double() * d.double()).sum())
+                 for gr, d in zip(grads, dirs))
+        assert abs(an - fd) <= 1e-2 * abs(an), (kw, an, fd)
+
+
+# the last two have several heads a block (mamba2 training's split, 3
+# groups of 8, and 2 groups of 4 and 3), the others one
+SSD_BWD_CASES = [(4, 16, 3, 8, 8), (2, 64, 3, 16, 32), (2, 20, 3, 5, 7),
+                 (1, 100, 2, 80, 150), (2, 256, 24, 64, 128),
+                 (3, 200, 5, 64, 128), (1, 600, 2, 64, 32),
+                 (128, 32, 24, 16, 32), (200, 16, 7, 8, 8)]
+# max|err| <= tol x max|want| per gradient: f32 rounding order only (the
+# kernel's cumsum and products sum in other orders); bf16 inputs are
+# differentiated in f32 by both, the kernel's gradients rounded to bf16.
+SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("BC,cs,H,P,N", SSD_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_matches_plain(cuda, BC, cs, H, P, N, dtype):
+    args = _ssd_inputs(cuda, dtype, BC, cs, H, P, N, seed=8)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    douts = [torch.randn(s, generator=g, device=cuda)
+             for s in ((BC, cs, H, P), (BC, H, P, N), (BC, H, cs))]
+    before = ssd_ops.ssd_bwd_launches
+    runs = [ssd_ops.intra_chunk_backward(*args, *douts) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert ssd_ops.ssd_bwd_launches == before + 2
+    want = ssd_ref.intra_chunk_backward(*args, *douts)
+    for got, again, w, name in zip(runs[0], runs[1], want,
+                                   ("dxdt", "ddA", "dB", "dC")):
+        assert torch.equal(got, again), name          # no atomics
+        assert got.dtype == dtype and got.shape == w.shape
+        scale = float(w.abs().max())
+        err = float((got.float() - w).abs().max())
+        assert err <= SSD_BWD_TOL[dtype] * scale + 1e-6, (name, err, scale)
+
+
+def test_ssd_backward_without_some_output_gradients(cuda):
+    """dS and dcum absent (None) read as zero, as autograd passes them when
+    only Y feeds the loss."""
+    args = _ssd_inputs(cuda, torch.float32, 2, 64, 3, 16, 32, seed=10)
+    dY = torch.randn((2, 64, 3, 16), device=cuda)
+    got = ssd_ops.intra_chunk_backward(*args, dY, None, None)
+    want = ssd_ref.intra_chunk_backward(*args, dY, None, None)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())

@@ -42,13 +42,16 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.runtime.monitor", "repro_torch.launch.mesh",
             "repro_torch.launch.backend_probe",
             "repro_torch.parallel.collectives",
-            "repro_torch.optim.compression"} <= set(mods)
+            "repro_torch.optim.compression",
+            "repro_torch.checkpoint.io", "repro_torch.checkpoint.manager",
+            "repro_torch.parallel.sharding", "repro_torch.data.loader",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'msgpack'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -70,12 +73,13 @@ def _imported_roots(path: Path) -> set[str]:
 def test_chip_smoke_imports_no_jax_and_nothing_of_repro():
     roots = _imported_roots(ROOT / "chip_smoke.py")
     assert "repro_torch" in roots
-    assert not roots & {"jax", "jaxlib", "repro"}
+    assert not roots & {"jax", "jaxlib", "repro", "msgpack"}
 
 
 def test_port_sources_import_no_jax_and_nothing_of_repro():
     for path in (ROOT / "src" / "repro_torch").rglob("*.py"):
-        assert not _imported_roots(path) & {"jax", "jaxlib", "repro"}, path
+        assert not _imported_roots(path) & {"jax", "jaxlib", "repro",
+                                             "msgpack"}, path
 
 
 def test_entry_points_refuse_to_run_on_the_cpu_unasked(monkeypatch):

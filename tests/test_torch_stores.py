@@ -214,25 +214,88 @@ class TestCholUpdate:
 
 
 # ---------------------------------------------------------------------------
-# The CUDA wrappers refuse a graph before they launch (ROADMAP §3 item 4)
+# The CUDA wrappers refuse a graph before they launch (ROADMAP §3 item 4),
+# unless a backward kernel records it (flash and SSD)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("call", [
     lambda x: linalg_ops.chol_downdate(torch.eye(8), x),
-    lambda x: attn_ops.attention(x[None, None], x[None, None],
-                                 x[None, None]),
-    lambda x: ssd_ops.intra_chunk(x[None, :, None, :], x[None, None, :, 0],
-                                  x[None], x[None]),
-])
+], ids=["<lambda>0"])
 def test_kernel_wrappers_refuse_a_graph_before_launching(monkeypatch, call):
-    """The downdate, flash and SSD wrappers check before they touch a card:
-    with their tensors taken for CUDA ones (no card here), an input that
-    requires grad is refused in grad mode, where the kernel would return a
-    tensor cut from the graph."""
+    """The downdate wrapper, which has no backward kernel, checks before it
+    touches a card: with its tensors taken for CUDA ones (no card here), an
+    input that requires grad is refused in grad mode, where the kernel
+    would return a tensor cut from the graph."""
     monkeypatch.setattr(build, "on_cpu", lambda *t: False)
     x = torch.zeros(8, 8, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         call(x)
+
+
+class _Launched(Exception):
+    """Raised where a wrapper fetches its kernel's entry point."""
+
+
+def _lm_wrapper(name: str):
+    """(module, call, its backward's name) of the flash or SSD wrapper on
+    an 8 x 8 input that requires grad."""
+    if name == "flash":
+        return (attn_ops, lambda x: attn_ops.attention(
+            x[None, None], x[None, None], x[None, None]),
+            "attention_backward")
+    return (ssd_ops, lambda x: ssd_ops.intra_chunk(
+        x[None, :, None, :], x[None, None, :, 0], x[None], x[None])[0],
+        "intra_chunk_backward")
+
+
+@pytest.mark.parametrize("name", ["flash", "ssd"])
+def test_lm_wrappers_under_grad_go_to_their_kernels(monkeypatch, name):
+    """With their tensors taken for CUDA ones and an input that requires
+    grad, in grad mode, the flash and SSD wrappers do not refuse and do not
+    take the plain version: they go on to fetch their forward kernel
+    (stubbed here to raise, whatever toolchain the machine has)."""
+    mod, call, _ = _lm_wrapper(name)
+    monkeypatch.setattr(build, "on_cpu", lambda *t: False)
+
+    def entry():
+        raise _Launched
+
+    monkeypatch.setattr(mod, "_entry", entry)
+    with pytest.raises(_Launched):
+        call(torch.zeros(8, 8, requires_grad=True))
+
+
+@pytest.mark.parametrize("name", ["flash", "ssd"])
+def test_lm_wrappers_record_their_backward(monkeypatch, name):
+    """In grad mode, with an input that requires grad, the flash and SSD
+    wrappers' outputs carry a ``grad_fn``, and ``backward`` calls the
+    backward wrapper (which launches the backward kernel on the card) once
+    with the saved inputs; under no_grad there is no graph. The forward
+    kernel and the backward wrapper are stubbed by the plain versions."""
+    mod, call, bwd = _lm_wrapper(name)
+    plain_fwd = (lambda q, k, v, causal, window, scale, q_offset:
+                 attn_ops._plain(q, k, v, causal, window, scale, q_offset)) \
+        if name == "flash" else (lambda *a: ssd_ops.ref.intra_chunk(*a))
+    plain_bwd = getattr(mod, bwd)
+    calls = []
+
+    def backward(*args, **kw):
+        calls.append(args)
+        return plain_bwd(*args, **kw)
+
+    monkeypatch.setattr(mod, "_forward", plain_fwd)
+    monkeypatch.setattr(mod, bwd, backward)
+    x = torch.randn(8, 8, generator=torch.Generator().manual_seed(3),
+                    requires_grad=True)
+    monkeypatch.setattr(build, "on_cpu", lambda *t: False)
+    with torch.no_grad():
+        assert call(x).grad_fn is None
+    out = call(x)
+    assert out.grad_fn is not None and not calls
+    monkeypatch.setattr(build, "on_cpu", lambda *t: True)
+    out.square().sum().backward()
+    assert len(calls) == 1 and calls[0][0] is not None
+    assert x.grad is not None and float(x.grad.abs().max()) > 0
 
 
 def test_refuse_grad_is_shared_and_keeps_its_old_name():
