@@ -41,8 +41,12 @@ Phases, in order; any failure exits non-zero before the last line:
    sliding window and small edge cases in bf16 and f32; SSD in f32 at
    mamba2's training shape, whose head groups are phase 8's, at its
    prefill shape and at edges), each case launched twice (equal: no
-   atomics), timed at the training and prefill shapes beside their
-   bounds, the plain versions and, for flash, SDPA's backward;
+   atomics); each flash case also holds the forward's log-sum-exp against
+   the plain one and its output bitwise against the forward without that
+   store, and counts the wgmma route's launches (bf16 at D = 64 and 128,
+   not D = 256, not f32); both timed at the training and prefill shapes
+   beside their bounds, the plain versions, the flash backward's two-pass
+   mma.sync route on the same inputs and, for flash, SDPA's backward;
 4. GP main path: pPITC at the paper's AIMPEAK configuration (|D| = 32000,
    M = 20, |S| = 2048, d = 5, float32): support selection, fit, plan,
    warm-up, 8 requests through ``plan.diag``; support selection must be
@@ -199,11 +203,13 @@ Phases, in order; any failure exits non-zero before the last line:
    256 -> 4 (2 microbatches of 2), and mamba2-130m whole at 8 x 4096; a
    warm-up step, then 3 timed steps (s, tokens/s, losses finite, peak
    memory), each step's forward and backward kernel launches equal to the
-   layers x microbatches (twice for the forward: remat); mamba2's state at
-   step 2 through a ``CheckpointManager`` (async save), the next step
-   retaken from the restored state bit for bit; then one float32 gradient
-   at smoke width on the card (the kernels) against the CPU (the plain
-   versions);
+   layers x microbatches (twice for the forward: remat), every qwen3
+   backward launch on the flash backward's wgmma route; one more step of
+   each traced (``launch.train_profile``: wall, busy, the backward
+   kernels' share of device time); mamba2's state at step 2 through a
+   ``CheckpointManager`` (async save), the next step retaken from the
+   restored state bit for bit; then one float32 gradient at smoke width on
+   the card (the kernels) against the CPU (the plain versions);
 7. one JSON line listing each kernel's launches, error, times and bound.
    Phase 8 runs before it; every phase prints its seconds.
 
@@ -212,6 +218,11 @@ them just after; a kernel of the path that was not launched fails the run.
 
 The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 Imports nothing of JAX and nothing of the JAX package.
+
+``python3 chip_smoke.py --phases 3,8`` runs phases 1 and 2, then only the
+backward kernels' checks of phase 3 and/or phase 8 (no kernels line; the
+last line also names the phases): the quick run after a change to the
+backward kernels or the training path.
 """
 from __future__ import annotations
 
@@ -328,6 +339,13 @@ F64_FLOPS_PER_S = 34e12
 #  ~-20 at cs = 256, so exp(cum_i - cum_j) carries ~1e-6 relative.
 TOL_BWD = {"flash": {"float32": 1e-4, "bfloat16": 2e-2},
            "ssd": {"float32": 1e-4, "bfloat16": 1e-2}}
+#  The forward's log-sum-exp (written for the backward) against the plain
+#  one from the same inputs, absolute, in natural-log units: both sum the
+#  products and the exponentials in float32 in other orders, and the
+#  kernel's exp2 / log2 are the hardware approximations (~2 ulp), on LSEs
+#  of ~10 over up to 4096 keys: ~1e-5; 1e-4 leaves 10x. A missing tile or
+#  key errs by its share of the sum, a wrong mask by O(1).
+TOL_LSE = 1e-4
 BWD_REPEAT = 2      # launches of each backward case (each equal: no atomics)
 
 
@@ -1250,24 +1268,43 @@ def _flash_bwd_inputs(torch, gen, case, dt, bthd: bool):
 
 def _flash_bwd_case(torch, ops, ref, gen, case, dt, bthd=False) -> float:
     """One backward case, BWD_REPEAT launches (each equal to the first),
-    against the plain version one batch row at a time; returns the largest
-    error relative to its gradient's size."""
+    against the plain version one batch row at a time, from the forward's
+    log-sum-exp as training hands it over (``attention_with_lse``), which is
+    held against the plain one, and the forward's output bitwise against
+    the forward without that store. The wgmma route must take exactly the
+    bf16 cases at D = 64 and 128. Returns the largest gradient error
+    relative to its gradient's size."""
     B, Hq, Hkv, Tq, Tk, Dh, window, off, causal = case
     q, k, v, do = _flash_bwd_inputs(torch, gen, case, dt, bthd)
     kw = dict(causal=causal, window=window, q_offset=off)
+    key = str(dt).split(".")[1]
     with torch.no_grad():
-        o = ops.attention(q, k, v, **kw)
-    n0 = ops.flash_bwd_launches
-    runs = [ops.attention_backward(q, k, v, o, do, **kw)
+        o, lse = ops.attention_with_lse(q, k, v, **kw)
+        if not torch.equal(o, ops.attention(q, k, v, **kw)):
+            fail(f"flash {case} {key}: the forward's output changes with "
+                 f"its LSE store")
+    want_lse = torch.cat([ref.attention_lse(q[b:b + 1], k[b:b + 1], **kw)
+                          for b in range(B)])
+    keyed = torch.isfinite(want_lse)
+    lse_err = float((lse[keyed] - want_lse[keyed]).abs().max()) \
+        if keyed.any() else 0.0
+    if not (torch.equal(torch.isneginf(lse), ~keyed)
+            and lse_err <= TOL_LSE):
+        fail(f"flash {case} {key}: forward LSE error {lse_err} (tol "
+             f"{TOL_LSE}) or rows without a key not -inf")
+    n0, s0 = ops.flash_bwd_launches, ops.flash_bwd_sm90_launches
+    runs = [ops.attention_backward(q, k, v, o, do, lse=lse, **kw)
             for _ in range(BWD_REPEAT)]
     want = [torch.cat(parts) for parts in zip(*(
         ref.attention_backward(q[b:b + 1], k[b:b + 1], v[b:b + 1],
                                do[b:b + 1], **kw) for b in range(B)))]
     torch.cuda.synchronize()
-    key = str(dt).split(".")[1]
-    if ops.flash_bwd_launches - n0 != BWD_REPEAT:
+    sm90 = ops.flash_bwd_sm90_launches - s0
+    want_sm90 = BWD_REPEAT * (dt == torch.bfloat16 and Dh in (64, 128))
+    if ops.flash_bwd_launches - n0 != BWD_REPEAT or sm90 != want_sm90:
         fail(f"flash backward {case} {key}: "
-             f"{ops.flash_bwd_launches - n0} launches")
+             f"{ops.flash_bwd_launches - n0} launches, {sm90} on the wgmma "
+             f"route (want {BWD_REPEAT}, {want_sm90})")
     if not all(torch.equal(a, b) for run in runs[1:]
                for a, b in zip(run, runs[0])):
         fail(f"flash backward {case} {key}: repeated launches disagree")
@@ -1275,31 +1312,41 @@ def _flash_bwd_case(torch, ops, ref, gen, case, dt, bthd=False) -> float:
                                 TOL_BWD["flash"][key])
     print(f"  flash backward B={B} Hq={Hq} Hkv={Hkv} Tq={Tq} Tk={Tk} D={Dh} "
           f"window={window} offset={off}{'' if causal else ' non-causal'} "
-          f"{key}{' (B, T, H, D) views' if bthd else ''} x{BWD_REPEAT}: "
-          f"max|err| dq {errs[0]:.3e}, dk {errs[1]:.3e},"
+          f"{key}{' (B, T, H, D) views' if bthd else ''} x{BWD_REPEAT} "
+          f"({'wgmma' if sm90 else 'mma.sync' if key != 'float32' else 'FMA'}"
+          f" route): max|err| dq {errs[0]:.3e}, dk {errs[1]:.3e},"
           f" dv {errs[2]:.3e} (tol {lims[0]:.3e}, {lims[1]:.3e}, "
-          f"{lims[2]:.3e})", flush=True)
+          f"{lims[2]:.3e}); forward LSE max|err| {lse_err:.2e} (tol "
+          f"{TOL_LSE}), output bitwise without the store", flush=True)
     if not all(e <= t for e, t in zip(errs, lims)):
         fail(f"flash backward {case} {key}: errors {errs} > {lims}")
     return rel
 
 
 def _flash_bwd_timing(torch, ops, ref, gen, case, bthd: bool) -> dict:
-    """The flash backward at ``case`` (bf16, causal GQA): kernel time, the
-    two kernels apart (profiler device time; the dq kernel's first pass,
-    the LSE recompute, is one of its four products), the plain version,
-    SDPA's backward (``torch.autograd.grad`` through
-    ``scaled_dot_product_attention``, a yardstick the port never calls;
-    its gradients held to the kernel's under the bf16 limit) and the
-    bound."""
+    """The flash backward at ``case`` (bf16, causal GQA) from the forward's
+    LSE, as training calls it: time, its three kernels apart (profiler
+    device time), the two-pass mma.sync kernels on the same inputs (the
+    route that recomputes the LSE; its gradients held to the new ones under the
+    bf16 limit), the plain version, SDPA's backward (``torch.autograd.grad``
+    through ``scaled_dot_product_attention``, a yardstick the port never
+    calls; its gradients held to the kernel's under the bf16 limit) and the
+    bound: the five products the function needs over the causal half."""
     B, Hq, Hkv, T, _, Dh = case[:6]
     q, k, v, do = _flash_bwd_inputs(torch, gen, case, torch.bfloat16, bthd)
     with torch.no_grad():
-        o = ops.attention(q, k, v)
-    call = lambda: ops.attention_backward(q, k, v, o, do)
+        o, lse = ops.attention_with_lse(q, k, v)
+    call = lambda: ops.attention_backward(q, k, v, o, do, lse=lse)
+    old = lambda: ops._launch_bwd(q, k, v, o, do, True, None, Dh ** -0.5, 0)
     ms = time_ms(call, 10)
-    dq_ms = kernel_device_ms(torch, call, "bwd_dq_bf16", 5)
-    kv_ms = kernel_device_ms(torch, call, "bwd_dkdv_bf16", 5)
+    old_ms = time_ms(old, 10)
+    prep_ms = kernel_device_ms(torch, call, "bwd_prep", 5)
+    dq_ms = kernel_device_ms(torch, call, "bwd_dq_sm90", 5)
+    kv_ms = kernel_device_ms(torch, call, "bwd_dkdv_sm90", 5)
+    errs, lims, _ = _bwd_errs(torch, old(), call(),
+                              TOL_BWD["flash"]["bfloat16"])
+    if not all(e <= t for e, t in zip(errs, lims)):
+        fail(f"the flash backward's routes disagree: {errs} > {lims}")
     plain = time_ms(lambda: ref.attention_backward(q, k, v, do), 2,
                     warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -1318,21 +1365,21 @@ def _flash_bwd_timing(torch, ops, ref, gen, case, bthd: bool) -> dict:
     if not all(e <= t for e, t in zip(errs, lims)):
         fail(f"the flash backward disagrees with SDPA's: {errs} > {lims}")
     pairs = T * (T + 1) // 2
-    flops = 6 * 2 * B * Hq * Dh * pairs   # 5 products + the LSE recompute
-    # q, o, dO, k, v read once, dq, dk, dv written once, all bf16
-    nbytes = 2 * 4 * B * T * Dh * (Hq + Hkv)
+    flops = 5 * 2 * B * Hq * Dh * pairs   # S, dP, dq, dk, dv
+    # q, o, dO, k, v and the LSE read once, dq, dk, dv written once, bf16
+    nbytes = 2 * 4 * B * T * Dh * (Hq + Hkv) + 4 * B * Hq * T
     b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
     tflops = flops / ms / 1e9
     print(f"  flash backward at {shape}: {ms:.4f} ms, {tflops:.1f} TFLOP/s "
-          f"of the bound's {flops / 1e9:.0f} GFLOP (the kernels run 8 "
-          f"products, {8 / 6 * tflops:.1f} TFLOP/s executed); SDPA's "
+          f"of the bound's {flops / 1e9:.0f} GFLOP (5 products; the kernels "
+          f"run 7, {7 / 5 * tflops:.1f} TFLOP/s executed); the two-pass "
+          f"mma.sync kernels {old_ms:.4f} ms ({old_ms / ms:.2f}x); SDPA's "
           f"backward {lib:.4f} ms; plain {plain:.4f} ms; bound {b_ms:.4f} ms "
-          f"({b_by}); device: dq kernel {dq_ms:.4f} ms (its LSE pass, one "
-          f"of its four products: ~{dq_ms / 4:.4f} ms, modelled), dk/dv "
-          f"kernel {kv_ms:.4f} ms", flush=True)
+          f"({b_by}); device: prep {prep_ms:.4f} ms, dq kernel "
+          f"{dq_ms:.4f} ms, dk/dv kernel {kv_ms:.4f} ms", flush=True)
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib, tflops=tflops, dq_ms=dq_ms, dkdv_ms=kv_ms,
-                lse_ms_modelled=dq_ms / 4, shape=shape)
+                library_ms=lib, tflops=tflops, prep_ms=prep_ms, dq_ms=dq_ms,
+                dkdv_ms=kv_ms, twopass_ms=old_ms, shape=shape)
 
 
 def check_flash_bwd(torch, ops, ref, gen):
@@ -1401,12 +1448,16 @@ def _ssd_bwd_inputs(torch, gen, BC, cs, H, P, N, dt):
 
 
 def _ssd_bwd_timing(torch, ops, ref, gen, shape) -> dict:
-    """The SSD backward at ``shape`` in f32: kernel time, the plain
-    version's, and the bound (3xTF32 operations or bytes; and on the f32
-    CUDA cores, where the kernel runs)."""
+    """The SSD backward at ``shape`` in f32: time, its four kernels apart
+    (profiler device time), the plain version's, and the bound (3xTF32
+    operations or bytes, as the kernels run; and on the f32 CUDA cores)."""
     BC, cs, H, P, N = shape
     args, douts = _ssd_bwd_inputs(torch, gen, *shape, torch.float32)
-    ms = time_ms(lambda: ops.intra_chunk_backward(*args, *douts), 10)
+    call = lambda: ops.intra_chunk_backward(*args, *douts)
+    ms = time_ms(call, 10)
+    parts = {name: kernel_device_ms(torch, call, name, 5)
+             for name in ("ssd_bwd_u", "ssd_bwd_e", "ssd_bwd_dbdc",
+                          "ssd_bwd_dda")}
     plain = time_ms(lambda: ref.intra_chunk_backward(*args, *douts), 3,
                     warmup=1)
     flops = ssd_bwd_flops(*shape)
@@ -1418,13 +1469,15 @@ def _ssd_bwd_timing(torch, ops, ref, gen, shape) -> dict:
     b_f32_ms, _ = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
     desc = f"BC={BC}, cs={cs}, H={H}, P={P}, N={N}, f32"
     print(f"  ssd backward at {desc}: {ms:.4f} ms, {flops / ms / 1e9:.1f} "
-          f"TFLOP/s of the function's {flops / 1e9:.2f} GFLOP (f32 on the "
-          f"CUDA cores); bound {b_ms:.4f} ms ({b_by}, 3xTF32), f32 "
-          f"CUDA-core bound {b_f32_ms:.4f} ms; plain {plain:.4f} ms",
+          f"TFLOP/s of the function's {flops / 1e9:.2f} GFLOP (3xTF32 on "
+          f"the tensor cores); bound {b_ms:.4f} ms ({b_by}, 3xTF32), f32 "
+          f"CUDA-core bound {b_f32_ms:.4f} ms; plain {plain:.4f} ms; device: "
+          + ", ".join(f"{n[8:]} {v:.4f} ms" for n, v in parts.items()),
           flush=True)
     return dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
                 library_ms=None, bound_f32_ms=b_f32_ms,
-                tflops=flops / ms / 1e9, shape=desc)
+                tflops=flops / ms / 1e9, shape=desc,
+                **{f"{n[8:]}_ms": v for n, v in parts.items()})
 
 
 def check_ssd_bwd(torch, ops, ref, gen):
@@ -4360,9 +4413,13 @@ def train_path(torch, card: str, cfg, counters, *, batch: int,
     forward and backward kernels (``counters``: (module, count, kernel
     name) of each), which must be the attention or SSD layers x
     microbatches for the backward and twice that for the forward (remat
-    runs each period's forward again). With ``resume``: the state at step
-    2 goes through a ``CheckpointManager`` (async save), the next step is
-    retaken from the restored state and must give the same bits."""
+    runs each period's forward again); a third counter, where given, is a
+    route of the backward that every backward launch must take. Then one
+    more step under ``torch.profiler`` (``launch.train_profile``: the
+    backward kernels' share of device time). With ``resume``: the state
+    at step 2 goes through a ``CheckpointManager`` (async save), the next
+    step is retaken from the restored state and must give the same
+    bits."""
     import tempfile
     from repro_torch.checkpoint import io
     from repro_torch.checkpoint.manager import CheckpointManager
@@ -4440,11 +4497,18 @@ def train_path(torch, card: str, cfg, counters, *, batch: int,
           f"x {microbatches}, twice: remat), {bwd_name} {want_bwd}",
           flush=True)
     for n, d in enumerate(per_step):
-        if d[bwd_name] != want_bwd or d[fwd_name] != want_fwd:
+        if d[bwd_name] != want_bwd or d[fwd_name] != want_fwd or any(
+                d[c[2]] != want_bwd for c in counters[2:]):
             fail(f"{cfg.name} training step {n}: launches {d}, want "
-                 f"{fwd_name} {want_fwd} and {bwd_name} {want_bwd}")
+                 f"{fwd_name} {want_fwd} and {bwd_name} {want_bwd}"
+                 + "".join(f", {c[2]} {want_bwd}" for c in counters[2:]))
+    from repro_torch.launch.train_profile import report, trace_step
+    state, traced = trace_step(step, state, batches[-1])
+    report(f"  [{card}] {cfg.name} training step traced (one more, on the "
+           f"last batch)", traced)
     out = dict(launches=launches, step_s=secs, tokens_per_s=toks / p50,
-               losses=losses, peak_gb=peak_gb)
+               losses=losses, peak_gb=peak_gb,
+               trace={k: v for k, v in traced.items() if k != "top"})
     if resume:
         t1 = time.perf_counter()
         back = mgr.restore(2, state)
@@ -4523,7 +4587,46 @@ def train_card_vs_cpu(torch, card: str) -> None:
                  f"leaf {worst}")
 
 
-def main() -> int:
+def training(torch, card: str, attn_ops, ssd_ops) -> tuple[dict, dict]:
+    """Phase 8: qwen3-1.7b and mamba2-130m training runs, then the card's
+    float32 gradient against the CPU's."""
+    from repro_torch.configs.registry import get_config
+    print(f"  reduced: qwen3-1.7b global batch {TRAIN_QWEN['full_batch']} -> "
+          f"{TRAIN_QWEN['batch']} ({TRAIN_QWEN['microbatches']} microbatches "
+          f"of {TRAIN_QWEN['batch'] // TRAIN_QWEN['microbatches']}), seq "
+          f"{LM_SEQ}; width and depth whole", flush=True)
+    qwen_train = train_path(
+        torch, card, get_config("qwen3-1.7b"),
+        [(attn_ops, "flash_launches", "flash_attention"),
+         (attn_ops, "flash_bwd_launches", "flash_attention_bwd"),
+         (attn_ops, "flash_bwd_sm90_launches", "flash_attention_bwd wgmma")],
+        batch=TRAIN_QWEN["batch"], microbatches=TRAIN_QWEN["microbatches"])
+    torch.cuda.empty_cache()
+    mamba_train = train_path(
+        torch, card, get_config("mamba2-130m"),
+        [(ssd_ops, "ssd_launches", "ssd_intra_chunk"),
+         (ssd_ops, "ssd_bwd_launches", "ssd_intra_chunk_bwd")],
+        batch=TRAIN_MAMBA["batch"], microbatches=TRAIN_MAMBA["microbatches"],
+        resume=True)
+    torch.cuda.empty_cache()
+    train_card_vs_cpu(torch, card)
+    return qwen_train, mamba_train
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "card; every phase unless --phases.")
+    ap.add_argument("--phases", default=None,
+                    help="comma-separated subset of 3 (kernel vs plain) and "
+                    "8 (LM training) to run after the card and build "
+                    "phases; prints no kernels line")
+    only = ap.parse_args(argv).phases
+    only = None if only is None else set(only.split(","))
+    if only is not None and not only <= {"3", "8"}:
+        print(f"FAIL: --phases takes 3 and 8; got {sorted(only)}",
+              flush=True)
+        return 2
     try:
         import torch
     except ImportError:
@@ -4581,11 +4684,25 @@ def main() -> int:
     if not tc or not all(tc.values()):
         fail("a float32 xcov_diag instance has no HGMMA")
 
-    phase("phase 3: kernel vs plain")
     from repro_torch.kernels.attention import ops as attn_ops, ref as attn_ref
     from repro_torch.kernels.linalg import ops as lin_ops, ref as lin_ref
     from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if only is not None:
+        if "3" in only:
+            phase("phase 3: kernel vs plain (the backward kernels)")
+            check_flash_bwd(torch, attn_ops, attn_ref, gen)
+            check_ssd_bwd(torch, ssd_ops, ssd_ref, gen)
+        if "8" in only:
+            phase("phase 8: LM training")
+            training(torch, card, attn_ops, ssd_ops)
+        phase("")
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "phases": sorted(only), "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
+    phase("phase 3: kernel vs plain")
     rows = [check_rbf(torch, ops, ref, gen), check_xcov(torch, ops, ref, gen),
             check_flash(torch, attn_ops, attn_ref, gen),
             check_ssd(torch, ssd_ops, ssd_ref, gen),
@@ -4717,25 +4834,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("phase 8: LM training")
-    cfg = get_config("qwen3-1.7b")
-    print(f"  reduced: qwen3-1.7b global batch {TRAIN_QWEN['full_batch']} -> "
-          f"{TRAIN_QWEN['batch']} ({TRAIN_QWEN['microbatches']} microbatches "
-          f"of {TRAIN_QWEN['batch'] // TRAIN_QWEN['microbatches']}), seq "
-          f"{LM_SEQ}; width and depth whole", flush=True)
-    qwen_train = train_path(
-        torch, card, cfg,
-        [(attn_ops, "flash_launches", "flash_attention"),
-         (attn_ops, "flash_bwd_launches", "flash_attention_bwd")],
-        batch=TRAIN_QWEN["batch"], microbatches=TRAIN_QWEN["microbatches"])
-    torch.cuda.empty_cache()
-    mamba_train = train_path(
-        torch, card, get_config("mamba2-130m"),
-        [(ssd_ops, "ssd_launches", "ssd_intra_chunk"),
-         (ssd_ops, "ssd_bwd_launches", "ssd_intra_chunk_bwd")],
-        batch=TRAIN_MAMBA["batch"], microbatches=TRAIN_MAMBA["microbatches"],
-        resume=True)
-    torch.cuda.empty_cache()
-    train_card_vs_cpu(torch, card)
+    qwen_train, mamba_train = training(torch, card, attn_ops, ssd_ops)
     launches["flash_attention_bwd"] = \
         qwen_train["launches"]["flash_attention_bwd"]
     launches["ssd_intra_chunk_bwd"] = \

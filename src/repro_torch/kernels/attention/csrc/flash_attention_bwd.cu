@@ -1,54 +1,49 @@
-// flash_attention_bwd.cu — backward of flash attention (FA2's two passes).
+// flash_attention_bwd.cu — backward of flash attention.
 //
-// The port's own kernel: the JAX package defines no backward for
+// The port's own kernels: the JAX package defines no backward for
 // src/repro/kernels/attention/flash.py:90 (flash_attention_flat); its
 // training tests differentiate the jnp reference. Given q, k, v, the
 // forward's output o and the incoming dO, with s = scale q.k over the keys
 // the causal and/or sliding-window mask leaves to each query (as in
-// flash_attention.cu), it computes
+// flash_attention.cu), they compute
 //   LSE_i = log sum_j exp(s_ij),  P_ij = exp(s_ij - LSE_i),
 //   D_i   = rowsum(dO_i o O_i),   dS_ij = P_ij (dO_i . v_j - D_i),
 //   dq_i  = scale sum_j dS_ij k_j,
 //   dk_j  = scale sum_{h in j's group, i} dS_ij q_i,  dv_j = sum P_ij dO_i.
 // A row with no valid key has LSE = -inf, P = 0 and zero gradients, never
 // NaN. GQA: query head h reads KV head h / G; a dk/dv block loops over the
-// G query heads of its KV head, so nothing is repeated in memory.
+// G query heads of its KV head, so nothing is repeated in memory. No float
+// atomics: every output element has one writer, and two launches on the
+// same inputs give the same bits.
 //
-// Two kernels, launched in order on one stream; no float atomics, so two
-// launches on the same inputs give the same bits:
-//  * dq (query-tile-major): a block owns 64 query rows of one (b, h), 16 a
-//    warp. It forms D_i from o and dO, passes once over the visible keys to
-//    recompute each row's LSE (the forward does not write it), then again
-//    for dq; it writes dq, LSE and D.
-//  * dkdv (key-tile-major): a block owns 64 keys (32 at D = 256) of one
-//    (b, hk) and loops over (query head, 32-row query tile) pairs that can
-//    see them, reading LSE and D; it writes dk and dv.
+// What bounds it: with the LSE from the forward the function needs five
+// products over the causal half (S, dP, dq, dk, dv): at qwen3-1.7b's
+// training shape (B = 2, Hq = 16, Hkv = 8, T = 4096, D = 128, causal)
+// 344 GFLOP, 0.347 ms at 989 TFLOP/s bf16 (0.695 ms at the prefill's
+// B = 4); its bytes (q, k, v, o, dO, LSE read, dq, dk, dv written) take
+// ~0.06 ms at 3.35 TB/s.
 //
-// bfloat16 (dtype 2): every product is mma.sync m16n8k16 bf16 with f32
-// accumulators (P and dS rounded to bf16 for their products, as FA2 does).
-// Operands are staged by cp.async (16 bytes, zero fill past the rows and D)
-// into row-padded shared tiles (rows of D + 8 elements: fragment loads hit
-// distinct banks), double buffered: tile t + 1 copies while tile t
-// computes. A score accumulator's layout is the A layout of the next
-// product, so P and dS go from registers to the tensor cores directly; a
-// B operand whose rows are the contraction (K, Q, dO in dq += dS K,
-// dk += dS^T Q, dv += P^T dO) is gathered as bf16 pairs from shared memory.
-// float32 (dtype 0): the same two passes on the CUDA cores (FMA), for the
-// consistency checks and float32 training.
-//
-// What bounds it: at qwen3-1.7b's prefill shape (B = 4, Hq = 16, Hkv = 8,
-// T = 4096, D = 128, causal) the function needs five products over the
-// causal half (S, dP, dq, dk, dv) plus the LSE recompute's one: 825 GFLOP
-// at 989 TFLOP/s bf16 = 0.83 ms; bytes (q, k, v, o, dO read, dq, dk, dv
-// written) take 0.12 ms. This design runs eight products (S in both
-// kernels and in the LSE pass, dP in both), on mma.sync rather than wgmma,
-// and gathers transposed B operands element by element: later work (a
-// wgmma redesign, an LSE output from the forward) is in ROADMAP.md.
+// Two routes (ops.bwd_route picks one from the inputs alone):
+//  * flash_attention_bwd_sm90, bfloat16 at D = 64 or 128 that TMA can
+//    address (training's path): bwd_prep, then bwd_dq_sm90 and
+//    bwd_dkdv_sm90 (below), wgmma fed by TMA after flash_sm90's model,
+//    reading the LSE the forward wrote. They run 7 products where the
+//    function needs 5: S and dP in both kernels.
+//  * flash_attention_bwd, everything else (D = 256, D % 8 != 0 after the
+//    wrapper's padding, misaligned views, float32): FA2's two passes. A dq
+//    kernel (a block owns 64 query rows, 16 a warp) forms D_i, passes once
+//    over the visible keys to recompute each row's LSE, then again for dq,
+//    and writes LSE and D; a dk/dv kernel (64 keys, 32 at D = 256) loops
+//    over (query head, 32-row query tile) pairs reading them. bfloat16
+//    runs every product on mma.sync m16n8k16 with f32 accumulators
+//    (operands staged by cp.async into row-padded tiles, double buffered;
+//    a B operand whose rows are the contraction gathered as bf16 pairs);
+//    float32 the same two passes on the CUDA cores (FMA).
+// Both round P and dS to bf16 for their products, as FlashAttention does.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -62,8 +57,12 @@ enum { Q, K, V, O, DO, DQ, DK, DV, NARR };
 struct Args {
   const void* in[5];  // q, k, v, o, dO
   void* out[3];       // dq, dk, dv
-  float* lse;         // (B, Hq, Tq), natural log; written by dq
-  float* dsum;        // (B, Hq, Tq), D_i; written by dq
+  float* lse;         // mma.sync route: (B, Hq, Tq), natural log, written
+                      // by dq; wgmma route: the forward's, read by prep
+  float* dsum;        // (B, Hq, Tq), D_i, written by dq; wgmma route:
+                      // (B, Hq, Tqp), written by prep
+  float* lse2;        // wgmma route: (B, Hq, Tqp) LSE in log2, by prep
+  int Tqp;            // wgmma route: Tq rounded up to 128
   int Hq, Hkv, G, Tq, Tk, D;
   long long s[NARR][3];  // (b, h, t) element strides
   float scale;
@@ -121,10 +120,6 @@ __device__ __forceinline__ bool visible(const Args& a, int qrow, int kpos) {
 // ---------------------------------------------------------------------------
 
 constexpr int THREADS = 128;  // 4 warps
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // 16 bytes global -> shared; zero fill (nothing read) when !ok.
 __device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
@@ -563,6 +558,462 @@ __global__ void __launch_bounds__(THREADS) bwd_dkdv_bf16(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 at D in {64, 128} on Hopper: wgmma fed by TMA
+// ---------------------------------------------------------------------------
+//
+// Three launches: bwd_prep (D_i = rowsum(dO o O) and the forward's LSE in
+// log2, one warp a row, into (B, Hq, Tqp) rows padded to 128 with D = 0,
+// LSE = -inf), then bwd_dq_sm90 and bwd_dkdv_sm90, which read only those and
+// the inputs. Each of the two is a block of 3 warpgroups modelled on
+// flash_attention.cu's flash_sm90: warpgroup 0 issues the TMA copies after
+// setmaxnreg (24 registers), warpgroups 1 and 2 own 64 rows each of a
+// resident 128-row pair of tiles and run the products (240 registers);
+// a ring of STAGES 64-row pairs, full / empty mbarriers as in the forward.
+// The tensor maps are 4-D over the (B, H, T, D) views with their own
+// strides and the 128-byte swizzle, encoded in the C entry as the forward
+// encodes them, so training's (B, T, H, D) buffers are read in place; every
+// box is 64 rows x 64 columns. Per step, the two SS products are issued
+// together and P (or P^T) is formed on the CUDA cores while the second
+// runs (in dk/dv, dv's RS product also runs while dS^T is formed); a stage
+// is released once its last product is done. Fully masked tiles are never
+// loaded, and the heaviest tiles go first.
+
+
+constexpr int SM90_THREADS = 384;  // producer + 2 consumer warpgroups
+constexpr int BOX = 64 * 128;      // bytes of a 64-row x 64-column bf16 box
+
+template <int DP>
+struct Sm90 {
+  static constexpr int CH = DP / 64;           // 64-column boxes a row
+  static constexpr int SMALL = CH * BOX;       // a 64-row tile
+  static constexpr int BIG = 2 * SMALL;        // a 128-row tile
+  static constexpr int STAGES = 4;             // ring depth
+  static constexpr int STATS = 2 * 64 * 4;     // LSE and D of 64 rows
+  static constexpr int SMEM =                  // + room to align the base
+      2 * BIG + STAGES * (2 * SMALL + STATS) + 1024;
+  static constexpr int NACC = DP / 2;          // dq, dk or dv registers
+};
+
+// A 128-row tile (rows row..row + 127 of head h, batch b): box c of rows
+// half * 64.. lands at c * BIG / CH + half * BOX, so that its 64-column
+// boxes are 2 BOX apart and a warpgroup's 64 rows start at + cw * BOX.
+template <int DP>
+__device__ __forceinline__ void load_big(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int row, int h,
+                                         int b) {
+#pragma unroll
+  for (int c = 0; c < DP / 64; ++c)
+#pragma unroll
+    for (int half = 0; half < 2; ++half)
+      tma_load(dst + c * 2 * BOX + half * BOX, map, bar, 64 * c,
+               row + 64 * half, h, b);
+}
+
+// A 64-row tile: its 64-column boxes BOX apart.
+template <int DP>
+__device__ __forceinline__ void load_small(uint32_t dst,
+                                           const CUtensorMap* map,
+                                           uint32_t bar, int row, int h,
+                                           int b) {
+#pragma unroll
+  for (int c = 0; c < DP / 64; ++c)
+    tma_load(dst + c * BOX, map, bar, 64 * c, row, h, b);
+}
+
+// d (64 x 64, f32) = A B^T over DP: A the 64 rows at `a` (K-major, boxes
+// a_chunk bytes apart), B the 64-row tile at `b` (K-major).
+template <int DP>
+__device__ __forceinline__ void mm_ss(float* d, uint32_t a, uint32_t a_chunk,
+                                      uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk)
+    wgmma_ss<64>(d, sw128_desc(a + (kk / 4) * a_chunk + (kk % 4) * 32, 16),
+                 sw128_desc(b + (kk / 4) * BOX + (kk % 4) * 32, 16), kk > 0);
+}
+
+// acc (64 x DP) += A B: A (64 x 64) bf16 from registers, B the 64-row tile
+// at `b` read MN-major (the transpose bit): its rows are the contraction,
+// 16 of them 2048 bytes on, its boxes BOX apart.
+template <int DP>
+__device__ __forceinline__ void mm_rs(float* acc, const uint32_t (*pa)[4],
+                                      uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs<DP>(acc, pa[kk], sw128_desc(b + kk * 2048, BOX));
+}
+
+// The m64n64 accumulator in bf16 as the A operand of the next product:
+// columns 16 kk .. 16 kk + 15 are its step kk (flash_attention.cu's pack_p).
+__device__ __forceinline__ void to_a(const float* sc, uint32_t (*pa)[4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+// Keys [k0, k0 + 64) against a warpgroup's queries at absolute positions
+// [p_lo, p_hi]: some pair is masked (causal diagonal, window, key end).
+__device__ __forceinline__ bool cut_keys(const Args& a, int k0,
+                                         long long p_lo, long long p_hi) {
+  return k0 + 64 > a.Tk || (a.causal && k0 + 63 > p_lo) ||
+         (a.window > 0 && k0 <= p_hi - a.window);
+}
+
+// Queries [q0, q0 + 64) against keys [k0, k0 + 64): some pair is masked.
+__device__ __forceinline__ bool cut_queries(const Args& a, int k0, int q0) {
+  const long long p_lo = static_cast<long long>(q0) + a.q_offset;
+  return k0 + 64 > a.Tk || q0 + 64 > a.Tq ||
+         (a.causal && k0 + 63 > p_lo) ||
+         (a.window > 0 && k0 <= p_lo + 63 - a.window);
+}
+
+// One warp a padded row r of (B, Hq, Tqp): D_r and the LSE in log2.
+__global__ void __launch_bounds__(256) bwd_prep(Args a, long long rows) {
+  const long long r = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const long long bh = r / a.Tqp;
+  const int t = static_cast<int>(r % a.Tqp);
+  const int b = static_cast<int>(bh / a.Hq), h = static_cast<int>(bh % a.Hq);
+  float sum = 0.f;
+  if (t < a.Tq) {
+    const bf16* o = static_cast<const bf16*>(a.in[O]) + b * a.s[O][0] +
+                    h * a.s[O][1] + t * a.s[O][2];
+    const bf16* dO = static_cast<const bf16*>(a.in[DO]) + b * a.s[DO][0] +
+                     h * a.s[DO][1] + t * a.s[DO][2];
+    for (int d = 2 * lane; d < a.D; d += 64) {
+      const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(o + d);
+      const __nv_bfloat162 y =
+          *reinterpret_cast<const __nv_bfloat162*>(dO + d);
+      sum += __low2float(x) * __low2float(y) +
+             __high2float(x) * __high2float(y);
+    }
+  }
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) {
+    a.dsum[r] = sum;
+    a.lse2[r] = t < a.Tq ? a.lse[bh * a.Tq + t] * LOG2E : -INFINITY;
+  }
+}
+
+// dq for 128 query rows of one (b, h): K and V tiles of 64 keys through the
+// ring; per tile S = Q K^T and dP = dO V^T (SS), P = exp2(S scale log2 e -
+// LSE2), dS = P (dP - D), dq += dS K (RS, K read MN-major): 3 products.
+template <int DP>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+bwd_dq_sm90(const __grid_constant__ CUtensorMap tq,
+            const __grid_constant__ CUtensorMap tk,
+            const __grid_constant__ CUtensorMap tv,
+            const __grid_constant__ CUtensorMap tdo, Args a) {
+  using T = Sm90<DP>;
+  constexpr int ST = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 3 * ST];
+  // 128-byte swizzled tiles need 1024-byte aligned bases
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sO = sQ + T::BIG;                 // dO
+  const uint32_t sK = sO + T::BIG;                 // + s * SMALL
+  const uint32_t sV = sK + ST * T::SMALL;          // + s * SMALL
+  const uint32_t full_q = smem_u32(&bars[0]);
+  const uint32_t full_k = smem_u32(&bars[1]);            // + 8 s
+  const uint32_t full_v = smem_u32(&bars[1 + ST]);       // + 8 s
+  const uint32_t empty = smem_u32(&bars[1 + 2 * ST]);    // + 8 s
+
+  const int bh = blockIdx.x, b = bh / a.Hq, h = bh % a.Hq, hk = h / a.G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 128;  // heaviest tiles first
+  int lo, hi;
+  kv_range(a, q0, min(q0 + 128, a.Tq), &lo, &hi);
+  const int k_first = (lo / 64) * 64;
+  const int n_tiles = hi > k_first ? (hi - k_first + 63) / 64 : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_q, 2 * T::BIG);
+      load_big<DP>(sQ, &tq, full_q, q0, h, b);
+      load_big<DP>(sO, &tdo, full_q, q0, h, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST;
+        const uint32_t ph = (it / ST) & 1;
+        const int k0 = k_first + it * 64;
+        mbar_wait(empty + 8 * s, ph ^ 1);  // the first round passes at once
+        mbar_expect_tx(full_k + 8 * s, T::SMALL);
+        load_small<DP>(sK + s * T::SMALL, &tk, full_k + 8 * s, k0, hk, b);
+        mbar_expect_tx(full_v + 8 * s, T::SMALL);
+        load_small<DP>(sV + s * T::SMALL, &tv, full_v + 8 * s, k0, hk, b);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = wg - 1, tid = threadIdx.x - 128 * wg, lane = tid % 32;
+    const int wq0 = q0 + 64 * cw;
+    const int r0 = wq0 + 16 * (tid / 32) + lane / 4;  // rows r0, r0 + 8
+    const int t2 = 2 * (lane % 4);
+    if (wq0 >= a.Tq) {
+      // no row of this warpgroup exists: keep the ring turning
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST;
+        const uint32_t ph = (it / ST) & 1;
+        mbar_wait(full_k + 8 * s, ph);
+        mbar_wait(full_v + 8 * s, ph);
+        mbar_arrive(empty + 8 * s);
+      }
+    } else {
+      const long long row0 = static_cast<long long>(bh) * a.Tqp;
+      const float lse0 = a.lse2[row0 + r0], lse1 = a.lse2[row0 + r0 + 8];
+      const float di0 = a.dsum[row0 + r0], di1 = a.dsum[row0 + r0 + 8];
+      const float sl2 = a.scale * LOG2E;
+      const long long p_lo = static_cast<long long>(wq0) + a.q_offset;
+      const long long p_hi = p_lo + 63;
+      float dq[T::NACC];
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) dq[i] = 0.f;
+      float sc[32], dp[32];
+      uint32_t pa[4][4];
+      const uint32_t qa = sQ + cw * BOX, oa = sO + cw * BOX;
+      mbar_wait(full_q, 0);
+
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % ST;
+        const uint32_t ph = (it / ST) & 1;
+        const int k0 = k_first + it * 64;
+        const uint32_t kt = sK + s * T::SMALL;
+        mbar_wait(full_k + 8 * s, ph);
+        wgmma_fence();
+        mm_ss<DP>(sc, qa, 2 * BOX, kt);                  // S = Q K^T
+        wgmma_commit();
+        mbar_wait(full_v + 8 * s, ph);
+        mm_ss<DP>(dp, oa, 2 * BOX, sV + s * T::SMALL);   // dP = dO V^T
+        wgmma_commit();
+        wgmma_wait<1>();                                 // S is done
+        fence_regs<32>(sc);
+        // P (value 4 j + e: row r0 + 8 (e / 2), key k0 + t2 + 8 j + e % 2);
+        // a row without a visible key (LSE -inf) gets 0, never NaN
+        const bool masked = cut_keys(a, k0, p_lo, p_hi);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float lse = e < 2 ? lse0 : lse1;
+            const bool ok = lse != -INFINITY &&
+                            (!masked || visible(a, e < 2 ? r0 : r0 + 8,
+                                                k0 + t2 + 8 * j + (e & 1)));
+            sc[4 * j + e] = ok ? exp2f(sc[4 * j + e] * sl2 - lse) : 0.f;
+          }
+        wgmma_wait<0>();                                 // dP is done
+        fence_regs<32>(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          sc[i] *= dp[i] - ((i & 2) ? di1 : di0);         // dS
+        to_a(sc, pa);
+        wgmma_fence();
+        mm_rs<DP>(dq, pa, kt);                           // dq += dS K
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<T::NACC>(dq);
+        mbar_arrive(empty + 8 * s);    // all three products are done with s
+      }
+
+      bf16* dqo = static_cast<bf16*>(a.out[0]) + b * a.s[DQ][0] +
+                  h * a.s[DQ][1];
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + t2;
+        if (r0 < a.Tq)
+          *reinterpret_cast<uint32_t*>(dqo + r0 * a.s[DQ][2] + col) =
+              pack_bf16(dq[4 * j] * a.scale, dq[4 * j + 1] * a.scale);
+        if (r0 + 8 < a.Tq)
+          *reinterpret_cast<uint32_t*>(dqo + (r0 + 8) * a.s[DQ][2] + col) =
+              pack_bf16(dq[4 * j + 2] * a.scale, dq[4 * j + 3] * a.scale);
+      }
+    }
+  }
+}
+
+// dk, dv for 128 keys of one (b, hk): the G query heads' 64-row Q / dO
+// tiles that can see them (with their LSE and D rows, by bulk copy) through
+// the ring; per tile the transposed scores S^T = K Q^T and dP^T = V dO^T
+// (SS), P^T and dS^T = P^T (dP^T - D) in registers, dv += P^T dO and
+// dk += dS^T Q (RS, dO and Q read MN-major): 4 products, nothing
+// transposed in shared memory.
+template <int DP>
+__global__ void __launch_bounds__(SM90_THREADS, 1)
+bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tq,
+              const __grid_constant__ CUtensorMap tk,
+              const __grid_constant__ CUtensorMap tv,
+              const __grid_constant__ CUtensorMap tdo, Args a) {
+  using T = Sm90<DP>;
+  constexpr int ST = T::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * ST];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sK = (raw + 1023u) & ~1023u;
+  const uint32_t sV = sK + T::BIG;
+  const uint32_t sQ = sV + T::BIG;                 // + s * SMALL
+  const uint32_t sO = sQ + ST * T::SMALL;          // dO, + s * SMALL
+  const uint32_t sL = sO + ST * T::SMALL;          // + s * STATS
+  const float* stats = reinterpret_cast<const float*>(smem_raw + (sL - raw));
+  const uint32_t full_kv = smem_u32(&bars[0]);
+  const uint32_t full = smem_u32(&bars[1]);              // + 8 s
+  const uint32_t empty = smem_u32(&bars[1 + ST]);        // + 8 s
+
+  const int bh = blockIdx.x, b = bh / a.Hkv, hk = bh % a.Hkv;
+  const int k0 = blockIdx.y * 128;   // causal: the first keys see the most
+  int lo, hi;
+  q_range(a, k0, min(k0 + 128, a.Tk), &lo, &hi);
+  const int q_first = (lo / 64) * 64;
+  const int nq = hi > q_first ? (hi - q_first + 63) / 64 : 0;
+  const int n_steps = a.G * nq;
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(full_kv, 2 * T::BIG);
+      load_big<DP>(sK, &tk, full_kv, k0, hk, b);
+      load_big<DP>(sV, &tv, full_kv, k0, hk, b);
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % ST;
+        const uint32_t ph = (it / ST) & 1;
+        const int h = hk * a.G + it / nq, q0 = q_first + (it % nq) * 64;
+        const long long row =
+            (static_cast<long long>(b) * a.Hq + h) * a.Tqp + q0;
+        mbar_wait(empty + 8 * s, ph ^ 1);
+        mbar_expect_tx(full + 8 * s, 2 * T::SMALL + T::STATS);
+        load_small<DP>(sQ + s * T::SMALL, &tq, full + 8 * s, q0, h, b);
+        load_small<DP>(sO + s * T::SMALL, &tdo, full + 8 * s, q0, h, b);
+        bulk_load(sL + s * T::STATS, a.lse2 + row, 256, full + 8 * s);
+        bulk_load(sL + s * T::STATS + 256, a.dsum + row, 256, full + 8 * s);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = wg - 1, tid = threadIdx.x - 128 * wg, lane = tid % 32;
+    const int wk0 = k0 + 64 * cw;
+    const int r0 = wk0 + 16 * (tid / 32) + lane / 4;  // keys r0, r0 + 8
+    const int t2 = 2 * (lane % 4);
+    if (wk0 >= a.Tk) {
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % ST;
+        mbar_wait(full + 8 * s, (it / ST) & 1);
+        mbar_arrive(empty + 8 * s);
+      }
+    } else {
+      const float sl2 = a.scale * LOG2E;
+      float dk[T::NACC], dv[T::NACC];
+#pragma unroll
+      for (int i = 0; i < T::NACC; ++i) dk[i] = dv[i] = 0.f;
+      float st[32], dpt[32];
+      uint32_t pa[4][4], pb[4][4];
+      const uint32_t ka = sK + cw * BOX, va = sV + cw * BOX;
+      mbar_wait(full_kv, 0);
+
+      for (int it = 0; it < n_steps; ++it) {
+        const int s = it % ST;
+        const uint32_t ph = (it / ST) & 1;
+        const int q0 = q_first + (it % nq) * 64;
+        const uint32_t qt = sQ + s * T::SMALL, ot = sO + s * T::SMALL;
+        const float* L = stats + s * (T::STATS / 4);   // LSE2, then D
+        mbar_wait(full + 8 * s, ph);
+        wgmma_fence();
+        mm_ss<DP>(st, ka, 2 * BOX, qt);                  // S^T = K Q^T
+        wgmma_commit();
+        mm_ss<DP>(dpt, va, 2 * BOX, ot);                 // dP^T = V dO^T
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs<32>(st);
+        // P^T (value 4 j + e: key r0 + 8 (e / 2), query q0 + t2 + 8 j +
+        // e % 2); a query without a visible key (LSE -inf) gives 0
+        const bool masked = cut_queries(a, wk0, q0);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = t2 + 8 * j + (e & 1);
+            const float lse = L[qc];
+            const bool ok = lse != -INFINITY &&
+                            (!masked || visible(a, q0 + qc,
+                                                e < 2 ? r0 : r0 + 8));
+            st[4 * j + e] = ok ? exp2f(st[4 * j + e] * sl2 - lse) : 0.f;
+          }
+        to_a(st, pa);
+        wgmma_fence();
+        mm_rs<DP>(dv, pa, ot);                           // dv += P^T dO
+        wgmma_commit();
+        wgmma_wait<1>();                                 // dP^T is done
+        fence_regs<32>(dpt);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dpt[4 * j + e] = st[4 * j + e] *
+                             (dpt[4 * j + e] - L[64 + t2 + 8 * j + (e & 1)]);
+        to_a(dpt, pb);
+        wgmma_fence();
+        mm_rs<DP>(dk, pb, qt);                           // dk += dS^T Q
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<T::NACC>(dk);
+        fence_regs<T::NACC>(dv);
+        fence_regs_u32<16>(&pa[0][0]);   // read by the products until here
+        fence_regs_u32<16>(&pb[0][0]);
+        mbar_arrive(empty + 8 * s);
+      }
+
+      bf16* dko = static_cast<bf16*>(a.out[1]) + b * a.s[DK][0] +
+                  hk * a.s[DK][1];
+      bf16* dvo = static_cast<bf16*>(a.out[2]) + b * a.s[DV][0] +
+                  hk * a.s[DV][1];
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + t2;
+        if (r0 < a.Tk) {
+          *reinterpret_cast<uint32_t*>(dko + r0 * a.s[DK][2] + col) =
+              pack_bf16(dk[4 * j] * a.scale, dk[4 * j + 1] * a.scale);
+          *reinterpret_cast<uint32_t*>(dvo + r0 * a.s[DV][2] + col) =
+              pack_bf16(dv[4 * j], dv[4 * j + 1]);
+        }
+        if (r0 + 8 < a.Tk) {
+          *reinterpret_cast<uint32_t*>(dko + (r0 + 8) * a.s[DK][2] + col) =
+              pack_bf16(dk[4 * j + 2] * a.scale, dk[4 * j + 3] * a.scale);
+          *reinterpret_cast<uint32_t*>(dvo + (r0 + 8) * a.s[DV][2] + col) =
+              pack_bf16(dv[4 * j + 2], dv[4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32 on the CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -823,6 +1274,43 @@ int launch_f32(const Args& a, int B, cudaStream_t s) {
       bwd_dkdv_f32<DP>, dim3((a.Tk + FR - 1) / FR, B * a.Hkv), s2, a, s));
 }
 
+template <int DP>
+int launch_sm90(const Args& a, int B, cudaStream_t s) {
+  using T = Sm90<DP>;
+  const EncodeTiled enc = encoder();
+  if (enc == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap mq, mk, mv, mdo;   // boxes of 64 rows x 64 columns
+  const bool ok =
+      encode(enc, &mq, a.in[Q], a.D, a.Tq, a.Hq, B, a.s[Q][0], a.s[Q][1],
+             a.s[Q][2], 64) &&
+      encode(enc, &mk, a.in[K], a.D, a.Tk, a.Hkv, B, a.s[K][0], a.s[K][1],
+             a.s[K][2], 64) &&
+      encode(enc, &mv, a.in[V], a.D, a.Tk, a.Hkv, B, a.s[V][0], a.s[V][1],
+             a.s[V][2], 64) &&
+      encode(enc, &mdo, a.in[DO], a.D, a.Tq, a.Hq, B, a.s[DO][0],
+             a.s[DO][1], a.s[DO][2], 64);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(B) * a.Hq * a.Tqp;
+  bwd_prep<<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(a, rows);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(bwd_dq_sm90<DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bwd_dq_sm90<DP><<<dim3(B * a.Hq, a.Tqp / 128), SM90_THREADS, T::SMEM, s>>>(
+      mq, mk, mv, mdo, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(bwd_dkdv_sm90<DP>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           T::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bwd_dkdv_sm90<DP><<<dim3(B * a.Hkv, (a.Tk + 127) / 128), SM90_THREADS,
+                      T::SMEM, s>>>(mq, mk, mv, mdo, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 2 = bfloat16. q, o, dO and dq are (B, Hq, Tq, D),
@@ -872,6 +1360,47 @@ extern "C" int flash_attention_bwd(int dtype, const void* q, const void* k,
   if (D <= 64) return launch_f32<64>(a, B, s);
   if (D <= 128) return launch_f32<128>(a, B, s);
   return launch_f32<256>(a, B, s);
+}
+
+// The wgmma route: bfloat16 at D = 64 or 128, what TMA can address (16-byte
+// aligned base pointers, strides of q, k, v, dO multiples of 8 elements;
+// the wrapper routes anything else to flash_attention_bwd). Arguments as
+// flash_attention_bwd's, but lse is the forward's (B, Hq, Tq) natural-log
+// LSE (read), and lse2, dsum are float32 (B, Hq, Tqp) scratch with Tqp = Tq
+// rounded up to 128, written by the first of the three launches. Returns
+// the first CUDA error of the three, or 0.
+extern "C" int flash_attention_bwd_sm90(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* lse2, void* dsum, int B, int Hq, int Hkv, int Tq, int Tk, int D,
+    const long long* strides, float scale, int q_offset, int causal,
+    int window, void* stream) {
+  if ((D != 64 && D != 128) || Hkv < 1 || Hq % Hkv != 0 || Tq < 1 ||
+      Tk < 1 || static_cast<long long>(B) * Hq > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool aligned = true;
+  for (const void* p : {q, k, v, o, dout, static_cast<const void*>(dq),
+                        static_cast<const void*>(dk),
+                        static_cast<const void*>(dv),
+                        static_cast<const void*>(lse2),
+                        static_cast<const void*>(dsum)})
+    aligned = aligned && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (int i = 0; i < 3 * NARR; ++i) aligned = aligned && strides[i] % 8 == 0;
+  if (!aligned) return static_cast<int>(cudaErrorMisalignedAddress);
+  Args a{};
+  a.in[0] = q; a.in[1] = k; a.in[2] = v; a.in[3] = o; a.in[4] = dout;
+  a.out[0] = dq; a.out[1] = dk; a.out[2] = dv;
+  a.lse = static_cast<float*>(const_cast<void*>(lse));
+  a.dsum = static_cast<float*>(dsum);
+  a.lse2 = static_cast<float*>(lse2);
+  a.Hq = Hq; a.Hkv = Hkv; a.G = Hq / Hkv; a.Tq = Tq; a.Tk = Tk; a.D = D;
+  a.Tqp = (Tq + 127) / 128 * 128;
+  for (int i = 0; i < NARR; ++i)
+    for (int j = 0; j < 3; ++j) a.s[i][j] = strides[3 * i + j];
+  a.scale = scale; a.q_offset = q_offset; a.causal = causal;
+  a.window = window;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_sm90<64>(a, B, s) : launch_sm90<128>(a, B, s);
 }
 
 extern "C" const char* cuda_error_string(int code) {

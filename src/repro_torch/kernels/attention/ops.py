@@ -22,15 +22,28 @@ back. ``route`` picks the kernel from the inputs alone:
 of the Hopper kernel, ``flash_noncausal_launches`` those without the causal
 mask (an encoder's self-attention, cross-attention).
 
-The backward is ``csrc/flash_attention_bwd.cu`` (FA2's two passes: a
-query-tile-major kernel for dq, the log-sum-exp and D = rowsum(dO o O), a
-key-tile-major one for dk and dv; bfloat16 on ``mma.sync``, float32 on the
-CUDA cores). ``attention`` records it through ``_Flash`` only when grad
-mode is on and an input requires grad; otherwise it launches the forward
-alone, as serving does. ``flash_bwd_launches`` counts its C entry's calls
-(each launches the two kernels). bfloat16 that the kernel cannot address
-(D % 8 != 0, misaligned) is zero-padded to D up to a multiple of 8 first,
-as the forward's ``"pad"`` route does.
+The backward is ``csrc/flash_attention_bwd.cu``. ``attention`` records it
+through ``_Flash`` only when grad mode is on and an input requires grad;
+then the forward also writes each row's log-sum-exp (``attention_with_lse``),
+which ``_Flash`` saves for the backward. Otherwise it launches the forward
+alone, without that store, as serving does. ``bwd_route`` picks the
+backward from the inputs alone:
+
+- ``"sm90"``: bfloat16 at D = 64 or 128 that TMA can address (``_tma_ok``
+  for q, k, v and dO) takes the Hopper kernels (``flash_attention_bwd_sm90``:
+  a prep launch for D = rowsum(dO o O) and the LSE in log2, a dq kernel and
+  a dk/dv kernel, both wgmma fed by TMA), read in place; they read the
+  forward's LSE (taken from one more forward launch when the caller has
+  none);
+- ``"pad"``: other bfloat16 (D = 256, D % 8 != 0, misaligned) takes the
+  ``mma.sync`` kernels (``flash_attention_bwd``: a dq kernel that recomputes
+  the LSE, then a dk/dv kernel), zero-padded to D up to a multiple of 8
+  first where they cannot address it, as the forward's ``"pad"`` route;
+- ``"f32"``: float32 takes the same two-pass kernels on the CUDA cores.
+
+``flash_bwd_launches`` counts every backward C entry call (each launches
+the route's kernels); ``flash_bwd_sm90_launches`` those of the ``"sm90"``
+route.
 """
 from __future__ import annotations
 
@@ -46,6 +59,7 @@ flash_launches = 0
 flash_sm90_launches = 0
 flash_noncausal_launches = 0
 flash_bwd_launches = 0
+flash_bwd_sm90_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 2}
 _GRID_MAX = 65535      # the f32 kernel's B * Hq, the sm90 kernel's tiles
@@ -55,9 +69,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 def reset_counts() -> None:
     global flash_launches, flash_sm90_launches, flash_noncausal_launches
-    global flash_bwd_launches
+    global flash_bwd_launches, flash_bwd_sm90_launches
     flash_launches = flash_sm90_launches = flash_noncausal_launches = 0
-    flash_bwd_launches = 0
+    flash_bwd_launches = flash_bwd_sm90_launches = 0
 
 
 @functools.cache
@@ -65,7 +79,7 @@ def _entry():
     lib = build.library("flash_attention")
     fn = lib.flash_attention
     fn.argtypes = [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _F, _I,
-                   _I, _I, _P]
+                   _I, _I, _P, _P]
     fn.restype = _I
     lib.flash_last_encode_us.argtypes = []
     lib.flash_last_encode_us.restype = ctypes.c_double
@@ -78,7 +92,10 @@ def _bwd_entry():
     fn = lib.flash_attention_bwd
     fn.argtypes = [_I] + [_P] * 10 + [_I] * 6 + [_P, _F, _I, _I, _I, _P]
     fn.restype = _I
-    return lib, fn
+    sm90 = lib.flash_attention_bwd_sm90
+    sm90.argtypes = [_P] * 11 + [_I] * 6 + [_P, _F, _I, _I, _I, _P]
+    sm90.restype = _I
+    return lib, fn, sm90
 
 
 def last_encode_us() -> float:
@@ -128,7 +145,8 @@ def _strides(t: torch.Tensor) -> list[int]:
     return [s if n > 1 else 8 for n, s in zip(t.shape[:3], t.stride()[:3])]
 
 
-def _launch(q, k, v, out, causal, window, scale, q_offset) -> None:
+def _launch(q, k, v, out, causal, window, scale, q_offset,
+            lse=None) -> None:
     global flash_launches, flash_sm90_launches, flash_noncausal_launches
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
@@ -140,7 +158,8 @@ def _launch(q, k, v, out, causal, window, scale, q_offset) -> None:
         code = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), out.data_ptr(), B, Hq, Hkv, Tq, Tk, D,
                   strides.data_ptr(), scale, int(q_offset), int(causal),
-                  0 if window is None else int(window), stream)
+                  0 if window is None else int(window),
+                  None if lse is None else lse.data_ptr(), stream)
     build.check(lib, code, "flash_attention launch")
     flash_launches += 1
     flash_sm90_launches += q.dtype == torch.bfloat16
@@ -163,7 +182,10 @@ def _check(q, k, v) -> None:
                          f"Hq={Hq}, Hkv={Hkv}, D={D}")
 
 
-def _forward(q, k, v, causal, window, scale, q_offset) -> torch.Tensor:
+def _forward(q, k, v, causal, window, scale, q_offset,
+             lse=None) -> torch.Tensor:
+    """The forward kernel's output; with ``lse`` (a contiguous float32
+    (B, Hq, Tq) buffer) it also writes each row's log-sum-exp there."""
     _check(q, k, v)
     B, Hq, Tq, D = q.shape
     Tk = k.shape[2]
@@ -175,6 +197,8 @@ def _forward(q, k, v, causal, window, scale, q_offset) -> torch.Tensor:
     if out.numel() == 0:
         return out
     if Tk == 0:                   # no key: every row is 0
+        if lse is not None:
+            lse.fill_(-torch.inf)
         return out.zero_()
     scale = (D ** -0.5) if scale is None else float(scale)
     if kind == "f32" and any(t.stride(-1) != 1 for t in (q, k, v)):
@@ -183,11 +207,30 @@ def _forward(q, k, v, causal, window, scale, q_offset) -> torch.Tensor:
         width = -(-D // 8) * 8
         qp, kp, vp = (pad_head_dim(t, width) for t in (q, k, v))
         op = torch.empty_like(qp)
-        _launch(qp, kp, vp, op, causal, window, scale, q_offset)
+        _launch(qp, kp, vp, op, causal, window, scale, q_offset, lse)
         out.copy_(op[..., :D])
         return out
-    _launch(q, k, v, out, causal, window, scale, q_offset)
+    _launch(q, k, v, out, causal, window, scale, q_offset, lse)
     return out
+
+
+def attention_with_lse(q, k, v, *, causal: bool = True,
+                       window: int | None = None,
+                       scale: float | None = None, q_offset: int = 0):
+    """(``attention``'s output, each row's natural-log log-sum-exp over its
+    visible keys as float32 (B, Hq, Tq), -inf for a row with none): the
+    forward kernel with its LSE store for CUDA tensors, the plain versions
+    (``ref.attention``, ``ref.attention_lse``) for CPU tensors. Not
+    differentiable: ``attention`` records the graph."""
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    if build.on_cpu(q, k, v):
+        return (_plain(q, k, v, causal, window, scale, q_offset),
+                ref.attention_lse(q, k, **kw))
+    if window is not None and window < 1:
+        raise ValueError(f"window must be positive; got {window}")
+    B, Hq, Tq = q.shape[:3]
+    lse = torch.empty((B, Hq, Tq), dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, causal, window, scale, q_offset, lse), lse
 
 
 def _bwd_ok(t: torch.Tensor) -> bool:
@@ -196,22 +239,48 @@ def _bwd_ok(t: torch.Tensor) -> bool:
     return t.stride(-1) == 1 and (t.dtype == torch.float32 or _tma_ok(t))
 
 
-def _launch_bwd(q, k, v, o, do, causal, window, scale, q_offset):
-    global flash_bwd_launches
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              dout: torch.Tensor) -> str:
+    """The backward a CUDA call with these inputs takes: "sm90", "pad" or
+    "f32" (see the module docstring). Decided by dtype, D, strides and
+    alignment alone."""
+    if q.dtype == torch.float32:
+        return "f32"
+    if q.shape[-1] in (64, 128) and all(_tma_ok(t) for t in (q, k, v, dout)):
+        return "sm90"
+    return "pad"
+
+
+def _launch_bwd(q, k, v, o, do, causal, window, scale, q_offset, lse=None):
+    """One backward C entry call; ``lse`` (the forward's, float32 (B, Hq,
+    Tq) contiguous) takes the wgmma route, None the two-pass kernels."""
+    global flash_bwd_launches, flash_bwd_sm90_launches
     B, Hq, Tq, D = q.shape
     Hkv, Tk = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    stats = torch.empty((2, B, Hq, Tq), dtype=torch.float32, device=q.device)
     strides = torch.tensor([s for t in (q, k, v, o, do, dq, dk, dv)
                             for s in _strides(t)], dtype=torch.int64)
-    lib, fn = _bwd_entry()
+    lib, fn, sm90 = _bwd_entry()
+    window = 0 if window is None else int(window)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = fn(_DTYPE_CODE[q.dtype], *(t.data_ptr() for t in (
-                  q, k, v, o, do, dq, dk, dv, stats[0], stats[1])),
-                  B, Hq, Hkv, Tq, Tk, D, strides.data_ptr(), scale,
-                  int(q_offset), int(causal),
-                  0 if window is None else int(window), stream)
+        if lse is None:
+            stats = torch.empty((2, B, Hq, Tq), dtype=torch.float32,
+                                device=q.device)
+            code = fn(_DTYPE_CODE[q.dtype], *(t.data_ptr() for t in (
+                      q, k, v, o, do, dq, dk, dv, stats[0], stats[1])),
+                      B, Hq, Hkv, Tq, Tk, D, strides.data_ptr(), scale,
+                      int(q_offset), int(causal), window, stream)
+        else:
+            # LSE in log2 and D, rows padded to the dq kernel's 128
+            stats = torch.empty((2, B, Hq, -(-Tq // 128) * 128),
+                                dtype=torch.float32, device=q.device)
+            code = sm90(*(t.data_ptr() for t in (
+                        q, k, v, o, do, lse, dq, dk, dv, stats[0],
+                        stats[1])),
+                        B, Hq, Hkv, Tq, Tk, D, strides.data_ptr(), scale,
+                        int(q_offset), int(causal), window, stream)
+            flash_bwd_sm90_launches += 1
     build.check(lib, code, "flash_attention_bwd launch")
     flash_bwd_launches += 1
     return dq, dk, dv
@@ -219,11 +288,14 @@ def _launch_bwd(q, k, v, o, do, causal, window, scale, q_offset):
 
 def attention_backward(q, k, v, out, dout, *, causal: bool = True,
                        window: int | None = None, scale: float | None = None,
-                       q_offset: int = 0):
+                       q_offset: int = 0, lse: torch.Tensor | None = None):
     """(dq, dk, dv) of ``attention`` at (q, k, v), given its output ``out``
     and the output's gradient ``dout``, in the inputs' dtypes and layouts.
     CPU tensors take the plain version (``ref.attention_backward``); CUDA
-    tensors launch ``csrc/flash_attention_bwd.cu`` or raise."""
+    tensors launch ``csrc/flash_attention_bwd.cu`` or raise. ``lse``: the
+    forward's log-sum-exp (``attention_with_lse``), which the ``"sm90"``
+    route reads; without it that route takes it from one more forward
+    launch. The other routes recompute it and ignore ``lse``."""
     if build.on_cpu(q, k, v, out, dout):
         grads = ref.attention_backward(q, k, v, dout, causal=causal,
                                        window=window, scale=scale,
@@ -242,6 +314,14 @@ def attention_backward(q, k, v, out, dout, *, causal: bool = True,
     scale = (D ** -0.5) if scale is None else float(scale)
     dout = dout.to(q.dtype)
     args = [q, k, v, out, dout]
+    if bwd_route(q, k, v, dout) == "sm90":
+        args[3] = out if _bwd_ok(out) else out.contiguous()
+        if lse is None:
+            lse = torch.empty((B, Hq, Tq), dtype=torch.float32,
+                              device=q.device)
+            _forward(q, k, v, causal, window, scale, q_offset, lse)
+        return _launch_bwd(*args, causal, window, scale, q_offset,
+                           lse.contiguous())
     if q.dtype == torch.bfloat16 and not all(_bwd_ok(t) for t in args):
         width = -(-D // 8) * 8
         grads = _launch_bwd(*(pad_head_dim(t, width) for t in args), causal,
@@ -252,23 +332,24 @@ def attention_backward(q, k, v, out, dout, *, causal: bool = True,
 
 
 class _Flash(torch.autograd.Function):
-    """The forward kernel, with ``csrc/flash_attention_bwd.cu`` as its
-    backward."""
+    """The forward kernel with its LSE store, with
+    ``csrc/flash_attention_bwd.cu`` as its backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, q_offset):
-        out = _forward(q, k, v, causal, window, scale, q_offset)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = attention_with_lse(q, k, v, causal=causal, window=window,
+                                      scale=scale, q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (causal, window, scale, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, scale, q_offset = ctx.args
         dq, dk, dv = attention_backward(q, k, v, out, dout, causal=causal,
                                         window=window, scale=scale,
-                                        q_offset=q_offset)
+                                        q_offset=q_offset, lse=lse)
         return dq, dk, dv, None, None, None, None
 
 

@@ -2,8 +2,9 @@
 — port of ``repro.kernels.attention.ref``.
 
 ``ops.attention`` takes these for CPU tensors; ``chip_smoke.py`` and the
-card's tests hold the CUDA kernel against ``attention`` on the card, and
-the backward kernel against ``attention_backward``.
+card's tests hold the CUDA kernel against ``attention`` on the card, the
+log-sum-exp it writes for training against ``attention_lse``, and the
+backward kernels against ``attention_backward``.
 
 One deliberate difference from the JAX oracle: a query row that sees no
 valid key (possible only with a window or a q_offset past the keys) returns
@@ -54,6 +55,24 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1) * mask.any(-1, keepdim=True)
     out = probs @ vf
     return out.reshape(B, Hq, Tq, D).to(q.dtype)
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, *, causal: bool = True,
+                  window: int | None = None, scale: float | None = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Each query row's natural-log log-sum-exp of its scaled scores over
+    the keys the mask leaves it (those of ``attention``), in float32
+    (float64 for float64 inputs): (B, Hq, Tq). A row with no valid key
+    gets -inf, as the forward kernel writes it."""
+    B, Hq, Tq, D = q.shape
+    Hkv, Tk = k.shape[1], k.shape[2]
+    scale = (D ** -0.5) if scale is None else scale
+    ct = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(ct).reshape(B, Hkv, Hq // Hkv, Tq, D)
+    logits = (qf @ k.to(ct)[:, :, None].transpose(-1, -2)) * scale
+    mask = _mask(Tq, Tk, causal, window, q_offset, q.device)
+    logits = torch.where(mask, logits, -torch.inf)
+    return torch.logsumexp(logits, dim=-1).reshape(B, Hq, Tq)
 
 
 def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,10 +3,11 @@
 Each source ``repro_torch/kernels/**/csrc/<name>.cu`` compiles, at first use,
 into its own shared library with a plain C interface:
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, where the
-hash covers the source and the flags. An edited source therefore rebuilds
-and an unchanged one loads as it is. ``build_all`` starts one ``nvcc`` per
-missing library, all at once, and keeps each compiler's output (``-Xptxas
--v``: registers, shared memory, spills) beside the library as ``.log``.
+hash covers the source, the headers (``*.cuh``) beside it and the flags. An
+edited source or header therefore rebuilds and an unchanged one loads as it
+is. ``build_all`` starts one ``nvcc`` per missing library, all at once, and
+keeps each compiler's output (``-Xptxas -v``: registers, shared memory,
+spills) beside the library as ``.log``.
 
 Pointers cross the C boundary as ``ctypes.c_void_p`` and the stream as
 ``torch.cuda.current_stream().cuda_stream``; each C entry point returns
@@ -48,7 +49,10 @@ def sources() -> dict[str, Path]:
 def target(name: str) -> Path:
     """The shared library ``name`` builds into."""
     src = sources()[name]
-    digest = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

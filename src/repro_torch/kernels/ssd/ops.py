@@ -9,12 +9,14 @@ the same steps on either device: the intra-chunk block through
 off-diagonal combine in PyTorch, as the JAX package leaves them to XLA.
 ``ssd_launches`` counts kernel launches.
 
-The backward is ``csrc/ssd_intra_chunk_bwd.cu`` (float32 on the CUDA cores:
-G = C B^T recomputed, the heads' dG and dB partials, dxdt, ddA, then dB and
-dC summed over head groups in a fixed order, no atomics). ``intra_chunk``
-records it through ``_SSD`` only when grad mode is on and an input
-requires grad; otherwise it launches the forward alone.
-``ssd_bwd_launches`` counts its C entry's calls (three kernels each).
+The backward is ``csrc/ssd_intra_chunk_bwd.cu`` (float32, every product in
+3xTF32 on the tensor cores: per head group and strip of 64 chunk rows, U =
+xdt dS and w B dS^T; the strip's causal G = C B^T kept on chip with the
+group's dG partial, E = dY xdt^T and Z = (G o L)^T dY; then dB and dC
+summed over the groups in a fixed order, and ddA; no atomics).
+``intra_chunk`` records it through ``_SSD`` only when grad mode is on and
+an input requires grad; otherwise it launches the forward alone.
+``ssd_bwd_launches`` counts its C entry's calls (four kernels each).
 bfloat16 inputs are differentiated in float32 (the forward casts them so)
 and their gradients returned in bfloat16.
 """
@@ -156,14 +158,16 @@ def intra_chunk_backward(xdt, dA, Bc, Cc, dY, dS, dcum):
     if BC == 0 or H == 0 or P == 0 or N == 0:
         return tuple(g.zero_().to(t.dtype) for g, t in zip(grads, args))
     hpg, ng = bwd_head_groups(BC, H)
-    G = torch.empty((BC, cs, cs), **f32)
-    dGp = torch.zeros((BC, ng, cs, cs), **f32)
-    dBp = torch.zeros((BC, ng, cs, N), **f32)
+    # the strips' row sums of M, M's column sums, w dw and cum; the groups'
+    # dG and dB partials: every element the kernels read, they wrote first
+    stats = torch.empty((BC, H, -(-cs // 64) + 3, cs), **f32)
+    dGp = torch.empty((BC, ng, cs, cs), **f32)
+    dBp = torch.empty((BC, ng, cs, N), **f32)
     lib, fn = _bwd_entry()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        code = fn(*(t.data_ptr() for t in (*ins, dY, dS, dcum, *grads, G,
-                                           dGp, dBp)),
+        code = fn(*(t.data_ptr() for t in (*ins, dY, dS, dcum, *grads,
+                                           stats, dGp, dBp)),
                   BC, cs, H, P, N, hpg, stream)
     build.check(lib, code, "ssd_intra_chunk_bwd launch")
     ssd_bwd_launches += 1
@@ -188,7 +192,8 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              Bm: torch.Tensor, Cm: torch.Tensor, chunk: int):
     """xh: (B, L, H, P); dt: (B, L, H) post-softplus; A: (H,) negative
     rates; Bm/Cm: (B, L, N), with L % chunk == 0. Returns (Y (B, L, H, P),
-    final state (B, H, P, N)), float32."""
+    final state (B, H, P, N)), float32 (float64 for float64 inputs on the
+    CPU)."""
     B, L, H, P = xh.shape
     N = Bm.shape[-1]
     if L % chunk:
@@ -216,7 +221,7 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     # off-diagonal: the state entering each chunk, decayed to row i
     in_decay = torch.exp(cum_b)                               # (B,nc,H,cs)
-    Cc_b = Cm.reshape(B, nc, chunk, N).to(torch.float32)
+    Cc_b = Cm.reshape(B, nc, chunk, N).to(S.dtype)
     Y_off = torch.einsum("bcin,bchpn,bchi->bcihp", Cc_b, prev_states,
                          in_decay)
     Y = (Y_diag.reshape(B, nc, chunk, H, P) + Y_off).reshape(B, L, H, P)

@@ -12,7 +12,8 @@ import torch
 
 def intra_chunk(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
                 Cc: torch.Tensor):
-    """Every (batch * chunk, head) tile of the SSD algorithm, in float32.
+    """Every (batch * chunk, head) tile of the SSD algorithm, in float32
+    (float64 for float64 inputs, as the JAX reference keeps its dtype).
 
     xdt: (BC, cs, H, P) dt-weighted inputs; dA: (BC, H, cs) log-decay
     increments; Bc/Cc: (BC, cs, N) input/output projections (shared across
@@ -22,7 +23,8 @@ def intra_chunk(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
     the chunk state decayed to the chunk's end; cum (BC, H, cs), the
     cumulative log-decay.
     """
-    xdt, dA, Bc, Cc = (t.to(torch.float32) for t in (xdt, dA, Bc, Cc))
+    ct = torch.promote_types(xdt.dtype, torch.float32)
+    xdt, dA, Bc, Cc = (t.to(ct) for t in (xdt, dA, Bc, Cc))
     cs = dA.shape[-1]
     cum = torch.cumsum(dA, dim=-1)                         # (BC, H, cs)
     mask = torch.tril(torch.ones((cs, cs), dtype=torch.bool,
@@ -40,11 +42,12 @@ def intra_chunk(xdt: torch.Tensor, dA: torch.Tensor, Bc: torch.Tensor,
 def intra_chunk_backward(xdt, dA, Bc, Cc, dY, dS, dcum):
     """(dxdt, ddA, dB, dC) of ``intra_chunk`` at (xdt, dA, Bc, Cc) for the
     output gradients (dY, dS, dcum; None reads as zero): autograd through
-    ``intra_chunk`` in float32."""
+    ``intra_chunk`` in float32 (float64 for float64 inputs)."""
+    ct = torch.promote_types(xdt.dtype, torch.float32)
     with torch.enable_grad():
-        leaves = [t.detach().to(torch.float32).requires_grad_(True)
+        leaves = [t.detach().to(ct).requires_grad_(True)
                   for t in (xdt, dA, Bc, Cc)]
         outs = intra_chunk(*leaves)
-        grads = [torch.zeros_like(o) if g is None else g.to(torch.float32)
+        grads = [torch.zeros_like(o) if g is None else g.to(ct)
                  for o, g in zip(outs, (dY, dS, dcum))]
         return torch.autograd.grad(outs, leaves, grads)

@@ -1469,3 +1469,78 @@ def test_ssd_backward_without_some_output_gradients(cuda):
     want = ssd_ref.intra_chunk_backward(*args, dY, None, None)
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# --- the forward's log-sum-exp and the backward's wgmma route -----------------
+
+# the forward's LSE against the plain one, natural log (chip_smoke.py's
+# TOL_LSE: float32 sums in other orders and the hardware exp2 / log2)
+LSE_TOL = 1e-4
+LSE_CASES = [(2, 4, 2, 200, 200, 64, None, 0, True),
+             (1, 4, 4, 130, 130, 128, 48, 0, True),
+             (1, 4, 2, 100, 200, 128, None, 100, True),
+             (2, 4, 4, 45, 150, 64, None, 0, False),
+             (1, 2, 2, 33, 70, 256, None, 0, True),
+             (1, 4, 1, 96, 96, 12, None, 0, True),
+             (1, 2, 2, 4, 8, 64, 2, 20, True)]
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Tq,Tk,D,window,off,causal", LSE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_lse_matches_plain_and_leaves_the_output(
+        cuda, B, Hq, Hkv, Tq, Tk, D, window, off, causal, dtype):
+    q, k, v, _ = _flash_bwd_inputs(cuda, dtype, B, Hq, Hkv, Tq, Tk, D,
+                                   seed=12)
+    kw = dict(causal=causal, window=window, q_offset=off)
+    out, lse = attn_ops.attention_with_lse(q, k, v, **kw)
+    assert torch.equal(out, attn_ops.attention(q, k, v, **kw))
+    want = attn_ref.attention_lse(q, k, **kw)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    keyed = torch.isfinite(want)
+    assert torch.equal(torch.isneginf(lse), ~keyed)
+    if keyed.any():
+        assert float((lse[keyed] - want[keyed]).abs().max()) <= LSE_TOL
+
+
+@pytest.mark.parametrize("D,dtype,wgmma", [(64, torch.bfloat16, True),
+                                           (128, torch.bfloat16, True),
+                                           (256, torch.bfloat16, False),
+                                           (12, torch.bfloat16, False),
+                                           (128, torch.float32, False)])
+def test_flash_backward_route_and_repeat(cuda, D, dtype, wgmma):
+    """bf16 at D = 64 and 128 takes the wgmma kernels (from the forward's
+    LSE, through autograd as training records it), D = 256, the padded D
+    and float32 the two-pass kernels; two launches give the same bits and
+    the plain version's gradients."""
+    q, k, v, do = _flash_bwd_inputs(cuda, dtype, 2, 4, 2, 192, 192, D,
+                                    seed=13)
+    assert (attn_ops.bwd_route(q, k, v, do) == "sm90") == wgmma
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    before = (attn_ops.flash_bwd_launches, attn_ops.flash_bwd_sm90_launches)
+    runs = [torch.autograd.grad(attn_ops.attention(*leaves), leaves, do)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert attn_ops.flash_bwd_launches == before[0] + 2
+    assert attn_ops.flash_bwd_sm90_launches == before[1] + 2 * wgmma
+    want = attn_ref.attention_backward(q, k, v, do)
+    for got, again, w, name in zip(runs[0], runs[1], want, "qkv"):
+        assert torch.equal(got, again), name          # no atomics
+        err = float((got.float() - w).abs().max())
+        assert err <= FLASH_BWD_TOL[dtype] * float(w.abs().max()) + 1e-6, \
+            (name, err)
+
+
+def test_ssd_backward_repeats_bitwise_at_the_training_split(cuda):
+    """mamba2 training's split (BC = 96 gives 3 groups of 8 heads, as its
+    BC = 128 does) and a ragged chunk longer than the G block (600 rows):
+    two launches, the same bits."""
+    assert ssd_ops.bwd_head_groups(96, 24) == (8, 3)
+    for BC, cs, H, P, N in ((96, 256, 24, 64, 128), (1, 600, 5, 64, 32)):
+        args = _ssd_inputs(cuda, torch.float32, BC, cs, H, P, N, seed=14)
+        g = torch.Generator(device=cuda).manual_seed(15)
+        douts = [torch.randn(s, generator=g, device=cuda)
+                 for s in ((BC, cs, H, P), (BC, H, P, N), (BC, H, cs))]
+        runs = [ssd_ops.intra_chunk_backward(*args, *douts)
+                for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)

@@ -273,7 +273,7 @@ def test_lm_wrappers_record_their_backward(monkeypatch, name):
     with the saved inputs; under no_grad there is no graph. The forward
     kernel and the backward wrapper are stubbed by the plain versions."""
     mod, call, bwd = _lm_wrapper(name)
-    plain_fwd = (lambda q, k, v, causal, window, scale, q_offset:
+    plain_fwd = (lambda q, k, v, causal, window, scale, q_offset, lse=None:
                  attn_ops._plain(q, k, v, causal, window, scale, q_offset)) \
         if name == "flash" else (lambda *a: ssd_ops.ref.intra_chunk(*a))
     plain_bwd = getattr(mod, bwd)
