@@ -7,9 +7,10 @@ card. Run from the root of a checkout, with one card visible:
 Phases, in order; any failure exits non-zero before the last line:
 
 1. card: name and power limit (nvidia-smi);
-2. build: the eight CUDA sources (rbf, rbf_icf, xcov_diag,
+2. build: the nine CUDA sources (rbf, rbf_icf, xcov_diag,
    flash_attention, flash_attention_bwd, ssd_intra_chunk,
-   ssd_intra_chunk_bwd, chol_downdate) from the checkout
+   ssd_intra_chunk_bwd, chol_downdate and its probes,
+   chol_downdate_probe) from the checkout
    (nvcc, sm_90a, one compiler per source, started together) into
    build/kernels/; every float32 xcov_diag instance must hold wgmma (HGMMA)
    in its SASS;
@@ -29,9 +30,14 @@ Phases, in order; any failure exits non-zero before the last line:
    counted from them; xcov_diag at four of the GP path's query buckets,
    with its 3xTF32, bytes and f32 CUDA-core bounds, and on a fitted,
    conditioned pPITC state; the Cholesky downdate in float32 and float64
-   at the streaming path's (2048, 1600), at ragged and edge shapes and
-   with zero columns, timed beside its bounds, the floor of its n + b - 1
-   grid barriers and the plain version). Each flash, SSD, xcov_diag, ICF
+   at the streaming path's (2048, 1600), at ragged shapes, at the edges of
+   its 32 x 32 tiles and with zero columns, every case bitwise
+   the plain version, its float64 instance free of spills, timed beside
+   its bounds, its issue bound (a model from the SASS of its row
+   update), its serial floor (a probe of its chain of diagonal items),
+   the plain version and, in float64,
+   ``torch.linalg.cholesky`` of the formed difference as a yardstick).
+   Each flash, SSD, xcov_diag, ICF
    and downdate case runs three times and every run must equal the first
    (an ICF case also with fewer factor rows kept on chip); every float32
    xcov_diag launch must take the tensor-core instance; the two backward
@@ -222,7 +228,9 @@ Imports nothing of JAX and nothing of the JAX package.
 ``python3 chip_smoke.py --phases 3,8`` runs phases 1 and 2, then only the
 backward kernels' checks of phase 3 and/or phase 8 (no kernels line; the
 last line also names the phases): the quick run after a change to the
-backward kernels or the training path.
+backward kernels or the training path. ``--phases downdate`` runs phases
+1 and 2, then only phase 3's ``check_downdate``: the quick run after a
+change to the downdate kernel.
 """
 from __future__ import annotations
 
@@ -450,24 +458,31 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def hgmma_counts(lib) -> dict:
-    """Per kernel function of the shared library ``lib``: its count of
-    wgmma (HGMMA) instructions, from ``cuobjdump -sass`` (shipped with the
-    nvcc that builds the kernels; fails without it)."""
+def sass_functions(lib, what: str) -> dict:
+    """Per kernel function of the shared library ``lib``: its lines of
+    SASS, from ``cuobjdump -sass`` (shipped with the nvcc that builds the
+    kernels; fails without it, saying ``what`` cannot be read)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
-        fail("cuobjdump not found: the xcov_diag SASS cannot be read")
+        fail(f"cuobjdump not found: {what} cannot be read")
     out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                          text=True, check=True, timeout=300).stdout
-    counts, cur = {}, None
+    funcs, cur = {}, None
     for line in out.splitlines():
         m = re.match(r"\s+Function : (\S+)", line)
         if m:
-            cur = m.group(1)
-            counts[cur] = 0
-        elif cur is not None and re.search(r"\bHGMMA\b", line):
-            counts[cur] += 1
-    return counts
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None:
+            cur.append(line)
+    return funcs
+
+
+def hgmma_counts(lib) -> dict:
+    """Per kernel function of the shared library ``lib``: its count of
+    wgmma (HGMMA) instructions."""
+    return {name: sum(bool(re.search(r"\bHGMMA\b", line)) for line in lines)
+            for name, lines in sass_functions(
+                lib, "the xcov_diag SASS").items()}
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1547,20 +1562,132 @@ def downdate_flops(n: int, b: int) -> int:
     return 3 * b * n * (n - 1)
 
 
+def ptxas_report(log: str) -> dict:
+    """Per entry function of an ``-Xptxas -v`` log: its registers and its
+    spill stores and loads, in bytes."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
+# opcode classes of a SASS listing; what is in none of them (integer and
+# logic, moves, selects) counts as "other"; "scaffold" is a probe kernel's
+# own global loads and stores, constants and control
+SASS_FP64 = {"DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"}
+SASS_FP32 = {"FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FCHK",
+             "FSET", "MUFU"}
+SASS_SHARED = {"LDS", "STS", "SHFL"}
+SASS_SCAFFOLD = {"LDG", "STG", "LD", "ST", "LDC", "ULDC", "LDL", "STL",
+                 "S2R", "S2UR", "CS2R", "BRA", "EXIT", "BSSY", "BSYNC",
+                 "CALL", "RET", "NOP", "WARPSYNC", "BAR", "YIELD", "BPT"}
+
+
+def sass_classes(lib, fragment: str) -> dict:
+    """Per function of the shared library ``lib`` whose mangled name holds
+    ``fragment``: its SASS instructions by class (fp64, fp32, shared:
+    shared-memory accesses and shuffles, other, and the global loads,
+    stores and control around them apart), from ``cuobjdump -sass``."""
+    counts = {}
+    for name, lines in sass_functions(lib, "the downdate's SASS").items():
+        if fragment not in name:
+            continue
+        cur = counts[name] = dict.fromkeys(
+            ("fp64", "fp32", "shared", "other", "scaffold"), 0)
+        for line in lines:
+            m = re.search(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                line)
+            if not m:
+                continue
+            op = m.group(1)
+            if op in SASS_FP64 or (op == "MUFU" and "64H" in line):
+                cur["fp64"] += 1
+            elif op in SASS_FP32:
+                cur["fp32"] += 1
+            elif op in SASS_SHARED:
+                cur["shared"] += 1
+            elif op in SASS_SCAFFOLD:
+                cur["scaffold"] += 1
+            else:
+                cur["other"] += 1
+    return counts
+
+
+def downdate_issue_bound(lib, n: int, b: int) -> dict:
+    """The downdate's issue bound, a model from its SASS (not a time the
+    run measures): the instructions of one step of a full off-diagonal
+    item (``update_issue_probe`` of the probes' library ``lib``, 32 rows a
+    lane, the common path: w passed on through shared memory, the
+    numerators, their range, the fast quotients, the new w), a row
+    update's share of them times the b n (n - 1) / 2 row updates, over the
+    card's rate: 64 FP64 lanes a clock an SM for the FP64 pipe, 128 issue
+    slots a clock an SM for every instruction (the guide's peaks,
+    F64_FLOPS_PER_S / 2 and F32_FLOPS_PER_S / 2 lane-instructions a
+    second)."""
+    updates = b * n * (n - 1) // 2
+    found = {}
+    for name, c in sass_classes(lib, "update_issue_probe").items():
+        key = "float64" if "IdE" in name else "float32"
+        per = {k: v / 32 for k, v in c.items()}
+        issued = per["fp64"] + per["fp32"] + per["shared"] + per["other"]
+        t_issue = updates * issued / (F32_FLOPS_PER_S / 2)
+        t_fp64 = updates * per["fp64"] / (F64_FLOPS_PER_S / 2)
+        found[key] = dict(per_update=per, issued=issued,
+                          bound_ms=max(t_issue, t_fp64) * 1e3,
+                          by="the FP64 pipe" if t_fp64 > t_issue
+                          else "issue")
+    if set(found) != {"float32", "float64"}:
+        fail(f"update_issue_probe's SASS: found {sorted(found)}")
+    return found
+
+
 def check_downdate(torch, ops, ref, gen):
     """The Cholesky downdate chol(L Lᵀ - W Wᵀ) against its plain version
     (the reference's sweeps in wavefront order) in f32 and f64: the main
     path's (n, b) = (|S|, |D|/M) = (2048, 1600) (a machine retired from
-    Sdd_L, or pICF's Phi_L at R = 2048), ragged chunks, b = 1, b > n,
-    n = 1 and zero columns; each case launched DOWNDATE_REPEAT times,
-    every run equal to the first. Inputs: L1 = chol(L0 L0ᵀ + W Wᵀ) from
-    the QR of its root, so the downdate gives back L0. Timed at the main
-    shape beside its bounds, the floor of n + b - 1 empty grid barriers and
-    the plain version (also at (256, 64))."""
+    Sdd_L, or pICF's Phi_L at R = 2048), ragged tiles, b = 1, b > n,
+    n = 1, zero columns, and n one less than, equal to and one more than
+    the kernel's 32-row and 32-column tiles (an item runs all b sweeps, a
+    sweep at a time, so b = 1 and b > n are its edges in b); each case
+    launched DOWNDATE_REPEAT times, every run equal to the first and
+    bitwise the plain version's (the run fails otherwise). Inputs:
+    L1 = chol(L0 L0ᵀ + W Wᵀ) from the QR of its root, so the downdate
+    gives back L0. The float64 instance must spill nothing (ptxas). Timed
+    at the main shape beside its bounds, its issue bound (a model from the
+    SASS of the probes' library), its serial floor (``ops.chain_probe``,
+    of the probes' library: the diagonal and sub-diagonal
+    items alone, on L1 and W / 10 so that no step leaves the fast
+    quotient's range), the plain version and, in float64, the yardstick
+    ``torch.linalg.cholesky(L1 @ L1.mT - W @ W.mT)`` (two calls, and not
+    the same function: it forms the difference); also at (256, 64), back
+    to back with the wrapper's copies (``ms_256x64``, as the grid-barrier
+    design before this one was timed) and on the device
+    (``device_ms_256x64``)."""
     from repro_torch.core import linalg
+    from repro_torch.kernels import build
     main = (S_SIZE, N_TRAIN // M)
     cases = [(main, ()), ((300, 257), ()), ((128, 1), ()), ((8, 40), ()),
-             ((1, 3), ()), ((96, 12), (0, 5, 11))]
+             ((1, 3), ()), ((96, 12), (0, 5, 11)), ((31, 7), ()),
+             ((32, 8), ()), ((33, 9), ()), ((63, 9), ()), ((64, 8), ()),
+             ((65, 7), ())]
+    so = build.target("chol_downdate")
+    report = ptxas_report(so.with_suffix(".log").read_text())
+    for name, r in sorted(report.items()):
+        if "downdate_kernel" in name:
+            print(f"  chol_downdate ptxas {name[-40:]}: {r}", flush=True)
+            if r.get("spill", 0):
+                fail(f"chol_downdate: {name} spills ({r})")
 
     def inputs(n, b, dt, zero=()):
         L0 = torch.tril(torch.randn((n, n), generator=gen, device="cuda")
@@ -1596,8 +1723,9 @@ def check_downdate(torch, ops, ref, gen):
                   f"{err:.3e} (tol {TOL_DOWNDATE[key]:.0e}), bitwise "
                   f"{bitwise}; vs the factor before the update {back:.3e}; "
                   f"plain {t_plain:.3f} s", flush=True)
-            if not err <= TOL_DOWNDATE[key]:
-                fail(f"chol_downdate ({n}, {b}) {key} error {err}")
+            if not (err <= TOL_DOWNDATE[key] and bitwise):
+                fail(f"chol_downdate ({n}, {b}) {key} error {err}, bitwise "
+                     f"{bitwise}")
             if zero and not torch.equal(
                     ops.chol_downdate(L0, W[:, list(zero)]), L0):
                 fail("chol_downdate: zero columns changed L")
@@ -1605,6 +1733,7 @@ def check_downdate(torch, ops, ref, gen):
                 worst[key] = err
                 rows[key] = (L1, W, t_plain)
     n, b = main
+    issue = downdate_issue_bound(build.target("chol_downdate_probe"), n, b)
     out = {}
     for key, (L1, W, t_plain) in rows.items():
         dt = L1.dtype
@@ -1614,23 +1743,43 @@ def check_downdate(torch, ops, ref, gen):
         peak = F32_FLOPS_PER_S if dt == torch.float32 else F64_FLOPS_PER_S
         b_ms, b_by = bound_ms(downdate_bytes(n, b, L1.element_size()),
                               downdate_flops(n, b), peak)
-        floor = time_ms(lambda: ops.barrier_probe(n + b - 1, "cuda"), 5)
+        W10 = W / 10
+        chain = kernel_device_ms(torch, lambda: ops.chain_probe(L1, W10),
+                                 "downdate_kernel", 5)
         L1s, Ws = L1[:256, :256].contiguous(), W[:256, :64].contiguous()
         small = time_ms(lambda: ops.chol_downdate(L1s, Ws), 5)
+        small_dev = kernel_device_ms(
+            torch, lambda: ops.chol_downdate(L1s, Ws), "downdate_kernel", 5)
         small_plain = time_ms(lambda: ref.chol_downdate(L1s, Ws), 1, 1)
+        model = issue[key]
+        per = model["per_update"]
         print(f"  chol_downdate at ({n}, {b}) {key}: device {ms:.4f} ms "
-              f"(back to back with the wrapper's copies {b2b:.4f} ms), "
-              f"{(n + b - 1)} diagonals, {ms * 1e3 / (n + b - 1):.2f} us a "
-              f"diagonal; bound {b_ms:.4f} ms ({b_by}: "
+              f"(back to back with the wrapper's copies {b2b:.4f} ms); "
+              f"bound {b_ms:.4f} ms ({b_by}: "
               f"{downdate_flops(n, b) / 1e9:.1f} GFLOP, "
               f"{downdate_bytes(n, b, L1.element_size()) / 1e6:.1f} MB); "
-              f"{n + b - 1} empty grid barriers {floor:.4f} ms; plain "
-              f"{t_plain * 1e3:.1f} ms; at (256, 64) kernel {small:.4f} ms, "
+              f"issue bound (a model from the SASS) "
+              f"{model['bound_ms']:.4f} ms ({model['by']}; SASS a row "
+              f"update: {per['fp64']:.3f} FP64, {per['fp32']:.3f} FP32, "
+              f"{per['shared']:.3f} shared, {per['other']:.3f} other); "
+              f"serial floor (chain probe) {chain:.4f} ms; plain "
+              f"{t_plain * 1e3:.1f} ms; at (256, 64) back to back with the "
+              f"wrapper's copies {small:.4f} ms, device {small_dev:.4f} ms, "
               f"plain {small_plain:.2f} ms", flush=True)
         out[key] = dict(ms=ms, plain_ms=t_plain * 1e3, bound_ms=b_ms,
-                        bound_by=b_by, barrier_floor_ms=floor,
+                        bound_by=b_by, issue_bound_ms=model["bound_ms"],
+                        issue_bound_by=model["by"], chain_floor_ms=chain,
                         back_to_back_ms=b2b, ms_256x64=small,
+                        device_ms_256x64=small_dev,
                         plain_ms_256x64=small_plain)
+    L1, W, _ = rows["float64"]
+    yard = time_ms(lambda: torch.linalg.cholesky(L1 @ L1.mT - W @ W.mT), 5)
+    yard_err = max_err(torch.linalg.cholesky(L1 @ L1.mT - W @ W.mT),
+                       ops.chol_downdate(L1, W))
+    print(f"  yardstick (not the same function): torch.linalg.cholesky("
+          f"L1 @ L1.mT - W @ W.mT) float64 at ({n}, {b}) {yard:.4f} ms "
+          f"back to back, max|diff| from the kernel's factor "
+          f"{yard_err:.3e}", flush=True)
     f32, f64 = out["float32"], out["float64"]
     return dict(name="chol_downdate", route="cuda",
                 source="src/repro_torch/kernels/linalg/csrc/chol_downdate.cu",
@@ -1641,12 +1790,22 @@ def check_downdate(torch, ops, ref, gen):
                 ms=f32["ms"], plain_ms=f32["plain_ms"],
                 bound_ms=f32["bound_ms"], bound_by=f32["bound_by"],
                 library_ms=None,
-                barrier_floor_ms=f32["barrier_floor_ms"],
+                issue_bound_ms=f32["issue_bound_ms"],
+                issue_bound_by=f32["issue_bound_by"],
+                chain_floor_ms=f32["chain_floor_ms"],
                 back_to_back_ms=f32["back_to_back_ms"],
                 ms_256x64=f32["ms_256x64"],
+                device_ms_256x64=f32["device_ms_256x64"],
                 plain_ms_256x64=f32["plain_ms_256x64"],
                 f64_ms=f64["ms"], f64_plain_ms=f64["plain_ms"],
-                f64_bound_ms=f64["bound_ms"], f64_max_abs_err=worst["float64"],
+                f64_bound_ms=f64["bound_ms"],
+                f64_issue_bound_ms=f64["issue_bound_ms"],
+                f64_issue_bound_by=f64["issue_bound_by"],
+                f64_chain_floor_ms=f64["chain_floor_ms"],
+                f64_ms_256x64=f64["ms_256x64"],
+                f64_device_ms_256x64=f64["device_ms_256x64"],
+                f64_max_abs_err=worst["float64"],
+                f64_yardstick_cholesky_ms=yard,
                 shape=f"(n, b) = ({n}, {b}) f32")
 
 
@@ -4618,14 +4777,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "card; every phase unless --phases.")
     ap.add_argument("--phases", default=None,
-                    help="comma-separated subset of 3 (kernel vs plain) and "
-                    "8 (LM training) to run after the card and build "
+                    help="comma-separated subset of 3 (the backward "
+                    "kernels' checks), 8 (LM training) and downdate (the "
+                    "downdate's checks) to run after the card and build "
                     "phases; prints no kernels line")
     only = ap.parse_args(argv).phases
     only = None if only is None else set(only.split(","))
-    if only is not None and not only <= {"3", "8"}:
-        print(f"FAIL: --phases takes 3 and 8; got {sorted(only)}",
-              flush=True)
+    if only is not None and not only <= {"3", "8", "downdate"}:
+        print(f"FAIL: --phases takes 3, 8 and downdate; got "
+              f"{sorted(only)}", flush=True)
         return 2
     try:
         import torch
@@ -4689,6 +4849,9 @@ def main(argv=None) -> int:
     from repro_torch.kernels.ssd import ops as ssd_ops, ref as ssd_ref
     gen = torch.Generator(device="cuda").manual_seed(0)
     if only is not None:
+        if "downdate" in only:
+            phase("phase 3: kernel vs plain (the downdate only)")
+            check_downdate(torch, lin_ops, lin_ref, gen)
         if "3" in only:
             phase("phase 3: kernel vs plain (the backward kernels)")
             check_flash_bwd(torch, attn_ops, attn_ref, gen)

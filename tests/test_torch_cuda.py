@@ -560,12 +560,16 @@ DOWNDATE_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n,b,zero_cols", [
     (64, 16, ()), (300, 257, ()), (128, 1, ()), (8, 40, ()),
-    (1, 3, ()), (96, 12, (0, 5, 11))])
+    (1, 3, ()), (96, 12, (0, 5, 11))]
+    + [(n, b, ()) for n in (31, 32, 33) for b in (7, 8, 9)]
+    + [(63, 8, ()), (65, 8, ()), (64, 33, ())])
 def test_downdate_kernel_matches_plain(cuda, n, b, zero_cols, dtype):
     """The kernel against its plain version (the reference's sweeps in
-    wavefront order) on the same inputs: b = 1, b > n, n = 1, ragged row
-    chunks, zero columns; and both give back the factor before the
-    update. Each launch is counted once, and a repeat is bitwise equal."""
+    wavefront order) on the same inputs, bit for bit: b = 1, b > n, n = 1,
+    ragged tiles, n one less than, equal to and one more than the kernel's
+    32-row and 32-column tiles (one and two of them), zero columns; and
+    both give back the factor before the update. Each launch is counted
+    once, and a repeat is bitwise equal."""
     from repro_torch.kernels.linalg import ops as linalg_ops, \
         ref as linalg_ref
     L0, L1, W = _downdate_inputs(cuda, n, b, dtype, zero_cols=zero_cols)
@@ -579,7 +583,48 @@ def test_downdate_kernel_matches_plain(cuda, n, b, zero_cols, dtype):
     assert got.is_contiguous() and torch.equal(got.triu(1), L1.triu(1))
     tol = DOWNDATE_TOL[dtype]
     assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, want)
     assert float((got - L0).abs().max()) <= 100 * tol
+
+
+def test_downdate_chain_probe_is_no_launch_of_the_kernel(cuda):
+    """The serial-floor probe (diagonal and sub-diagonal items only) runs
+    on the downdate's arguments, counts no launch and leaves its inputs."""
+    from repro_torch.kernels.linalg import ops as linalg_ops
+    _, L1, W = _downdate_inputs(cuda, 100, 20, torch.float64)
+    L1c, Wc = L1.clone(), W.clone()
+    linalg_ops.reset_counts()
+    linalg_ops.chain_probe(L1, W)
+    torch.cuda.synchronize()
+    assert linalg_ops.chol_downdate_launches == 0
+    assert torch.equal(L1, L1c) and torch.equal(W, Wc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_downdate_quotient_is_ieee_division(cuda, dtype):
+    """The kernel's row-update quotient (its range check, then the
+    branch-free quotient from y = 1/c or the IEEE division) through the
+    probe library, on the hard operands of ``tests/test_torch_downdate.py``:
+    each step takes the path its operands' range calls for (an operand just
+    outside the range, in any slot or as c, sends it to the division; one
+    in a slot that is no row does not), and every quotient of a row is the
+    IEEE quotient bit for bit (a NaN as a NaN)."""
+    from repro_torch.kernels.linalg import ops as linalg_ops
+    from test_torch_downdate import quotient_groups
+    fmt, bits = {torch.float32: (np.float32, np.int32),
+                 torch.float64: (np.float64, np.int64)}[dtype]
+    a, c, mask, fast = quotient_groups(fmt)
+    q, took = linalg_ops.quotient_probe(
+        *(torch.from_numpy(x).to(cuda) for x in (a, c, mask)))
+    assert took.cpu().numpy().tolist() == fast.tolist()
+    with np.errstate(all="ignore"):
+        want = a / c[:, None]                    # IEEE division, numpy
+    got = q.cpu().numpy()
+    rows = (mask.view(np.uint32)[:, None]
+            >> np.arange(32, dtype=np.uint32)) & 1 == 1
+    same = (got.view(bits) == want.view(bits)) \
+        | (np.isnan(got) & np.isnan(want))
+    assert same[rows].all()
 
 
 def test_downdate_kernel_zero_columns_and_empty(cuda):
