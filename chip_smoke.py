@@ -216,8 +216,31 @@ Phases, in order; any failure exits non-zero before the last line:
    ``CheckpointManager`` (async save), the next step retaken from the
    restored state bit for bit; then one float32 gradient at smoke width on
    the card (the kernels) against the CPU (the plain versions);
+9. LM continuous batching (``launch.scheduler.ContinuousBatcher``),
+   qwen3-1.7b and mamba2-130m whole (random weights, seed 0, bf16): 4
+   slots, max_len 128, 8 requests from a seed (prompts of 8-48 tokens,
+   max_new 8-32), eos_id a token that request 0's greedy run alone emits
+   midway; each request's tokens must be bitwise ``prefill_then_decode``'s
+   for it alone (batch 1, the same max_len, cut at EOS; on a difference
+   the first position and the logit gap there are printed), at least one
+   request must end on EOS, and qwen3's flash_sm90 launches must be 28 a
+   decode step; it prints generated tokens/s, each request's latency in
+   ticks and ms (p50, max) and the ticks;
+10. the LM's steps over a ``DeviceMesh``: (a) one NCCL rank, mesh (1, 1)
+   ("data", "model"): ``on_mesh``'s 2 steps bitwise ``train_step``'s
+   (losses, metrics, every leaf; ``TokenLoader(mesh)``'s rows bitwise) on
+   mamba2-130m whole at 8 x 4096 and qwen3-1.7b cut to 4 layers at 4 x
+   4096 in 2 microbatches, and ``make_serve_step`` on qwen3-1.7b whole, B
+   = 4, 16 steps, logits bitwise ``decode_step``'s; (b) four gloo ranks
+   sharing cuda:0, mesh (2, 2), float32 compute: qwen3-1.7b at 2 layers
+   (tensor parallelism forced on) and mamba2-130m whole (pure data
+   parallelism) at 4 x 512, the sharded train step against the one-process
+   step on the card (loss 1e-5; Adam's moments 1e-4 of each leaf's max;
+   the parameters' update its sign and size within 0.1 lr where mu settles
+   the gradient's sign) and 4 serve steps (B = 4) against
+   ``decode_step`` (MESH_TOL_LOGITS); each run's kernel launches counted;
 7. one JSON line listing each kernel's launches, error, times and bound.
-   Phase 8 runs before it; every phase prints its seconds.
+   Phases 8-10 run before it; every phase prints its seconds.
 
 Each main path zeroes its kernels' launch counts just before it and reads
 them just after; a kernel of the path that was not launched fails the run.
@@ -230,7 +253,9 @@ backward kernels' checks of phase 3 and/or phase 8 (no kernels line; the
 last line also names the phases): the quick run after a change to the
 backward kernels or the training path. ``--phases downdate`` runs phases
 1 and 2, then only phase 3's ``check_downdate``: the quick run after a
-change to the downdate kernel.
+change to the downdate kernel. ``--phases 9,10`` runs phases 1 and 2, then
+9 and 10: the quick run after a change to the batcher or the steps over a
+mesh.
 """
 from __future__ import annotations
 
@@ -515,10 +540,21 @@ def kernel_device_ms(torch, fn, name: str, iters: int,
     for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            # one fill kernel first: a trace on one H100 machine saw 4
+            # bwd_prep kernels in 5 calls three times running; whether a
+            # first launch cures that is not known
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        spans = [e - s for n, s, e in kernels(prof) if name in n]
+        # the fill is left out by its place, the trace's first kernel, and
+        # not by the name filter: the library timings pass name "" and
+        # count every kernel (were it lost, nothing is left out)
+        ks = sorted(kernels(prof), key=lambda k: k[1])
+        if ks and "FillFunctor" in ks[0][0]:
+            ks = ks[1:]
+        spans = [e - s for n, s, e in ks if name in n]
         if len(spans) in [k * iters for k in per_call]:
             return sum(spans) / iters / 1e3
         print(f"  (the profiler saw {len(spans)} {name} kernels in "
@@ -2283,6 +2319,18 @@ def _leaves(tree):
             yield from _leaves(v)
     elif tree is not None:
         yield tree
+
+
+def _named_leaves(tree, prefix: str = ""):
+    """(path, tensor) of each leaf, in ``_leaves``' order."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{prefix}/{i}")
+    elif tree is not None:
+        yield prefix, tree
 
 
 def main_path(torch, card: str):
@@ -4772,19 +4820,730 @@ def training(torch, card: str, attn_ops, ssd_ops) -> tuple[dict, dict]:
     return qwen_train, mamba_train
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the continuous batcher (launch.scheduler) on the card. Each
+# request's tokens must equal prefill_then_decode's greedy tokens for it
+# alone (batch 1, the same max_len, cut at EOS) bit for bit: the calls and
+# shapes are the same, so any difference is a fault.
+# ---------------------------------------------------------------------------
+BATCHER_SLOTS, BATCHER_MAX_LEN, BATCHER_REQUESTS = 4, 128, 8
+BATCHER_PROMPT, BATCHER_NEW = (8, 48), (8, 32)     # inclusive ranges
+
+
+def batcher_requests(cfg, seed: int = 0) -> list:
+    """(prompt, max_new) of each request, from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(BATCHER_REQUESTS):
+        n = int(rng.integers(BATCHER_PROMPT[0], BATCHER_PROMPT[1] + 1))
+        new = int(rng.integers(BATCHER_NEW[0], BATCHER_NEW[1] + 1))
+        out.append((rng.integers(0, cfg.vocab, n).tolist(), new))
+    return out
+
+
+def _alone(torch, params, cfg, prompt: list, n: int, eos) -> list:
+    """``prefill_then_decode``'s n greedy tokens for ``prompt`` alone, cut
+    after the first ``eos``."""
+    from repro_torch.launch import serve
+    toks = torch.tensor([prompt], dtype=torch.long, device="cuda")
+    out = serve.prefill_then_decode(params, toks, cfg,
+                                    max_len=BATCHER_MAX_LEN,
+                                    n_decode=n)[0, len(prompt):].tolist()
+    return out[:out.index(eos) + 1] if eos in out else out
+
+
+def _logit_gap(torch, params, cfg, prompt: list, want: list, i: int,
+               got: int) -> float:
+    """The alone run's logit of its token i minus that of the batcher's
+    token there (its decode steps replayed)."""
+    from repro_torch.models import transformer as tf
+    state = tf.init_serve(cfg, 1, BATCHER_MAX_LEN)
+    for tok in prompt + want[:i]:
+        logits, state = tf.decode_step(params, torch.tensor(
+            [[tok]], device="cuda"), state, cfg)
+    last = logits[0, -1].float()
+    return float(last[want[i]] - last[got])
+
+
+def batcher_path(torch, card: str, name: str, attn_ops) -> dict:
+    """Phase 9 for one model at full width and depth (random weights, seed
+    0, bf16 compute)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.scheduler import ContinuousBatcher, Request
+
+    cfg = get_config(name)
+    params, _ = init_lm(torch, card, cfg)
+    reqs = batcher_requests(cfg)
+    # EOS: the token request 0's greedy run alone emits midway
+    first = _alone(torch, params, cfg, reqs[0][0], reqs[0][1], None)
+    eos = first[len(first) // 2]
+    b = ContinuousBatcher(params, cfg, slots=BATCHER_SLOTS,
+                          max_len=BATCHER_MAX_LEN, eos_id=eos)
+    for rid, (prompt, new) in enumerate(reqs):
+        b.submit(Request(rid, list(prompt), max_new=new))
+    attn_ops.reset_counts()
+    done_at, ticks, steps = {}, 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while b.queue or any(not s.free for s in b.slots):
+        steps += b.tick()
+        ticks += 1
+        for r in b.finished[len(done_at):]:
+            done_at[r.rid] = (ticks, (time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flash = attn_ops.flash_sm90_launches
+    n_attn = sum(d.kind == "attn" for d in cfg.plan())
+    generated = sum(len(r.out) for r in b.finished)
+    lat_ms = sorted(ms for _, ms in done_at.values())
+    lat_t = sorted(t for t, _ in done_at.values())
+    print(f"  [{card}] {name} batcher: {BATCHER_REQUESTS} requests "
+          f"(prompts {[len(p) for p, _ in reqs]}, max_new "
+          f"{[n for _, n in reqs]}), {BATCHER_SLOTS} slots, max_len "
+          f"{BATCHER_MAX_LEN}, eos_id {eos}: {ticks} ticks, {steps} decode "
+          f"steps, {generated} tokens generated in {wall:.3f} s "
+          f"({generated / wall:.1f} generated tokens/s)", flush=True)
+    print(f"  [{card}] {name} latency from submit, ticks / ms by request: "
+          + ", ".join(f"{rid}: {done_at[rid][0]} / {done_at[rid][1]:.1f}"
+                      for rid in sorted(done_at))
+          + f"; p50 {lat_t[len(lat_t) // 2]} ticks / "
+          f"{lat_ms[len(lat_ms) // 2]:.1f} ms, max {lat_t[-1]} / "
+          f"{lat_ms[-1]:.1f} ms; finish order "
+          f"{[r.rid for r in b.finished]}", flush=True)
+    if n_attn:
+        print(f"  {name} flash_sm90 launches in the batcher's run: {flash} "
+              f"(want {n_attn} x {steps} decode steps = {n_attn * steps})",
+              flush=True)
+        if flash != n_attn * steps:
+            fail(f"{name} batcher: {flash} flash_sm90 launches for {steps} "
+                 f"decode steps of {n_attn} attention layers")
+    on_eos, bad = [], []
+    for r in sorted(b.finished, key=lambda r: r.rid):
+        prompt, new = reqs[r.rid]
+        want = first if r.rid == 0 else _alone(torch, params, cfg, prompt,
+                                               len(r.out), eos)
+        want = want[:len(r.out)] if r.rid == 0 else want
+        if r.out != want:
+            i = next((j for j, (x, y) in enumerate(zip(r.out, want))
+                      if x != y), min(len(r.out), len(want)))
+            gap = (_logit_gap(torch, params, cfg, prompt, want, i, r.out[i])
+                   if i < min(len(r.out), len(want)) else float("nan"))
+            bad.append(f"request {r.rid}: first difference at token {i} "
+                       f"(batcher {r.out[i:i + 1]}, alone {want[i:i + 1]}; "
+                       f"lengths {len(r.out)} / {len(want)}), logit gap "
+                       f"there {gap:.4e}")
+        if r.out and r.out[-1] == eos and len(r.out) < new:
+            on_eos.append(r.rid)
+    print(f"  {name}: each request's tokens against prefill_then_decode "
+          f"alone: {'bitwise equal' if not bad else 'DIFFER'}; ended on EOS: "
+          f"requests {on_eos}", flush=True)
+    if bad:
+        fail(f"{name} batcher differs from prefill_then_decode alone: "
+             + "; ".join(bad))
+    if not on_eos:
+        fail(f"{name} batcher: no request ended on eos_id {eos}")
+    del params
+    torch.cuda.empty_cache()
+    return {"tokens_per_s": generated / wall, "ticks": ticks, "steps": steps,
+            "latency_ms": [done_at[i][1] for i in sorted(done_at)],
+            "flash_sm90_launches": flash}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the LM's steps over a DeviceMesh. (a) one NCCL rank, mesh (1, 1)
+# ("data", "model"): every collective is the identity, so on_mesh and the
+# sharded serve step must be bitwise the one-process steps. (b) four gloo
+# ranks sharing the card, mesh (2, 2), float32 compute, against the
+# one-process step on the card:
+#  the train step: the loss within phase 8's card-vs-CPU 1e-5 relative;
+#  each leaf of Adam's moments (0.1 g and 0.001 g^2 after one step: the
+#  gradient) within phase 8's 1e-4 of its max, or within 10x the
+#  one-process step's own spread where that is larger: the same step with
+#  2 microbatches against 1, on the same batch, sums the rows in another
+#  order, as the ranks do (on an NVIDIA H100 80GB HBM3 at 700 W, a mamba2
+#  leaf's moment moved by 3.3e-4 of its max against the one-process step,
+#  qwen3's worst by 4.8e-6); the parameters by their update (Adam's first
+#  is lr g / (|g| + eps), within 2 lr of any other, so a limit on the
+#  parameters alone could not fail): where mu settles the sign of g, the
+#  update's sign and size within 0.1 lr (``_update_agrees``), on at least
+#  MESH_HELD_MIN of the elements;
+#  the serve step's logits within MESH_TOL_LOGITS of max|logit| over the
+#  vocabulary: the ranks' products run over 2 of 4 rows and half the
+#  heads' or vocabulary's columns, so cuBLAS may sum in other orders
+#  (~sqrt(K) eps relative, K <= 2048: 3e-6 a product); 1e-4 leaves 30x
+#  over two layers (mamba2: 24), and a wrong head, row or rank errs by the
+#  logits' own size.
+# ---------------------------------------------------------------------------
+MESH_QWEN_LAYERS = 4        # 10a: qwen3 28 -> 4 layers, two states fit
+MESH_STEPS = 2
+MESH_SERVE_B, MESH_SERVE_STEPS = 4, 16
+MESH_GLOO = dict(world=4, shape=(2, 2), qwen_layers=2, batch=4, seq=512,
+                 serve_steps=4)
+MESH_TOL_LOGITS = 1e-4
+MESH_HELD_MIN = 0.01        # the share of parameters 10b's update check holds
+MESH_JOIN_S = 300.0
+
+
+def _mesh_counts(attn_ops, ssd_ops) -> dict:
+    return {"flash": attn_ops.flash_launches,
+            "flash_bwd": attn_ops.flash_bwd_launches,
+            "ssd": ssd_ops.ssd_launches, "ssd_bwd": ssd_ops.ssd_bwd_launches}
+
+
+def _mesh_reset(attn_ops, ssd_ops) -> None:
+    attn_ops.reset_counts()
+    ssd_ops.reset_counts()
+
+
+def mesh_train_one_rank(torch, card, mesh, cfg, *, batch: int,
+                        microbatches: int, attn_ops, ssd_ops) -> dict:
+    """10a: ``on_mesh``'s MESH_STEPS steps against ``train_step``'s from
+    the same state, bitwise (losses, metrics, every leaf)."""
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.launch import train
+    from repro_torch.optim.adam import Adam, tree_leaves
+    from repro_torch.parallel import sharding as shd
+
+    torch.cuda.empty_cache()
+    opt = Adam(lr=TRAIN_LR)
+    state = train.init_state(
+        cfg, opt, generator=torch.Generator(device="cuda").manual_seed(0))
+    specs = train.state_specs(state, mesh)
+    local = shd.local_shards(state, specs, mesh)
+    step, on_mesh = train.make_train_step(cfg, mesh, opt,
+                                          microbatches=microbatches)
+    mstep = on_mesh(state)
+    one = TokenLoader(cfg, batch=batch, seq=LM_SEQ, seed=0)
+    ranked = TokenLoader(cfg, mesh, batch=batch, seq=LM_SEQ, seed=0)
+    batches = [next(one) for _ in range(MESH_STEPS)]
+    mbatches = [next(ranked) for _ in range(MESH_STEPS)]
+    rows_equal = all(torch.equal(a[k], b[k]) for a, b in
+                     zip(batches, mbatches) for k in a)
+    runs = {}
+    for tag, fn, st, bs in (("train_step", step, state, batches),
+                            ("on_mesh", mstep, local, mbatches)):
+        _mesh_reset(attn_ops, ssd_ops)
+        secs, ms = [], []
+        for b in bs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st, m = fn(st, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            ms.append(m)
+        runs[tag] = (st, ms, secs, _mesh_counts(attn_ops, ssd_ops))
+    (s1, m1, t1, c1), (s2, m2, t2, c2) = runs["train_step"], runs["on_mesh"]
+    same_m = all(torch.equal(getattr(a, f), getattr(b, f))
+                 for a, b in zip(m1, m2) for f in type(a)._fields)
+    diff = [i for i, (a, b) in enumerate(zip(tree_leaves(s1),
+                                             tree_leaves(s2)))
+            if not torch.equal(a, b)]
+    print(f"  [{card}] 10a {cfg.name} ({cfg.n_layers} layers), {batch} x "
+          f"{LM_SEQ} ({microbatches} microbatch"
+          f"{'es' if microbatches > 1 else ''}): on_mesh step s "
+          f"{', '.join(f'{x:.3f}' for x in t2)} (train_step "
+          f"{', '.join(f'{x:.3f}' for x in t1)}); losses "
+          f"{[round(float(m.loss), 6) for m in m2]}; launches on_mesh "
+          f"{c2} (train_step {c1}); TokenLoader(mesh) rows "
+          f"{'bitwise' if rows_equal else 'DIFFER'}; metrics "
+          f"{'bitwise' if same_m else 'DIFFER'}; state "
+          f"{'bitwise' if not diff else f'{len(diff)} leaves DIFFER'}",
+          flush=True)
+    if not (rows_equal and same_m and not diff):
+        fail(f"10a {cfg.name}: on_mesh is not bitwise train_step "
+             f"(rows {rows_equal}, metrics {same_m}, leaves {diff[:5]})")
+    kind = ("flash", "flash_bwd") if cfg.plan()[0].kind == "attn" \
+        else ("ssd", "ssd_bwd")
+    if not all(c2[k] > 0 for k in kind) or c2 != c1:
+        fail(f"10a {cfg.name}: launches on_mesh {c2}, train_step {c1}")
+    return {"step_s": t2, "train_step_s": t1, "launches": c2}
+
+
+def mesh_serve_one_rank(torch, card, mesh, attn_ops) -> dict:
+    """10a: ``make_serve_step`` on qwen3-1.7b whole, B = MESH_SERVE_B, for
+    MESH_SERVE_STEPS steps: its logits bitwise ``decode_step``'s."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tf
+    from repro_torch.parallel import sharding as shd
+
+    cfg = get_config("qwen3-1.7b")
+    params, gen = init_lm(torch, card, cfg)
+    B, n = MESH_SERVE_B, MESH_SERVE_STEPS
+    toks = synthetic.lm_tokens(gen, batch=B, seq=n - 1, vocab=cfg.vocab)
+    step, built = serve.make_serve_step(cfg, mesh, batch=B)
+    sharded = built(params)
+    local_p = shd.local_shards(params, shd.param_specs(params, mesh), mesh)
+    state = tf.init_serve(cfg, B, n)
+    local_s = shd.local_shards(state, serve.serve_state_specs(cfg, mesh,
+                                                              batch=B), mesh)
+    wants = []
+    for t in range(n):                  # the one-process steps first
+        want, state = step(params, toks[:, t:t + 1], state)
+        wants.append(want)
+    equal, ms = True, []
+    attn_ops.reset_counts()             # the sharded step's own launches
+    for t in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, local_s = sharded(local_p, toks[:, t:t + 1], local_s)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        equal &= torch.equal(got, wants[t])
+    flash = attn_ops.flash_sm90_launches
+    p50 = sorted(ms)[len(ms) // 2]
+    print(f"  [{card}] 10a qwen3-1.7b make_serve_step, B={B}, {n} steps: "
+          f"per-token p50 {p50:.3f} ms (max {max(ms):.3f}); logits "
+          f"{'bitwise' if equal else 'DIFFER from'} decode_step's; "
+          f"flash_sm90 launches {flash} (the sharded steps alone, {n} x "
+          f"{cfg.n_layers})", flush=True)
+    if not equal:
+        fail("10a: make_serve_step's logits differ from decode_step's")
+    if flash != n * cfg.n_layers:
+        fail(f"10a serve: {flash} flash_sm90 launches")
+    del params, local_p, wants
+    torch.cuda.empty_cache()
+    return {"p50_ms": p50, "flash_sm90_launches": flash}
+
+
+def mesh_one_rank(torch, card, attn_ops, ssd_ops) -> dict:
+    """Phase 10a on one NCCL rank holding mesh (1, 1)."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import mesh as tmesh
+    print(f"  reduced: 10a qwen3-1.7b n_layers 28 -> {MESH_QWEN_LAYERS} "
+          f"(two training states on the card), batch 4 x {LM_SEQ}; "
+          f"mamba2-130m whole at 8 x {LM_SEQ}; serving qwen3-1.7b whole",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = tmesh.make_mesh((1, 1), ("data", "model"), rank=0,
+                               world_size=1, init_method=f"file://{tmp}/rdv",
+                               backend="nccl", timeout_s=MESH_JOIN_S)
+        try:
+            out = {"mamba2-130m": mesh_train_one_rank(
+                torch, card, mesh, get_config("mamba2-130m"), batch=8,
+                microbatches=1, attn_ops=attn_ops, ssd_ops=ssd_ops)}
+            out["qwen3-1.7b"] = mesh_train_one_rank(
+                torch, card, mesh, get_config("qwen3-1.7b").scaled(
+                    n_layers=MESH_QWEN_LAYERS), batch=4, microbatches=2,
+                attn_ops=attn_ops, ssd_ops=ssd_ops)
+            out["serve"] = mesh_serve_one_rank(torch, card, mesh, attn_ops)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def _time_collectives(torch, cls) -> dict:
+    """Wrap the collectives of ``cls`` (``sharding.MeshAxes``) in this
+    process: each call synchronizes the card before and after and adds
+    its seconds, calls and bytes received to the returned dict, by
+    collective."""
+    spent = {}
+
+    def wrap(name, fn):
+        def timed(self, t, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, t, *args)
+            torch.cuda.synchronize()
+            row = spent.setdefault(name, [0, 0.0, 0])
+            row[0] += 1
+            row[1] += time.perf_counter() - t0
+            row[2] += out.numel() * out.element_size()
+            return out
+        return timed
+
+    for name in ("_cat", "sum", "max"):
+        setattr(cls, name, wrap(name, getattr(cls, name)))
+    return spent
+
+
+def _flat(torch, tree):
+    """The leaves of ``tree`` in one flat tensor: one CUDA IPC export for
+    a child in place of one a leaf (~300 leaves a child took ~10 s a child
+    to spawn on an NVIDIA H100 80GB HBM3, 700 W machine)."""
+    from repro_torch.optim.adam import tree_leaves
+    return torch.cat([t.reshape(-1) for t in tree_leaves(tree)])
+
+
+def _unflat(flat, like):
+    """``_flat``'s inverse: views of ``flat`` shaped like ``like``'s
+    leaves."""
+    from repro_torch.optim.adam import tree_map
+    at = [0]
+
+    def take(t):
+        v = flat[at[0]:at[0] + t.numel()].view(t.shape)
+        at[0] += t.numel()
+        return v
+    return tree_map(take, like)
+
+
+def _update_agrees(torch, p0, got, want, mu, mu_limits, opt) -> tuple:
+    """10b's parameter check. Adam's first update from zero moments is
+    lr g / (|g| + eps): lr times the sign of g wherever |g| >> eps. On the
+    elements whose one-process mu (0.1 g) exceeds twice its leaf's limit
+    (so the mesh's mu, held within that limit, has its sign) and 100 eps
+    (so the update is within 1% of lr), the mesh step's update
+    ``got - p0`` must have the one-process update's sign and lie within
+    0.1 lr + 2 ulps of ``p0`` of it. Returns (elements off, the first leaf
+    with one, the share of elements so held)."""
+    from repro_torch.optim.adam import tree_leaves
+    floor = 100 * (1 - opt.b1) * opt.eps
+    off, held, total, where = 0, 0, 0, ""
+    for (path, w0), a, w, m, lim in zip(
+            _named_leaves(p0), tree_leaves(got), tree_leaves(want),
+            tree_leaves(mu), mu_limits):
+        sure = m.abs() > max(2 * lim, floor)
+        dg, dw = a - w0, w - w0
+        tol = 0.1 * TRAIN_LR + 2 * torch.finfo(w0.dtype).eps * w0.abs()
+        n = int((sure & ((dg * dw <= 0) | ((dg - dw).abs() > tol))).sum())
+        if n and not where:
+            where = path
+        off, held, total = off + n, held + int(sure.sum()), \
+            total + w0.numel()
+    return off, where, held / total
+
+
+def _mesh_rank(rank, rdv, sh, q):
+    """One rank of phase 10b: the sharded train and serve steps of each
+    model in ``sh``, from the initial state it draws from the parent's seed,
+    held against the parent's one-process results (shared through CUDA
+    IPC, a few flat tensors); puts its readings on ``q``. Loads the kernels
+    phase 2 built; never runs nvcc."""
+    entered = time.time()
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        from repro_torch.kernels import build
+        missing = [n for n in build.sources() if not build.target(n).exists()]
+        if missing:
+            raise RuntimeError(f"kernels {missing} are not built: phase 2 "
+                               f"builds them, a rank only loads them")
+        from repro_torch.data.loader import TokenLoader
+        from repro_torch.kernels.attention import ops as attn_ops
+        from repro_torch.kernels.ssd import ops as ssd_ops
+        from repro_torch.launch import mesh as tmesh, serve, train
+        from repro_torch.models import transformer as tf
+        from repro_torch.optim.adam import Adam, tree_leaves
+        from repro_torch.parallel import sharding as shd
+        dev = torch.device("cuda", 0)
+        g = MESH_GLOO
+        spent = _time_collectives(torch, shd.MeshAxes)
+        mesh = tmesh.make_mesh(g["shape"], ("data", "model"), rank=rank,
+                               world_size=g["world"],
+                               init_method=f"file://{rdv}", backend="gloo",
+                               device=dev, timeout_s=MESH_JOIN_S)
+        out = {"entered": entered, "joined": time.time()}
+        for name, d in sh.items():
+            spent.clear()
+            t_case = time.perf_counter()
+            cfg, f32 = d["cfg"], torch.float32
+            shd.PURE_DP_THRESHOLD_BYTES = 0 if d["force_tp"] else 4e9
+            opt = Adam(lr=TRAIN_LR)
+            state0 = train.init_state(cfg, opt, generator=torch.Generator(
+                device=dev).manual_seed(0), device=dev)
+            specs = train.state_specs(state0, mesh)
+            local = shd.local_shards(state0, specs, mesh)
+            b = next(TokenLoader(cfg, mesh, batch=g["batch"], seq=g["seq"],
+                                 seed=0, device=dev))
+            place = lambda spec, t: shd.Placement(
+                spec, shd.axis_sizes(mesh)).shard(
+                    t, dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())))
+            rows = {k: place((shd.batch_spec(mesh)[0],), v)
+                    for k, v in d["batch"].items()}
+            rows_equal = all(torch.equal(b[k], rows[k]) for k in rows)
+            _, on_mesh = train.make_train_step(cfg, mesh, opt,
+                                               compute_dtype=f32)
+            step = on_mesh(state0)
+            _, built = serve.make_serve_step(cfg, mesh, batch=g["batch"],
+                                             compute_dtype=f32)
+            sharded = built(state0.params)
+            yard = _unflat(d["yard"], {"params": state0.params,
+                                       "mu": state0.params,
+                                       "nu": state0.params})
+            del state0
+            # the step twice from the same state: the first pays the
+            # process's first-use costs, the second is the step's own time
+            # (and must give the same bits)
+            train_s, train_coll = [], []
+            for _ in range(2):
+                _mesh_reset(attn_ops, ssd_ops)
+                spent.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                new, m = step(local, b)
+                torch.cuda.synchronize()
+                train_s.append(time.perf_counter() - t0)
+                train_coll.append({k: list(v) for k, v in spent.items()})
+                if len(train_s) == 1:
+                    first = (new, m)
+            counts = _mesh_counts(attn_ops, ssd_ops)
+            repeat_equal = torch.equal(first[1].loss, m.loss) and all(
+                torch.equal(a, c) for a, c in zip(tree_leaves(first[0]),
+                                                  tree_leaves(new)))
+            del first
+            spent.clear()
+            errs, mu_limits = {}, []
+            for part in ("mu", "nu"):
+                want_t = shd.map_specs(place, specs.params, yard[part])
+                worst = (0.0, "")
+                for (path, w), a, spread in zip(
+                        _named_leaves(want_t),
+                        tree_leaves(getattr(new.opt, part)),
+                        d["spread"][part]):
+                    limit = max(1e-4 * float(w.abs().max()), 10 * spread,
+                                1e-30)
+                    worst = max(worst, (float((a - w).abs().max()) / limit,
+                                        path))
+                    if part == "mu":
+                        mu_limits.append(limit)
+                errs[part] = worst
+            errs["params"] = _update_agrees(
+                torch, local.params, new.params,
+                shd.map_specs(place, specs.params, yard["params"]),
+                shd.map_specs(place, specs.params, yard["mu"]), mu_limits,
+                opt)
+            # serving from the initial parameters
+            B = g["batch"]
+            sspec = serve.serve_state_specs(cfg, mesh, batch=B)
+            st = shd.local_shards(tf.init_serve(cfg, B, 2 * g["serve_steps"],
+                                                device=dev, cache_dtype=f32),
+                                  sspec, mesh)
+            lspec = shd.logits_spec(mesh, batch=B, vocab=cfg.vocab_padded)
+            serve_err, t1 = 0.0, time.perf_counter()
+            _mesh_reset(attn_ops, ssd_ops)
+            for t in range(g["serve_steps"]):
+                tok = place((lspec[0], None), d["tokens"][:, t:t + 1])
+                lg, st = sharded(local.params, tok, st)
+                w = place(lspec, d["logits"][t])
+                serve_err = max(serve_err, float((lg - w).abs().max())
+                                / d["logit_max"][t])
+            torch.cuda.synchronize()
+            out[name] = dict(loss=float(m.loss), grad_norm=float(m.grad_norm),
+                             rows_equal=rows_equal, errs=errs,
+                             repeat_equal=repeat_equal,
+                             train_s=train_s, counts=counts,
+                             serve_err=serve_err,
+                             serve_s=time.perf_counter() - t1,
+                             serve_counts=_mesh_counts(attn_ops, ssd_ops),
+                             train_coll=train_coll, serve_coll=dict(spent),
+                             case_s=time.perf_counter() - t_case)
+            del local, new, yard, st
+            torch.cuda.empty_cache()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        q.put((rank, out, None))
+    except Exception:
+        q.put((rank, None, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        import gc
+        sh.clear()
+        gc.collect()
+
+
+def mesh_gloo(torch, card) -> dict:
+    """Phase 10b: the parent's one-process steps on the card (float32
+    compute), then MESH_GLOO's ranks over gloo on cuda:0."""
+    import queue
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adam import Adam, tree_leaves
+
+    g, f32 = MESH_GLOO, torch.float32
+    print(f"  reduced: 10b qwen3-1.7b n_layers 28 -> {g['qwen_layers']} "
+          f"(tensor parallelism forced on), mamba2-130m whole (pure data "
+          f"parallelism, by the size policy); {g['batch']} x {g['seq']} "
+          f"tokens, float32 compute", flush=True)
+    sh = {}
+    for name, cfg, force_tp in (
+            ("qwen3-1.7b", get_config("qwen3-1.7b").scaled(
+                n_layers=g["qwen_layers"]), True),
+            ("mamba2-130m", get_config("mamba2-130m"), False)):
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        opt = Adam(lr=TRAIN_LR)
+        state0 = train.init_state(cfg, opt, generator=gen)
+        batch = next(TokenLoader(cfg, batch=g["batch"], seq=g["seq"],
+                                 seed=0))
+        step, _ = train.make_train_step(cfg, None, opt, compute_dtype=f32)
+        yard, m = step(state0, batch)
+        # the one-process step's own spread: 2 microbatches against 1
+        step2, _ = train.make_train_step(cfg, None, opt, microbatches=2,
+                                         compute_dtype=f32)
+        other, _ = step2(state0, batch)
+        spread = {part: [float((a - b).abs().max()) for a, b in zip(
+            tree_leaves(x(yard)), tree_leaves(x(other)))]
+            for part, x in (("params", lambda s: s.params),
+                            ("mu", lambda s: s.opt.mu),
+                            ("nu", lambda s: s.opt.nu))}
+        del other
+        toks = synthetic.lm_tokens(gen, batch=g["batch"],
+                                   seq=g["serve_steps"] - 1, vocab=cfg.vocab)
+        st = tf.init_serve(cfg, g["batch"], 2 * g["serve_steps"],
+                           cache_dtype=f32)
+        logits = []
+        for t in range(g["serve_steps"]):
+            lg, st = tf.decode_step(state0.params, toks[:, t:t + 1], st, cfg,
+                                    compute_dtype=f32)
+            logits.append(lg)
+        torch.cuda.synchronize()
+        sh[name] = dict(cfg=cfg, force_tp=force_tp, batch=batch, tokens=toks,
+                        yard=_flat(torch, {"params": yard.params,
+                                           "mu": yard.opt.mu,
+                                           "nu": yard.opt.nu}),
+                        logits=torch.stack(logits),
+                        logit_max=[float(lg[..., :cfg.vocab].abs().max())
+                                   for lg in logits], spread=spread,
+                        loss=float(m.loss), grad_norm=float(m.grad_norm))
+        del state0, yard, logits, st
+    t0, wall0 = time.perf_counter(), time.time()
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_mesh_rank, args=(
+            r, f"{tmp}/gloo.rdv", sh, q)) for r in range(g["world"])]
+        for p in procs:
+            p.start()
+        got, errors = {}, []
+        deadline = time.monotonic() + MESH_JOIN_S
+        try:
+            while len(got) + len(errors) < g["world"]:
+                try:
+                    rank, out, tb = q.get(timeout=max(
+                        0.1, min(5.0, deadline - time.monotonic())))
+                except queue.Empty:
+                    if time.monotonic() > deadline or not any(
+                            p.is_alive() for p in procs):
+                        break
+                    continue
+                if tb is None:
+                    got[rank] = out
+                else:
+                    errors.append(f"rank {rank}:\n{tb}")
+        finally:
+            for p in procs:
+                p.join(timeout=max(1.0, deadline - time.monotonic()))
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    spawn_s = time.perf_counter() - t0
+    if errors:
+        fail("phase 10b: a rank raised:\n" + "\n".join(errors))
+    if len(got) < g["world"]:
+        fail(f"phase 10b: only ranks {sorted(got)} answered within "
+             f"{MESH_JOIN_S:.0f} s; exit codes {[p.exitcode for p in procs]}")
+    out = {"spawn_to_last_s": spawn_s}
+    for name, d in sh.items():
+        ranks = [got[r][name] for r in sorted(got)]
+        loss_rel = max(abs(r["loss"] - d["loss"]) / abs(d["loss"])
+                       for r in ranks)
+        worst = {k: max(tuple(r["errs"][k]) for r in ranks)
+                 for k in ("mu", "nu")}
+        off = sum(r["errs"]["params"][0] for r in ranks)
+        held = min(r["errs"]["params"][2] for r in ranks)
+        off_at = next((r["errs"]["params"][1] for r in ranks
+                       if r["errs"]["params"][0]), "")
+        serve_err = max(r["serve_err"] for r in ranks)
+        kind = ("flash", "flash_bwd") if d["cfg"].plan()[0].kind == "attn" \
+            else ("ssd", "ssd_bwd")
+        launched = all(r["counts"][k] > 0 for r in ranks for k in kind)
+        serve_launched = d["cfg"].plan()[0].kind != "attn" or all(
+            r["serve_counts"]["flash"] > 0 for r in ranks)
+        rows_ok = all(r["rows_equal"] for r in ranks)
+        rep_ok = all(r["repeat_equal"] for r in ranks)
+        train_s = [[round(x, 3) for x in r["train_s"]] for r in ranks]
+        serve_s = [round(r["serve_s"], 3) for r in ranks]
+        print(f"  [{card}] 10b {name} ({d['cfg'].n_layers} layers) on "
+              f"{g['world']} gloo ranks {g['shape']}: train step s (first, "
+              f"again: the same bits {rep_ok}) {train_s}, loss "
+              f"{ranks[0]['loss']:.7f} vs {d['loss']:.7f} "
+              f"(rel {loss_rel:.2e}, tol {TOL_TRAIN_LOSS}); worst leaf error "
+              f"over its limit (1): mu {worst['mu'][0]:.3f} "
+              f"({worst['mu'][1]}), nu {worst['nu'][0]:.3f} "
+              f"({worst['nu'][1]}); the one-process spread's largest, mu "
+              f"{max(d['spread']['mu']):.3e}; parameters: the update held "
+              f"on {held:.4f} of the elements (a rank's least), {off} off "
+              f"({off_at or 'none'}); serve "
+              f"{g['serve_steps']} steps B={g['batch']}: max|dlogit| / "
+              f"max|logit| {serve_err:.2e} (tol {MESH_TOL_LOGITS}), s "
+              f"{serve_s}; launches a rank {ranks[0]['counts']}, serving "
+              f"{ranks[0]['serve_counts']}; TokenLoader(mesh) rows "
+              f"{'bitwise' if rows_ok else 'DIFFER'}", flush=True)
+        if not (loss_rel <= TOL_TRAIN_LOSS
+                and max(w[0] for w in worst.values()) <= 1
+                and off == 0 and held >= MESH_HELD_MIN
+                and serve_err <= MESH_TOL_LOGITS and rows_ok and rep_ok):
+            fail(f"10b {name}: loss {loss_rel}, moments {worst}, parameter "
+                 f"updates off {off} ({off_at}) held on {held}, serve "
+                 f"{serve_err}")
+        if not (launched and serve_launched):
+            fail(f"10b {name}: a kernel was not launched: "
+                 f"{[r['counts'] for r in ranks]}")
+        coll = lambda c: ", ".join(
+            f"{k.strip('_')} {n} calls {sec:.2f} s {b / 1e9:.2f} GB"
+            for k, (n, sec, b) in sorted(c.items()))
+        print(f"  [{card}] 10b {name} rank 0: case {ranks[0]['case_s']:.1f} "
+              f"s; collectives (card synchronized around each) in the first "
+              f"train step: {coll(ranks[0]['train_coll'][0])}; in the "
+              f"second: {coll(ranks[0]['train_coll'][1])}; in the 4 serve "
+              f"steps: {coll(ranks[0]['serve_coll'])}", flush=True)
+        out[name] = {"loss_rel": loss_rel, "errs": worst,
+                     "params": {"off": off, "held": held},
+                     "serve_err": serve_err,
+                     "train_s": [r["train_s"] for r in ranks]}
+    peak = [round(got[r]["peak_gb"], 2) for r in sorted(got)]
+    enter = [round(got[r]["entered"] - wall0, 1) for r in sorted(got)]
+    joined = [round(got[r]["joined"] - wall0, 1) for r in sorted(got)]
+    print(f"  [{card}] 10b spawn to the last reading {spawn_s:.1f} s; the "
+          f"ranks entered at {enter} s and joined the mesh at {joined} s; "
+          f"peak device memory a rank {peak} GB", flush=True)
+    sh.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def batching(torch, card: str, attn_ops) -> dict:
+    """Phase 9: the continuous batcher on qwen3-1.7b and mamba2-130m."""
+    return {name: batcher_path(torch, card, name, attn_ops)
+            for name in ("qwen3-1.7b", "mamba2-130m")}
+
+
+def mesh_steps(torch, card: str, attn_ops, ssd_ops) -> dict:
+    """Phase 10: (a) one NCCL rank, then (b) four gloo ranks."""
+    t0 = time.perf_counter()
+    one = mesh_one_rank(torch, card, attn_ops, ssd_ops)
+    t1 = time.perf_counter()
+    gloo = mesh_gloo(torch, card)
+    print(f"  10a {t1 - t0:.1f} s, 10b {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    return {"one_rank": one, "gloo": gloo}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "card; every phase unless --phases.")
     ap.add_argument("--phases", default=None,
                     help="comma-separated subset of 3 (the backward "
-                    "kernels' checks), 8 (LM training) and downdate (the "
-                    "downdate's checks) to run after the card and build "
-                    "phases; prints no kernels line")
+                    "kernels' checks), 8 (LM training), 9 (the continuous "
+                    "batcher), 10 (the LM's steps over a mesh) and downdate "
+                    "(the downdate's checks) to run after the card and "
+                    "build phases; prints no kernels line")
     only = ap.parse_args(argv).phases
     only = None if only is None else set(only.split(","))
-    if only is not None and not only <= {"3", "8", "downdate"}:
-        print(f"FAIL: --phases takes 3, 8 and downdate; got "
+    if only is not None and not only <= {"3", "8", "9", "10", "downdate"}:
+        print(f"FAIL: --phases takes 3, 8, 9, 10 and downdate; got "
               f"{sorted(only)}", flush=True)
         return 2
     try:
@@ -4859,6 +5618,12 @@ def main(argv=None) -> int:
         if "8" in only:
             phase("phase 8: LM training")
             training(torch, card, attn_ops, ssd_ops)
+        if "9" in only:
+            phase("phase 9: LM continuous batcher")
+            batching(torch, card, attn_ops)
+        if "10" in only:
+            phase("phase 10: LM steps over a mesh")
+            mesh_steps(torch, card, attn_ops, ssd_ops)
         phase("")
         print(card, flush=True)
         print(json.dumps({"ok": True, "phases": sorted(only), "device": {
@@ -5012,6 +5777,27 @@ def main(argv=None) -> int:
                                                    mamba_train)):
         rows[0].setdefault("train", {})[tag] = {
             k: v for k, v in run.items() if k != "launches"}
+
+    phase("phase 9: LM continuous batcher")
+    batched = batching(torch, card, attn_ops)
+    phase("phase 10: LM steps over a mesh")
+    meshed = mesh_steps(torch, card, attn_ops, ssd_ops)
+    flash_row.update(
+        launches_batcher=batched["qwen3-1.7b"]["flash_sm90_launches"],
+        launches_mesh_serve=meshed["one_rank"]["serve"][
+            "flash_sm90_launches"],
+        launches_mesh_train=meshed["one_rank"]["qwen3-1.7b"]["launches"][
+            "flash"])
+    for row in rows:
+        name = {"flash_attention_bwd": ("qwen3-1.7b", "flash_bwd"),
+                "ssd_intra_chunk": ("mamba2-130m", "ssd"),
+                "ssd_intra_chunk_bwd": ("mamba2-130m", "ssd_bwd")}.get(
+                    row["name"])
+        if name is not None:
+            row["launches_mesh_train"] = meshed["one_rank"][name[0]][
+                "launches"][name[1]]
+    rows[0]["lm_batcher"] = batched
+    rows[0]["lm_mesh"] = meshed
 
     for row in rows:
         row["launches"] = launches[row["name"]]

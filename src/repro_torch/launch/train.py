@@ -15,10 +15,33 @@ their own, the encoder's layers share one), so the step's gradients are
 stacked that way for ``compress_grads`` and taken apart after it.
 
 ``make_train_step`` returns ``(train_step, on_mesh)``. ``train_step(state,
-batch)`` runs on the state's device. ``on_mesh`` stands for the
-reference's sharded, jitted step: a step executed over a
-``DeviceMesh`` by ``state_specs`` is ROADMAP item 12b, and it raises.
-``state_specs`` gives the layouts already (``parallel.sharding``'s rules).
+batch)`` runs on the state's device. ``on_mesh(state)`` gives the step over
+a ``DeviceMesh`` (``launch.mesh.make_mesh``), the counterpart of the
+reference's sharded, jitted step: ``step(local_state, local_batch)`` on
+each rank, the state's leaves its chunks by ``state_specs``
+(``sharding.local_shards``), the batch its rows by ``sharding.batch_spec``
+(``data.loader.TokenLoader(cfg, mesh)``). It computes the one-process
+step's function, with the same ``moe_groups``:
+
+- each layer's parameters are all-gathered where the layer reads them,
+  and again where remat recomputes it (``sharding.gather_on_use``); the
+  others (the embedding, the final norms) once a forward; each gradient
+  is summed over the batch's axes in rank order and cut back to the
+  rank's chunk (the ranks along "model" hold the same rows and are not
+  summed);
+- each rank's loss is its rows' mean over the number of batch ranks, so
+  the gradients sum to the global mean's; the loss reported is their sum;
+- an MoE layer routes the whole batch's groups (``moe.moe_ffn(rows=)``);
+  with microbatches the ranks first regroup the batch so that each holds
+  its share of every one-process microbatch;
+- the global norm counts each distinct chunk once; compression takes each
+  stacked leaf's scale as the max over every chunk (an all-reduce of the
+  max); Adam runs on the chunks.
+
+The "model" axis is sharded storage with gathered compute: each rank
+computes every product in full on the gathered parameters. Megatron-style
+tensor-parallel products (each rank its columns or rows, an all-reduce of
+partial sums) are later performance work (ROADMAP item 15).
 """
 from __future__ import annotations
 
@@ -28,10 +51,11 @@ import torch
 
 from repro_torch import device as _device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers
 from repro_torch.models import transformer as tf
 from repro_torch.optim import compression
 from repro_torch.optim.adam import (Adam, AdamState, TrainState,
-                                    global_norm, tree_leaves, tree_map)
+                                    tree_leaves, tree_map)
 from repro_torch.parallel import sharding as shd
 
 
@@ -113,62 +137,147 @@ def _flat(tree: dict, cfg: ModelConfig) -> dict:
 
 def make_train_step(cfg: ModelConfig, mesh, opt: Adam, *,
                     microbatches: int = 1, remat: bool = True,
-                    remat_policy=None, compress: bool = False):
+                    remat_policy=None, compress: bool = False,
+                    moe_groups: int = 1, compute_dtype=torch.bfloat16):
     """(train_step, on_mesh); see the module docstring. ``batch`` holds
     "tokens" and "labels" (B, T), and "frames" (enc-dec) or
     "inputs_embeds" (VLM) as ``data.loader.TokenLoader`` makes them; B must
-    divide by ``microbatches``."""
+    divide by ``microbatches``. ``moe_groups``: the MoE layers' routing
+    groups over a microbatch's tokens; ``compute_dtype``: ``lm_loss``'s and
+    ``encode``'s (the reference's step has none: it runs their bfloat16
+    default)."""
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, rows=None):
         enc_kv = batch.get("enc_kv")
         if cfg.enc_dec and "frames" in batch:
-            enc_kv = tf.encode(params, batch["frames"], cfg)
+            enc_kv = tf.encode(params, batch["frames"], cfg,
+                               compute_dtype=compute_dtype)
         return tf.lm_loss(params, batch.get("tokens"), batch["labels"], cfg,
                           enc_kv=enc_kv,
                           inputs_embeds=batch.get("inputs_embeds"),
-                          remat=remat, remat_policy=remat_policy)
+                          remat=remat, remat_policy=remat_policy,
+                          moe_groups=moe_groups, rows=rows,
+                          compute_dtype=compute_dtype)
 
-    def train_step(state: TrainState, batch: dict):
+    def accumulate(loss_fn, params, batch, device):
+        """(loss, aux, grads) of the batch, summed over microbatches and
+        times 1 / microbatches, as the reference accumulates them."""
         if microbatches == 1:
-            (loss, aux), grads = value_and_grad(loss_fn, state.params, batch)
-        else:
-            def mb_slice(i):
-                return {k: x.reshape((microbatches,
-                                      x.shape[0] // microbatches)
-                                     + tuple(x.shape[1:]))[i]
-                        for k, x in batch.items()}
+            (loss, aux), grads = value_and_grad(loss_fn, params, batch)
+            return loss, aux, grads
 
-            grads = tree_map(torch.zeros_like, state.params)
-            zero = torch.zeros((), dtype=torch.float32,
-                               device=state.step.device)
-            loss = moe_l = drop = zero
-            for i in range(microbatches):
-                (l, a), g = value_and_grad(loss_fn, state.params,
-                                            mb_slice(i))
-                grads = tree_map(torch.Tensor.add_, grads, g)
-                loss, moe_l = loss + l, moe_l + a.moe_loss
-                drop = drop + a.dropped
-                del g
-            inv = 1.0 / microbatches
-            grads = tree_map(lambda g: g * inv, grads)
-            loss, aux = loss * inv, tf.Aux(moe_l * inv, drop * inv)
+        def mb_slice(i):
+            return {k: x.reshape((microbatches, x.shape[0] // microbatches)
+                                 + tuple(x.shape[1:]))[i]
+                    for k, x in batch.items()}
 
+        grads = tree_map(torch.zeros_like, params)
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        loss = moe_l = drop = zero
+        for i in range(microbatches):
+            (l, a), g = value_and_grad(loss_fn, params, mb_slice(i))
+            grads = tree_map(torch.Tensor.add_, grads, g)
+            loss, moe_l = loss + l, moe_l + a.moe_loss
+            drop = drop + a.dropped
+            del g
+        inv = 1.0 / microbatches
+        grads = tree_map(lambda g: g * inv, grads)
+        return loss * inv, tf.Aux(moe_l * inv, drop * inv), grads
+
+    def finish(state: TrainState, loss, aux, grads, *,
+               absmax=compression._absmax, norm=_norm):
         ef = state.ef
         if compress and ef is not None:
             g, e = compression.compress_grads(
                 _stacked(grads, cfg),
-                compression.EFState(_stacked(ef.error, cfg)))
+                compression.EFState(_stacked(ef.error, cfg)), absmax)
             grads, ef = _flat(g, cfg), compression.EFState(
                 _flat(e.error, cfg))
-        gnorm = global_norm(grads)
-        params, opt_state = opt.update(grads, state.opt, state.params)
+        gnorm = norm(grads)
+        params, opt_state = opt.update(grads, state.opt, state.params,
+                                       gnorm=gnorm)
         new_state = TrainState(params, opt_state, ef, state.step + 1)
         return new_state, Metrics(loss, aux.moe_loss, aux.dropped, gnorm)
 
+    def train_step(state: TrainState, batch: dict):
+        loss, aux, grads = accumulate(loss_fn, state.params, batch,
+                                      state.step.device)
+        return finish(state, loss, aux, grads)
+
     def on_mesh(state: TrainState):
-        raise NotImplementedError(
-            "a train step executed over a DeviceMesh (the reference's "
-            "sharded, jitted step) is ROADMAP item 12b; state_specs gives "
-            "its layouts")
+        """The step over ``mesh`` for a state shaped like ``state`` (its
+        full shapes: the specs come from them; the leaves may lie on the
+        ``meta`` device). Each rank of the mesh calls it."""
+        if mesh is None:
+            raise ValueError("on_mesh needs a mesh: make_train_step was "
+                             "given none (mesh=None)")
+        specs = state_specs(state, mesh)
+        axes = shd.MeshAxes(mesh)
+        rows = axes.group(shd.batch_axes(mesh))
+        R = rows.size
+
+        def gather(spec, t):
+            return shd.gather_grad(t, axes, spec, rows.names)
+
+        def local_loss(local_params, batch):
+            # a layer's parameters where the layer reads them; the rest
+            # (the embedding, read twice when tied, and the final norms)
+            # once a forward
+            view = shd.gather_on_use(local_params, specs.params, axes,
+                                     rows.names)
+            params = {k: view[k] if k in ("layers", "encoder") else
+                      shd.map_specs(gather, specs.params[k], v)
+                      for k, v in local_params.items()}
+            loss, aux = loss_fn(params, batch, rows if R > 1 else None)
+            return (loss / R if R > 1 else loss), aux
+
+        def regroup(batch):
+            """Each rank's share of every one-process microbatch: global
+            rows i B / mb + r B / (mb R) + j of microbatch i."""
+            out = {}
+            for k, x in batch.items():
+                full = axes.gather(x, (rows.names,))
+                b = full.shape[0] // (microbatches * R)
+                out[k] = full.reshape((microbatches, R, b)
+                                      + tuple(x.shape[1:]))[:, rows.index] \
+                    .reshape(tuple(x.shape))
+            return out
+
+        def step(state: TrainState, batch: dict):
+            if R > 1 and microbatches > 1:
+                batch = regroup(batch)
+            loss, aux, grads = accumulate(local_loss, state.params, batch,
+                                          state.step.device)
+            if R > 1:
+                loss = axes.sum(loss, rows.names)
+            return finish(state, loss, aux, grads,
+                          absmax=lambda x: axes.max(x.abs().max()),
+                          norm=lambda g: _norm(g, specs.params, axes))
+
+        return step
 
     return train_step, on_mesh
+
+
+def _norm(grads, specs=None, axes: shd.MeshAxes | None = None):
+    """``global_norm``, in float64 for float64 gradients. Over a mesh
+    (``axes``, the grads a tree of chunks laid out by ``specs``), each
+    leaf's sum of squares is summed over the axes its spec splits (a
+    replicated chunk counted once), one sum a set of axes; the leaves are
+    added in tree order."""
+    if axes is None:
+        pairs = [((), g) for g in tree_leaves(grads)]
+    else:
+        pairs = []
+        shd.map_specs(lambda spec, g: pairs.append((spec, g)), specs, grads)
+    sq = [torch.sum(torch.square(g.to(layers.wide(g.dtype))))
+          for _, g in pairs]
+    split = [() if axes is None else
+             axes.live(a for e in spec for a in shd.entry_axes(e))
+             for spec, _ in pairs]
+    for names in dict.fromkeys(s for s in split if s):   # in tree order
+        idx = [i for i, s in enumerate(split) if s == names]
+        tot = axes.sum(torch.stack([sq[i] for i in idx]), names)
+        for j, i in enumerate(idx):
+            sq[i] = tot[j]
+    return torch.sqrt(sum(sq))

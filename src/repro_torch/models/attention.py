@@ -115,6 +115,17 @@ def attend_decode(params: dict, x: torch.Tensor, cfg, cache: KVCache, *,
     Ring-buffer mode: when the cache holds exactly ``window`` slots, writes
     wrap modulo the window and scoring uses the ring's logical positions.
     """
+    o, cache = decode_heads(params, x, cfg, cache, window=window,
+                            compute_dtype=compute_dtype)
+    return _merge(o, params, x, compute_dtype), cache
+
+
+def decode_heads(params: dict, x: torch.Tensor, cfg, cache: KVCache, *,
+                 window=None, compute_dtype=torch.bfloat16):
+    """``attend_decode`` before the output projection: the heads' outputs
+    (B, Hq, 1, hd) and the cache. ``params`` and ``cfg`` may hold a slice
+    of the heads (wq, wk, wv's columns of ``cfg.n_heads`` query heads and
+    their ``cfg.n_kv_heads`` KV heads), as a rank of a mesh does."""
     B = x.shape[0]
     n = cache.length
     pos = torch.full((B, 1), n, dtype=torch.long, device=x.device)
@@ -135,9 +146,10 @@ def attend_decode(params: dict, x: torch.Tensor, cfg, cache: KVCache, *,
         s = torch.arange(W, device=x.device)
         valid = (n - torch.remainder(slot - s, W)) >= 0
         G = cfg.n_heads // cfg.n_kv_heads
-        qf = q.to(torch.float32).reshape(B, cfg.n_kv_heads, G, 1, -1)
-        kf = k.to(torch.float32)[:, :, None]
-        vf = v.to(torch.float32)[:, :, None]
+        f32 = layers.wide(compute_dtype)
+        qf = q.to(f32).reshape(B, cfg.n_kv_heads, G, 1, -1)
+        kf = k.to(f32)[:, :, None]
+        vf = v.to(f32)[:, :, None]
         scores = (qf @ kf.transpose(-1, -2)) * cfg.head_dim ** -0.5
         scores = torch.where(valid, scores, -1e30)
         o = torch.softmax(scores, dim=-1) @ vf
@@ -146,8 +158,7 @@ def attend_decode(params: dict, x: torch.Tensor, cfg, cache: KVCache, *,
         # full cache: the causal mask with q_offset hides the unfilled tail
         o = attn_ops.attention(q, k, v, causal=True, window=window,
                                q_offset=n)
-    y = _merge(o, params, x, compute_dtype)
-    return y, KVCache(cache.k, cache.v, n + 1)
+    return o, KVCache(cache.k, cache.v, n + 1)
 
 
 def project_cross_kv(params: dict, enc_kv: torch.Tensor, cfg,
@@ -169,15 +180,23 @@ def attend_cross(params: dict, x: torch.Tensor, enc_kv, cfg,
     or over its precomputed (k, v) given as ``kv``: no RoPE, no mask. The
     queries take qk-norm as the reference's do; the encoder's keys do
     not."""
+    k, v = kv if kv is not None else project_cross_kv(params, enc_kv, cfg,
+                                                      compute_dtype)
+    o = attn_ops.attention(cross_query(params, x, cfg, compute_dtype), k, v,
+                           causal=False)
+    return _merge(o, params, x, compute_dtype)
+
+
+def cross_query(params: dict, x: torch.Tensor, cfg,
+                compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """A cross-attention layer's queries (B, cfg.n_heads, T, hd), with
+    qk-norm; no RoPE."""
     B, T, _ = x.shape
     q = _heads(layers.matmul(x, params["wq"], compute_dtype), B, T,
                cfg.n_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = layers.rms_norm(q, params["q_norm"], cfg.norm_eps)
-    k, v = kv if kv is not None else project_cross_kv(params, enc_kv, cfg,
-                                                      compute_dtype)
-    o = attn_ops.attention(q, k, v, causal=False)
-    return _merge(o, params, x, compute_dtype)
+    return q
 
 
 def init_cache(cfg, batch: int, max_len: int, *, device,

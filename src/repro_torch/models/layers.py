@@ -3,7 +3,11 @@
 Parameters are plain dicts of tensors with the JAX package's leaf names.
 Every matrix product casts both operands to the compute dtype (bfloat16 by
 default, as in the reference); norms, RoPE, the SiLU and the logits are
-computed in float32.
+computed in float32, or in float64 when that is the compute dtype
+(``wide``). ``wide`` exists for the float64 test of the steps over a mesh
+(``tests/test_torch_mesh.py``), which holds them to the one-process step
+within 1e-10: float32 passes in a float64 run would not allow that. Under
+bfloat16 and float32 compute it is float32, as before.
 """
 from __future__ import annotations
 
@@ -11,28 +15,34 @@ import torch
 import torch.nn.functional as F
 
 
+def wide(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of the model's float32 passes under compute dtype
+    ``dtype``: float32, or float64 for float64."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor | None,
              eps: float = 1e-6) -> torch.Tensor:
     """RMS norm that scales by ``1 + weight`` (zero-initialised weights),
     not by ``weight`` as ``torch.nn.RMSNorm`` does."""
-    x32 = x.to(torch.float32)
+    x32 = x.to(wide(x.dtype))
     out = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
     if weight is not None:
-        out = out * (1.0 + weight.to(torch.float32))
+        out = out * (1.0 + weight.to(x32.dtype))
     return out.to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor | None,
                bias: torch.Tensor | None, eps: float = 1e-5) -> torch.Tensor:
     """Non-parametric when weight/bias are None (OLMo)."""
-    x32 = x.to(torch.float32)
+    x32 = x.to(wide(x.dtype))
     mu = torch.mean(x32, dim=-1, keepdim=True)
     var = torch.var(x32, dim=-1, keepdim=True, correction=0)
     out = (x32 - mu) * torch.rsqrt(var + eps)
     if weight is not None:
-        out = out * weight.to(torch.float32)
+        out = out * weight.to(x32.dtype)
     if bias is not None:
-        out = out + bias.to(torch.float32)
+        out = out + bias.to(x32.dtype)
     return out.to(x.dtype)
 
 
@@ -55,8 +65,9 @@ def matmul(x: torch.Tensor, w: torch.Tensor, dtype) -> torch.Tensor:
 # Rotary embeddings (standard + M-RoPE)
 # ---------------------------------------------------------------------------
 
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+def rope_freqs(head_dim: int, theta: float, device=None,
+               dtype=torch.float32) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=dtype,
                         device=device) / head_dim
     return 1.0 / (theta ** exps)
 
@@ -65,7 +76,7 @@ def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
     """Rotate split halves (x1, x2) of the last axis, not interleaved
     pairs."""
     cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    x1, x2 = torch.chunk(x.to(angles.dtype), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -73,8 +84,8 @@ def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 1e4) -> torch.Tensor:
     """x: (B, H, T, D); positions: (B, T) int."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)             # (D/2,)
-    angles = positions[:, None, :, None].to(torch.float32) * freqs
+    freqs = rope_freqs(x.shape[-1], theta, x.device, wide(x.dtype))  # (D/2,)
+    angles = positions[:, None, :, None].to(freqs.dtype) * freqs
     return _rotate(x, angles)
 
 
@@ -84,11 +95,11 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     (temporal, height, width) sections, each rotated by its own position
     id. positions3: (B, 3, T)."""
     D = x.shape[-1]
-    freqs = rope_freqs(D, theta, x.device)
+    freqs = rope_freqs(D, theta, x.device, wide(x.dtype))
     sec = torch.cumsum(torch.tensor((0,) + tuple(sections)), 0)
     slot = torch.arange(D // 2)
     which = torch.clamp(torch.searchsorted(sec, slot, right=True) - 1, 0, 2)
-    pos = positions3.to(torch.float32)[:, which.to(x.device), :]  # (B,D/2,T)
+    pos = positions3.to(freqs.dtype)[:, which.to(x.device), :]  # (B,D/2,T)
     angles = pos.transpose(1, 2)[:, None, :, :] * freqs
     return _rotate(x, angles)
 
@@ -119,7 +130,7 @@ def mlp(params: dict, x: torch.Tensor,
         compute_dtype=torch.bfloat16) -> torch.Tensor:
     g = matmul(x, params["w_gate"], compute_dtype)
     h = matmul(x, params["w_in"], compute_dtype)
-    y = F.silu(g.to(torch.float32)).to(compute_dtype) * h
+    y = F.silu(g.to(wide(compute_dtype))).to(compute_dtype) * h
     return matmul(y, params["w_out"], compute_dtype).to(x.dtype)
 
 
@@ -142,12 +153,13 @@ def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(params: dict, x: torch.Tensor, compute_dtype=torch.bfloat16,
             n_valid: int | None = None) -> torch.Tensor:
-    """float32 logits; columns at or beyond ``n_valid`` (vocab-table
-    padding, see ``configs.base``) are -1e30."""
+    """float32 logits (float64 under a float64 compute dtype); columns at
+    or beyond ``n_valid`` (vocab-table padding, see ``configs.base``) are
+    -1e30."""
     w = params.get("unembed")
     if w is None:
         w = params["tok"].T
-    logits = matmul(x, w, compute_dtype).to(torch.float32)
+    logits = matmul(x, w, compute_dtype).to(wide(compute_dtype))
     if n_valid is not None and n_valid < logits.shape[-1]:
         logits[..., n_valid:] = -1e30
     return logits

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import init_normal
+from repro_torch.models.layers import init_normal, wide
 
 DISPATCH = ("einsum", "gather")
 
@@ -51,8 +51,10 @@ def init_moe(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
 
 def route(params: dict, tokens: torch.Tensor, top_k: int):
     """tokens (G, n, d) -> (probs (G, n, E), gate_vals (G, n, k)
-    renormalized, gate_idx (G, n, k)); the router in float32."""
-    logits = tokens.to(torch.float32) @ params["router"].to(torch.float32)
+    renormalized, gate_idx (G, n, k)); the router in float32 (float64 for
+    float64 tokens)."""
+    f32 = wide(tokens.dtype)
+    logits = tokens.to(f32) @ params["router"].to(f32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, top_k, dim=-1)
     return probs, gate_vals / gate_vals.sum(-1, keepdim=True), gate_idx
@@ -89,26 +91,17 @@ def expert_ffn(params: dict, xe: torch.Tensor, compute_dtype) -> torch.Tensor:
     """xe: (E, m, d) -> (E, m, d), each expert's SwiGLU on its m rows."""
     g = torch.matmul(xe, params["w_gate"].to(compute_dtype))
     h = torch.matmul(xe, params["w_in"].to(compute_dtype))
-    act = F.silu(g.to(torch.float32)).to(compute_dtype) * h
+    act = F.silu(g.to(wide(compute_dtype))).to(compute_dtype) * h
     return torch.matmul(act, params["w_out"].to(compute_dtype))
 
 
-def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
-            capacity_factor: float = 1.25, n_groups: int = 1,
-            dispatch: str = "einsum",
-            compute_dtype=torch.bfloat16) -> tuple[torch.Tensor, MoEAux]:
-    """x: (B, T, d) -> (y, MoEAux), the reference's function in either
-    ``dispatch`` mode. Tokens are routed in ``n_groups`` groups (one when
-    B * T does not divide), each with C = max(int(n k / E cf), k) slots
-    an expert; a pair past its expert's C (or, in the einsum mode, with a
-    zero gate) is dropped."""
-    if dispatch not in DISPATCH:
-        raise ValueError(f"dispatch must be one of {DISPATCH}; got "
-                         f"{dispatch!r}")
+def _dispatch(params: dict, x: torch.Tensor, top_k: int,
+              capacity_factor: float, G: int, dispatch: str, compute_dtype):
+    """Route x (B, T, d) in G groups and run the experts: (y in x's dtype,
+    probs (G, n, E), gate_idx (G, n, k), keep (G, n, k))."""
     B, T, d = x.shape
     E = params["router"].shape[1]
     N = B * T
-    G = n_groups if N % n_groups == 0 else 1
     n = N // G
     C = capacity(n, top_k, E, capacity_factor)
     tokens = x.reshape(G, n, d)
@@ -131,18 +124,69 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
     ye = ye.reshape(E * G * C, d)
 
     # combine: a dropped pair reads row 0 with weight 0
-    weight = (gate_vals * keep).to(torch.float32)
+    f32 = wide(compute_dtype)
+    weight = (gate_vals * keep).to(f32)
     row = torch.where(keep, slot, 0)
-    y = torch.zeros((N, d), dtype=torch.float32, device=x.device)
+    y = torch.zeros((N, d), dtype=f32, device=x.device)
     for j in range(top_k):
-        y += (ye.index_select(0, row[..., j].reshape(N)).to(torch.float32)
+        y += (ye.index_select(0, row[..., j].reshape(N)).to(f32)
               * weight[..., j].reshape(N, 1))
+    return y.reshape(B, T, d).to(x.dtype), probs, gate_idx, keep
 
-    me = probs.mean(dim=(0, 1))
-    first = torch.zeros((E,), dtype=torch.float32, device=x.device)
-    first.scatter_add_(0, gate_idx[..., 0].reshape(N),
-                       torch.ones((N,), dtype=torch.float32,
-                                  device=x.device))
+
+def _first_choices(gate_idx: torch.Tensor, E: int, dtype) -> torch.Tensor:
+    """(E,) tokens whose first choice each expert is."""
+    first = torch.zeros((E,), dtype=dtype, device=gate_idx.device)
+    idx = gate_idx[..., 0].reshape(-1)
+    return first.scatter_add_(0, idx, torch.ones(idx.shape, dtype=dtype,
+                                                 device=idx.device))
+
+
+def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
+            capacity_factor: float = 1.25, n_groups: int = 1,
+            dispatch: str = "einsum", compute_dtype=torch.bfloat16,
+            rows=None) -> tuple[torch.Tensor, MoEAux]:
+    """x: (B, T, d) -> (y, MoEAux), the reference's function in either
+    ``dispatch`` mode. Tokens are routed in ``n_groups`` groups (one when
+    B * T does not divide), each with C = max(int(n k / E cf), k) slots
+    an expert; a pair past its expert's C (or, in the einsum mode, with a
+    zero gate) is dropped.
+
+    ``rows``: the mesh axes x's batch rows are split over (a
+    ``parallel.sharding.AxisGroup``; x holds this rank's rows). The result
+    is this rank's rows of the function of the whole batch. When every rank
+    holds whole groups, each routes its own groups and the ranks sum their
+    routing statistics for the aux losses; otherwise the tokens are
+    gathered and every rank routes the whole batch."""
+    if dispatch not in DISPATCH:
+        raise ValueError(f"dispatch must be one of {DISPATCH}; got "
+                         f"{dispatch!r}")
+    B, T, d = x.shape
+    E = params["router"].shape[1]
+    R = 1 if rows is None else rows.size
+    N = B * T * R
+    G = n_groups if N % n_groups == 0 else 1
+    if R > 1 and G % R:
+        y, aux = moe_ffn(params, rows.gather(x, 0), top_k=top_k,
+                         capacity_factor=capacity_factor, n_groups=G,
+                         dispatch=dispatch, compute_dtype=compute_dtype)
+        return y.narrow(0, rows.index * B, B), aux
+    y, probs, gate_idx, keep = _dispatch(params, x, top_k, capacity_factor,
+                                         G // R, dispatch, compute_dtype)
+    if R == 1:
+        me = probs.mean(dim=(0, 1))
+        first = _first_choices(gate_idx, E, torch.float32)
+        lb = E * torch.sum(me * first / N)
+        dropped = 1.0 - keep.to(torch.float32).mean()
+        return y, MoEAux(lb, dropped)
+    # the statistics of the whole batch: each rank's sums, summed in rank
+    # order (the probabilities' with their gradient)
+    counts = torch.stack([keep.sum().to(probs.dtype),
+                          probs.new_full((), keep.numel())])
+    local = torch.cat([probs.sum(dim=(0, 1)),
+                       _first_choices(gate_idx, E, probs.dtype), counts])
+    tot = rows.sum(local)
+    me, first = tot[:E] / N, tot[E:2 * E]
     lb = E * torch.sum(me * first / N)
-    dropped = 1.0 - keep.to(torch.float32).mean()
-    return y.reshape(B, T, d).to(x.dtype), MoEAux(lb, dropped)
+    dropped = 1.0 - tot[2 * E] / tot[2 * E + 1]
+    return y, MoEAux(lb, dropped)

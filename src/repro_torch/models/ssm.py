@@ -63,13 +63,13 @@ def _split(cfg, zxbcdt: torch.Tensor):
 def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv, u: (B, T, D), w: (K, D): the sum of K shifted
     products in u's dtype, as the reference forms it, then SiLU in
-    float32."""
+    float32 (float64 for float64 u)."""
     K, T = w.shape[0], u.shape[1]
     upad = F.pad(u, (0, 0, K - 1, 0))
     out = upad[:, 0:T] * w[0]
     for i in range(1, K):
         out = out + upad[:, i:i + T] * w[i]
-    return F.silu(out.to(torch.float32)).to(u.dtype)
+    return F.silu(out.to(layers.wide(u.dtype))).to(u.dtype)
 
 
 def _segsum(a: torch.Tensor) -> torch.Tensor:
@@ -123,7 +123,8 @@ def ssd_scan(xh, dt, A, Bm, Cm, chunk: int):
 
 
 def _gate_out(params, y, z, cfg, x, compute_dtype):
-    y = layers.rms_norm(y * F.silu(z.to(torch.float32)).to(compute_dtype),
+    y = layers.rms_norm(y * F.silu(z.to(layers.wide(compute_dtype)))
+                        .to(compute_dtype),
                         params["norm"], cfg.norm_eps)
     return layers.matmul(y, params["out_proj"], compute_dtype).to(x.dtype)
 
@@ -140,45 +141,56 @@ def ssm_mixer(params: dict, x: torch.Tensor, cfg,
     xu, Bm, Cm = (conv_out[..., :d_inner],
                   conv_out[..., d_inner:d_inner + N],
                   conv_out[..., d_inner + N:])
-    dt = F.softplus(dt.to(torch.float32) + params["dt_bias"].to(torch.float32))
-    A = -torch.exp(params["A_log"].to(torch.float32))            # (H,)
-    xh = xu.reshape(B, T, H, P).to(torch.float32)
-    Y, _ = ssd_ops.ssd_scan(xh, dt, A, Bm.to(torch.float32),
-                            Cm.to(torch.float32), cfg.ssm_chunk)
-    Y = Y + params["D"].to(torch.float32)[:, None] * xh
+    f32 = layers.wide(compute_dtype)
+    dt = F.softplus(dt.to(f32) + params["dt_bias"].to(f32))
+    A = -torch.exp(params["A_log"].to(f32))                      # (H,)
+    xh = xu.reshape(B, T, H, P).to(f32)
+    Y, _ = ssd_ops.ssd_scan(xh, dt, A, Bm.to(f32), Cm.to(f32), cfg.ssm_chunk)
+    Y = Y + params["D"].to(f32)[:, None] * xh
     y = Y.reshape(B, T, d_inner).to(compute_dtype)
     return _gate_out(params, y, z, cfg, x, compute_dtype)
+
+
+def decode_heads(params: dict, x: torch.Tensor, cfg, state: SSMState,
+                 compute_dtype=torch.bfloat16, heads: slice = slice(None)):
+    """The decode step up to the gate: the input projection and causal
+    conv of all channels, the state update and output of the SSM heads
+    ``heads`` (the whole state's heads, or the slice a rank holds of them,
+    ``state.ssm`` holding just those). Returns (y (B, len(heads), P) in the
+    wide dtype, z (B, 1, d_inner), the new state)."""
+    B = x.shape[0]
+    d_inner, H, P, N = dims(cfg)
+    f32 = layers.wide(compute_dtype)
+    zxbcdt = layers.matmul(x, params["in_proj"], compute_dtype)
+    z, xu, Bm, Cm, dt = _split(cfg, zxbcdt)
+    conv_in = torch.cat([xu, Bm, Cm], dim=-1)                    # (B,1,C)
+    hist = torch.cat([state.conv, conv_in.to(state.conv.dtype)], dim=1)
+    w = params["conv_w"].to(compute_dtype).to(f32)
+    conv_out = F.silu(torch.einsum("bkc,kc->bc", hist.to(f32), w))
+    conv_out = conv_out[:, None].to(compute_dtype)
+    xu, Bm, Cm = (conv_out[..., :d_inner],
+                  conv_out[..., d_inner:d_inner + N],
+                  conv_out[..., d_inner + N:])
+    dt = F.softplus(dt.to(f32) + params["dt_bias"].to(f32))[:, 0]  # (B,H)
+    A = -torch.exp(params["A_log"].to(f32))
+    dt, A = dt[:, heads], A[heads]
+    dA = torch.exp(dt * A)                                        # (B,h)
+    xh = xu.reshape(B, H, P).to(f32)[:, heads]
+    Bv = Bm[:, 0].to(f32)                                         # (B,N)
+    Cv = Cm[:, 0].to(f32)
+    new_ssm = (state.ssm * dA[..., None, None]
+               + (dt[..., None] * xh)[..., None] * Bv[:, None, None, :])
+    y = torch.einsum("bhpn,bn->bhp", new_ssm, Cv) \
+        + params["D"].to(f32)[heads, None] * xh
+    return y, z, SSMState(new_ssm, hist[:, 1:])
 
 
 def ssm_decode(params: dict, x: torch.Tensor, cfg, state: SSMState,
                compute_dtype=torch.bfloat16):
     """Single-token decode, x: (B, 1, d): an O(1) state update."""
-    B = x.shape[0]
-    d_inner, H, P, N = dims(cfg)
-    zxbcdt = layers.matmul(x, params["in_proj"], compute_dtype)
-    z, xu, Bm, Cm, dt = _split(cfg, zxbcdt)
-    conv_in = torch.cat([xu, Bm, Cm], dim=-1)                    # (B,1,C)
-    hist = torch.cat([state.conv, conv_in.to(state.conv.dtype)], dim=1)
-    w = params["conv_w"].to(compute_dtype).to(torch.float32)
-    conv_out = F.silu(torch.einsum("bkc,kc->bc", hist.to(torch.float32), w))
-    conv_out = conv_out[:, None].to(compute_dtype)
-    xu, Bm, Cm = (conv_out[..., :d_inner],
-                  conv_out[..., d_inner:d_inner + N],
-                  conv_out[..., d_inner + N:])
-    dt = F.softplus(dt.to(torch.float32)
-                    + params["dt_bias"].to(torch.float32))[:, 0]  # (B,H)
-    A = -torch.exp(params["A_log"].to(torch.float32))
-    dA = torch.exp(dt * A)                                        # (B,H)
-    xh = xu.reshape(B, H, P).to(torch.float32)
-    Bv = Bm[:, 0].to(torch.float32)                               # (B,N)
-    Cv = Cm[:, 0].to(torch.float32)
-    new_ssm = (state.ssm * dA[..., None, None]
-               + (dt[..., None] * xh)[..., None] * Bv[:, None, None, :])
-    y = torch.einsum("bhpn,bn->bhp", new_ssm, Cv) \
-        + params["D"].to(torch.float32)[:, None] * xh
-    y = y.reshape(B, 1, d_inner).to(compute_dtype)
-    out = _gate_out(params, y, z, cfg, x, compute_dtype)
-    return out, SSMState(new_ssm, hist[:, 1:])
+    y, z, state = decode_heads(params, x, cfg, state, compute_dtype)
+    y = y.reshape(x.shape[0], 1, -1).to(compute_dtype)
+    return _gate_out(params, y, z, cfg, x, compute_dtype), state
 
 
 def init_state(cfg, batch: int, *, device, dtype=torch.float32,

@@ -86,19 +86,20 @@ def init_model(cfg: ModelConfig, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
-         compute_dtype, moe_groups: int = 1):
+         compute_dtype, moe_groups: int = 1, rows=None):
     """The layer's FFN on its normed input: (y, MoEAux or None)."""
     if desc.moe:
         return moe.moe_ffn(p["moe"], h, top_k=cfg.moe_top_k,
                            capacity_factor=cfg.capacity_factor,
                            n_groups=moe_groups, dispatch=cfg.moe_dispatch,
-                           compute_dtype=compute_dtype)
+                           compute_dtype=compute_dtype, rows=rows)
     return layers.mlp(p["mlp"], h, compute_dtype=compute_dtype), None
 
 
 def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
                 *, positions=None, enc_kv=None, causal: bool = True,
-                moe_groups: int = 1, compute_dtype=torch.bfloat16):
+                moe_groups: int = 1, rows=None,
+                compute_dtype=torch.bfloat16):
     """One layer of the full sequence: (x, MoEAux or None)."""
     _, norm = layers.make_norm(cfg)
     h = norm(x, p["ln1"])
@@ -115,30 +116,30 @@ def apply_layer(p: dict, x: torch.Tensor, cfg: ModelConfig, desc: LayerDesc,
     if "ln2" not in p:                       # pure-mixer block (no FFN)
         return x, None
     y, aux = _ffn(p, norm(x, p["ln2"]), cfg, desc, compute_dtype,
-                  moe_groups)
+                  moe_groups, rows)
     return x + y, aux
 
 
 def apply_layer_decode(p: dict, x: torch.Tensor, cache, cfg: ModelConfig,
                        desc: LayerDesc, *, enc_kv=None, cross_kv=None,
-                       compute_dtype=torch.bfloat16):
+                       moe_groups: int = 1, compute_dtype=torch.bfloat16,
+                       ops: "DecodeOps | None" = None):
+    ops = ops or _ONE_PROCESS
     _, norm = layers.make_norm(cfg)
     h = norm(x, p["ln1"])
     if desc.kind == "attn":
-        h, cache = attn.attend_decode(p["attn"], h, cfg, cache,
-                                      window=desc.window,
-                                      compute_dtype=compute_dtype)
+        h, cache = ops.attend(p["attn"], h, cfg, cache, desc.window,
+                              compute_dtype)
     else:
-        h, cache = ssm.ssm_decode(p["ssm"], h, cfg, cache,
-                                  compute_dtype=compute_dtype)
+        h, cache = ops.ssm(p["ssm"], h, cfg, cache, compute_dtype)
     x = x + h
     if (enc_kv is not None or cross_kv is not None) and "cross" in p:
-        x = x + attn.attend_cross(p["cross"], norm(x, p["ln_x"]), enc_kv,
-                                  cfg, compute_dtype=compute_dtype,
-                                  kv=cross_kv)
+        x = x + ops.cross(p["cross"], norm(x, p["ln_x"]), cfg, enc_kv,
+                          cross_kv, compute_dtype)
     if "ln2" not in p:
         return x, cache
-    y, _ = _ffn(p, norm(x, p["ln2"]), cfg, desc, compute_dtype)
+    y, _ = _ffn(p, norm(x, p["ln2"]), cfg, desc, compute_dtype, moe_groups,
+                ops.rows)
     return x + y, cache
 
 
@@ -166,8 +167,9 @@ def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, *,
 def forward(params: dict, tokens, cfg: ModelConfig, *, positions=None,
             enc_kv=None, inputs_embeds=None, compute_dtype=torch.bfloat16,
             remat: bool = False, remat_policy=None, moe_groups: int = 1,
-            logits_last_only: bool = False):
-    """tokens: (B, T) -> (float32 logits (B, T, vocab_padded), Aux), or
+            rows=None, logits_last_only: bool = False):
+    """tokens: (B, T) -> (float32 logits (B, T, vocab_padded) (float64
+    under a float64 ``compute_dtype``), Aux), or
     logits (B, 1, vocab_padded) with ``logits_last_only`` (serving prefill:
     the unembed of the last position only).
 
@@ -183,7 +185,9 @@ def forward(params: dict, tokens, cfg: ModelConfig, *, positions=None,
     period's input and runs the period's forward again. The remainder
     layers are not rematerialized, as in the reference. ``remat_policy``
     (JAX's ``checkpoint_policies``) has no counterpart and must be None.
-    ``moe_groups`` is the MoE layers' routing-group count."""
+    ``moe_groups`` is the MoE layers' routing-group count; ``rows`` the
+    mesh axes the batch rows are split over (``moe.moe_ffn``: the MoE
+    layers route the whole batch's groups)."""
     if remat_policy is not None:
         raise NotImplementedError(
             "remat_policy: JAX's checkpoint policies have no counterpart in "
@@ -194,13 +198,14 @@ def forward(params: dict, tokens, cfg: ModelConfig, *, positions=None,
     if positions is None:
         positions = torch.arange(T, device=x.device)[None].expand(B, T)
     plan = cfg.plan()
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=layers.wide(compute_dtype),
+                       device=x.device)
 
     def run(first: int, n: int, x, loss, dropped):
         for i in range(first, first + n):
             x, aux = apply_layer(params["layers"][i], x, cfg, plan[i],
                                  positions=positions, enc_kv=enc_kv,
-                                 moe_groups=moe_groups,
+                                 moe_groups=moe_groups, rows=rows,
                                  compute_dtype=compute_dtype)
             if aux is not None:
                 loss = loss + aux.load_balance_loss
@@ -267,25 +272,62 @@ def precompute_cross_kv(params: dict, enc_kv: torch.Tensor, cfg: ModelConfig,
                  for p in params["layers"])
 
 
+class DecodeOps:
+    """The parts of ``decode_step`` that a step over a mesh replaces
+    (``launch.serve.make_serve_step``): these are one process's. ``params``
+    gives the tree the layer loop reads; ``rows`` names the mesh axes the
+    batch rows are split over (``moe.moe_ffn``)."""
+    rows = None
+
+    def params(self, params: dict):
+        return params
+
+    def embed(self, params: dict, token: torch.Tensor, compute_dtype):
+        return layers.embed(params["embed"], token).to(compute_dtype)
+
+    def attend(self, p, h, cfg, cache, window, compute_dtype):
+        return attn.attend_decode(p, h, cfg, cache, window=window,
+                                  compute_dtype=compute_dtype)
+
+    def ssm(self, p, h, cfg, state, compute_dtype):
+        return ssm.ssm_decode(p, h, cfg, state, compute_dtype=compute_dtype)
+
+    def cross(self, p, h, cfg, enc_kv, kv, compute_dtype):
+        return attn.attend_cross(p, h, enc_kv, cfg,
+                                 compute_dtype=compute_dtype, kv=kv)
+
+    def unembed(self, params: dict, x: torch.Tensor, cfg, compute_dtype):
+        return layers.unembed(params["embed"], x,
+                              compute_dtype=compute_dtype, n_valid=cfg.vocab)
+
+
+_ONE_PROCESS = DecodeOps()
+
+
 def decode_step(params: dict, token: torch.Tensor, state: ServeState,
-                cfg: ModelConfig, *, compute_dtype=torch.bfloat16):
+                cfg: ModelConfig, *, moe_groups: int = 1,
+                compute_dtype=torch.bfloat16, ops: DecodeOps | None = None):
     """token: (B, 1) int -> (logits (B, 1, vocab_padded) float32, new
     state). KV caches are updated in place (see ``models.attention``). An
     enc-dec model attends over ``state.cross_kv`` when it is given, else
-    projects ``state.enc_kv`` at every layer."""
-    x = layers.embed(params["embed"], token).to(compute_dtype)
-    cross = state.cross_kv or (None,) * len(params["layers"])
+    projects ``state.enc_kv`` at every layer. ``moe_groups``: the MoE
+    layers' routing groups over the B tokens. ``ops``: the step's parts,
+    one process's by default."""
+    ops = ops or _ONE_PROCESS
+    x = ops.embed(params, token, compute_dtype)
+    tree = ops.params(params)
+    cross = state.cross_kv or (None,) * cfg.n_layers
     caches = []
-    for p, desc, cache, ckv in zip(params["layers"], cfg.plan(),
+    for p, desc, cache, ckv in zip(tree["layers"], cfg.plan(),
                                    state.caches, cross):
         x, cache = apply_layer_decode(p, x, cache, cfg, desc,
                                       enc_kv=state.enc_kv, cross_kv=ckv,
-                                      compute_dtype=compute_dtype)
+                                      moe_groups=moe_groups,
+                                      compute_dtype=compute_dtype, ops=ops)
         caches.append(cache)
     _, norm = layers.make_norm(cfg)
-    x = norm(x, params["final_norm"])
-    logits = layers.unembed(params["embed"], x, compute_dtype=compute_dtype,
-                            n_valid=cfg.vocab)
+    x = norm(x, tree["final_norm"])
+    logits = ops.unembed(params, x, cfg, compute_dtype)
     return logits, ServeState(tuple(caches), state.enc_kv, state.cross_kv)
 
 
@@ -296,15 +338,17 @@ def decode_step(params: dict, token: torch.Tensor, state: ServeState,
 def lm_loss(params: dict, tokens, labels: torch.Tensor, cfg: ModelConfig, *,
             enc_kv=None, inputs_embeds=None, moe_loss_weight: float = 0.01,
             compute_dtype=torch.bfloat16, remat: bool = False,
-            remat_policy=None, moe_groups: int = 1):
+            remat_policy=None, moe_groups: int = 1, rows=None):
     """Mean next-token cross-entropy over (B, T) ``labels`` (float32 log
-    softmax over the padded vocabulary, whose padding columns are -1e30),
-    plus ``moe_loss_weight`` times the MoE load-balance loss. Returns
-    (loss, Aux); the arguments are ``forward``'s."""
+    softmax over the padded vocabulary, whose padding columns are -1e30;
+    float64 under a float64 ``compute_dtype``), plus ``moe_loss_weight``
+    times the MoE load-balance loss. Returns (loss, Aux); the arguments are
+    ``forward``'s."""
     logits, aux = forward(params, tokens, cfg, enc_kv=enc_kv,
                           inputs_embeds=inputs_embeds,
                           compute_dtype=compute_dtype, remat=remat,
-                          remat_policy=remat_policy, moe_groups=moe_groups)
-    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+                          remat_policy=remat_policy, moe_groups=moe_groups,
+                          rows=rows)
+    logp = F.log_softmax(logits.to(layers.wide(logits.dtype)), dim=-1)
     nll = -torch.gather(logp, -1, labels[..., None].to(torch.int64))[..., 0]
     return torch.mean(nll) + moe_loss_weight * aux.moe_loss, aux

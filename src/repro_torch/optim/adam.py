@@ -73,10 +73,14 @@ class Adam(NamedTuple):
                          tree_map(torch.zeros_like, params))
 
     @torch.no_grad()
-    def update(self, grads, state: AdamState, params):
+    def update(self, grads, state: AdamState, params, *, gnorm=None):
+        """One step; ``gnorm``, the gradients' global norm where the caller
+        has it (a step over a mesh holds a shard of each gradient, so only
+        it can say the whole tree's norm), is what clipping reads."""
         step = state.step + 1
         if self.clip_norm is not None:
-            gnorm = global_norm(grads)
+            if gnorm is None:
+                gnorm = global_norm(grads)
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)
         mu = tree_map(lambda m, g: self.b1 * m + (1 - self.b1) * g,

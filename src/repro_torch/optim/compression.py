@@ -32,8 +32,12 @@ def init_ef(params) -> EFState:
     return EFState(tree_map(torch.zeros_like, params))
 
 
-def _quantize(x: torch.Tensor):
-    scale = torch.clamp(x.abs().max(), min=1e-12) / 127.0
+def _absmax(x: torch.Tensor) -> torch.Tensor:
+    return x.abs().max()
+
+
+def _quantize(x: torch.Tensor, absmax=_absmax):
+    scale = torch.clamp(absmax(x), min=1e-12) / 127.0
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -45,14 +49,16 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(dt) * scale
 
 
-def compress_grads(grads, ef: EFState):
+def compress_grads(grads, ef: EFState, absmax=_absmax):
     """Quantize (with error feedback) each gradient leaf; returns
-    (grads', ef')."""
+    (grads', ef'). ``absmax(x)`` gives a leaf's max |x|, whose 127th is its
+    scale: by default over ``x``; a step over a mesh, whose ranks hold
+    shards of a leaf, takes it over every shard."""
     g_l, e_l = tree_leaves(grads), tree_leaves(ef.error)
     deq, err = [], []
     for g, e in zip(g_l, e_l):
         corrected = g.to(torch.float32) + e
-        q, scale = _quantize(corrected)
+        q, scale = _quantize(corrected, absmax)
         d = _dequantize(q, scale).to(g.dtype)
         deq.append(d)
         err.append((g.to(torch.float32) + e

@@ -33,7 +33,6 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import registry
 from repro_torch.data.loader import TokenLoader
 from repro_torch.launch import train
-from repro_torch.models import transformer as tf
 from repro_torch.optim.adam import Adam, tree_leaves
 from repro_torch.parallel import sharding
 
@@ -180,11 +179,12 @@ def test_manager_rotates_and_saves_asynchronously(tmp_path):
 # --- resume a JAX TrainState in the port ----------------------------------------
 
 def _f32_steps(mp):
-    for mod, f32 in ((jtf, jnp.float32), (tf, torch.float32)):
-        for name in ("lm_loss", "encode"):
-            orig = getattr(mod, name)
-            mp.setattr(mod, name, lambda *a, _o=orig, _d=f32, **k:
-                       _o(*a, **{"compute_dtype": _d, **k}))
+    """The reference's train step in float32: it takes no compute dtype, so
+    its loss and encoder are given one at run time."""
+    for name in ("lm_loss", "encode"):
+        orig = getattr(jtf, name)
+        mp.setattr(jtf, name, lambda *a, _o=orig, **k:
+                   _o(*a, **{"compute_dtype": jnp.float32, **k}))
 
 
 def test_a_jax_train_state_resumes_in_the_port(tmp_path, monkeypatch):
@@ -198,7 +198,8 @@ def test_a_jax_train_state_resumes_in_the_port(tmp_path, monkeypatch):
     jopt, opt = JAdam(lr=1e-3), Adam(lr=1e-3)
     jstep = _no_x64(jax.jit(jtrain.make_train_step(jcfg, None, jopt,
                                                    compress=True)[0]))
-    step, _ = train.make_train_step(cfg, None, opt, compress=True)
+    step, _ = train.make_train_step(cfg, None, opt, compress=True,
+                                    compute_dtype=torch.float32)
     jstate = _no_x64(jtrain.init_state)(jax.random.PRNGKey(0), jcfg, jopt,
                                         compress=True)
     loader = TokenLoader(cfg, batch=2, seq=16, seed=3, device="cpu")
@@ -256,8 +257,8 @@ def test_token_loader_resumes_exactly(name):
         assert batch["inputs_embeds"].shape == (3, 12, cfg.d_model)
         assert batch["inputs_embeds"].dtype == torch.bfloat16
     assert not torch.equal(first[0]["tokens"], first[1]["tokens"])
-    with pytest.raises(NotImplementedError, match="12b"):
-        TokenLoader(cfg, {"data": 2}, batch=2, seq=4, device="cpu")
+    with pytest.raises(ValueError, match="does not split"):
+        TokenLoader(cfg, {"data": 2}, batch=3, seq=4, device="cpu")
 
 
 # --- sharding rules ----------------------------------------------------------------

@@ -45,7 +45,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.optim.compression",
             "repro_torch.checkpoint.io", "repro_torch.checkpoint.manager",
             "repro_torch.parallel.sharding", "repro_torch.data.loader",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.scheduler"} \
+        <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -216,16 +216,16 @@ def _assert_states_close(state, jstate, cfg):
 
 @pytest.fixture(scope="module")
 def f32_steps():
-    """Both packages' train steps compute in float32: their losses and
-    encoders are given float32 compute at run time (the steps take the
-    bfloat16 default, whose roundings the two packages place apart; no
-    package file is edited)."""
+    """Both packages' train steps compute in float32 (the bfloat16 default's
+    roundings the two packages place apart): the port's by its
+    ``compute_dtype``, the reference's, which has none, by giving its loss
+    and encoder float32 compute at run time (no package file is
+    edited)."""
     with pytest.MonkeyPatch.context() as mp:
-        for mod, f32 in ((jtf, jnp.float32), (tf, F32)):
-            for name in ("lm_loss", "encode"):
-                orig = getattr(mod, name)
-                mp.setattr(mod, name, lambda *a, _o=orig, _d=f32, **k:
-                           _o(*a, **{"compute_dtype": _d, **k}))
+        for name in ("lm_loss", "encode"):
+            orig = getattr(jtf, name)
+            mp.setattr(jtf, name, lambda *a, _o=orig, **k:
+                       _o(*a, **{"compute_dtype": jnp.float32, **k}))
         yield
 
 
@@ -253,7 +253,8 @@ def test_train_step_matches_reference(dense, compress):
     fraction."""
     jcfg, cfg, opt, jopt, jstate, jb, tb = dense
     state = _port_state(jstate, cfg)
-    step, on_mesh = train.make_train_step(cfg, None, opt, compress=compress)
+    step, on_mesh = train.make_train_step(cfg, None, opt, compress=compress,
+                                          compute_dtype=F32)
     jstep = _jstep(jcfg, jopt, compress=compress)
     for _ in range(2):
         jstate, jm = jstep(jstate, jb)
@@ -274,7 +275,7 @@ def test_train_step_matches_reference(dense, compress):
         for a, b in zip(tree_leaves(state.ef.error), tree_leaves(want)):
             far = (a - b).abs() > 0.1 * float(b.abs().max())
             assert float(far.float().mean()) < MISMATCH_FRAC
-    with pytest.raises(NotImplementedError, match="12b"):
+    with pytest.raises(ValueError, match="on_mesh needs a mesh"):
         on_mesh(state)
 
 
@@ -284,8 +285,10 @@ def test_microbatches_match_one_batch(dense):
     jcfg, cfg, opt, jopt, jstate, jb, tb = dense
     s1 = _port_state(jstate, cfg)
     s2 = _port_state(jstate, cfg)
-    f1, _ = train.make_train_step(cfg, None, opt, microbatches=1)
-    f2, _ = train.make_train_step(cfg, None, opt, microbatches=2)
+    f1, _ = train.make_train_step(cfg, None, opt, microbatches=1,
+                                  compute_dtype=F32)
+    f2, _ = train.make_train_step(cfg, None, opt, microbatches=2,
+                                  compute_dtype=F32)
     s1, m1 = f1(s1, tb)
     s2, m2 = f2(s2, tb)
     assert abs(float(m1.loss) - float(m2.loss)) <= 1e-5 * float(m1.loss)
@@ -306,7 +309,8 @@ def test_train_step_on_enc_dec_frames(f32_steps):
     state = _port_state(jstate, cfg)
     jb, tb = _batch(cfg, ("frames",))
     jstate, jm = _jstep(jcfg, jopt)(jstate, jb)
-    new, m = train.make_train_step(cfg, None, opt)[0](state, tb)
+    new, m = train.make_train_step(cfg, None, opt,
+                                   compute_dtype=F32)[0](state, tb)
     assert abs(float(m.loss) - float(jm.loss)) <= TOL_LOSS * float(jm.loss)
     _assert_states_close(new, jstate, cfg)
     enc0 = state.params["encoder"][0]["attn"]["wq"]
