@@ -239,8 +239,25 @@ Phases, in order; any failure exits non-zero before the last line:
    the parameters' update its sign and size within 0.1 lr where mu settles
    the gradient's sign) and 4 serve steps (B = 4) against
    ``decode_step`` (MESH_TOL_LOGITS); each run's kernel launches counted;
+   each rank's shard bytes (train state; parameters and serve state) must
+   equal the dry-run's per-rank bytes (``launch.dryrun`` on the meta
+   device, mesh (2, 2), the same cut configs), and its collectives'
+   calls and bytes in each train step and in the 4 serve steps the
+   dry-run's recording axes', collective by collective;
+11. the dry-run against the card (``launch.dryrun`` at mesh (1, 1), rank
+   0's step traced on the meta device): qwen3-1.7b's phase-8 step (4 x
+   4096, 2 microbatches) and mamba2-130m's (8 x 4096), qwen3's prefill (4
+   x 4096) and decode step (B = 4): the dry-run's per-rank state bytes
+   must equal the real state's on the card (parameters and Adam's
+   moments; parameters; parameters and serve state), printed beside one
+   step's peak memory and seconds, the traced and the model FLOP and the
+   roofline's t_compute / t_memory (``roofline.analysis``); then the
+   contract audit on the card (``analysis.contracts.run_audit``): 3 rebind
+   generations with no callable built, identical fingerprints and kernel
+   launches in each, the tenant interleaving, no ``no_retrace``
+   violation;
 7. one JSON line listing each kernel's launches, error, times and bound.
-   Phases 8-10 run before it; every phase prints its seconds.
+   Phases 8-11 run before it; every phase prints its seconds.
 
 Each main path zeroes its kernels' launch counts just before it and reads
 them just after; a kernel of the path that was not launched fails the run.
@@ -255,7 +272,7 @@ backward kernels or the training path. ``--phases downdate`` runs phases
 1 and 2, then only phase 3's ``check_downdate``: the quick run after a
 change to the downdate kernel. ``--phases 9,10`` runs phases 1 and 2, then
 9 and 10: the quick run after a change to the batcher or the steps over a
-mesh.
+mesh. ``--phases 11`` runs phases 1 and 2, then 11.
 """
 from __future__ import annotations
 
@@ -270,11 +287,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
-TF32_FLOPS_PER_S = 495e12
+# The H100's published peaks (``repro_torch.roofline.hw``) and each
+# kernel's FLOP and byte counts (``repro_torch.roofline.kernels``): one copy,
+# which ``launch.profile``, ``launch.train_profile`` and ``launch.xcov_sweep``
+# read too. Bound in ``main`` once ``src`` is on the path (spawned children
+# do not use them).
+hw = rk = None
 
 # Kernel-vs-plain tolerances (max abs error):
 #  rbf f32 1e-5 and bf16 3e-2 are the reference's own (tests/test_kernels.py).
@@ -354,9 +372,6 @@ TOL_CONSISTENCY = 2e-3
 #  1e-5 in f32, where a wrong row, column or sweep errs by O(0.1).
 TOL_DOWNDATE = {"float32": 1e-5, "float64": 1e-12}
 DOWNDATE_REPEAT = 3      # launches of each downdate case (each equal)
-# Published FP64 peak of one H100 SXM outside the tensor cores (NVIDIA data
-# sheet): the downdate's float64 arithmetic runs there.
-F64_FLOPS_PER_S = 34e12
 #  The backward kernels against their plain versions (autograd through
 #  ref.attention / ref.intra_chunk in float32 on the same inputs), max abs
 #  error per gradient <= tol x max|want| of that gradient.
@@ -563,22 +578,6 @@ def kernel_device_ms(torch, fn, name: str, iters: int,
          f"{PROFILE_TRIES} times")
 
 
-def bound_ms(nbytes: float, flops: float,
-             peak_flops: float = F32_FLOPS_PER_S) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak_flops
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def xcov_bytes(n: int, s: int, with_l2: bool) -> int:
-    """Bytes xcov_diag (float32) must move: the lower triangle of each
-    inverse (entries above the diagonal are never read), the queries, the
-    support set, alpha and sig2 once, mean and var written once."""
-    tri = s * (s + 1) // 2 * 4
-    return tri * (2 if with_l2 else 1) + (n + s) * D * 4 + s * 4 + 4 \
-        + 2 * n * 4
-
-
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -621,8 +620,8 @@ def check_rbf(torch, ops, ref, gen):
     b2b_float = time_ms(lambda: ops.rbf_covariance(S, Xb, 1.3), 20)
     plain = time_ms(lambda: ref.rbf_covariance(S, Xb, s2), 5)
     n_out = M * S_SIZE * (N_TRAIN // M)
-    b_ms, b_by = bound_ms((S.numel() + Xb.numel()) * 4 + n_out * 4,
-                          n_out * (2 * D + 6))
+    b_ms, b_by = rk.bound_ms(rk.rbf_bytes(S_SIZE, M * (N_TRAIN // M),
+                                          n_out, D), rk.rbf_flops(n_out, D))
     print(f"  rbf at the K_SDm shape: device {ms:.4f} ms (bound {b_ms:.4f} "
           f"ms, {b_by}; {100 * b_ms / ms:.0f}% of it); back to back "
           f"{b2b:.4f} ms a call, {b2b_float:.4f} ms with a Python-float "
@@ -663,8 +662,8 @@ def check_rbf_exact(torch, ops, ref, gen) -> dict:
                           "rbf_exact_kernel", 20)
     plain = time_ms(lambda: ref.rbf_covariance_exact(xp, Xb, s2), 20)
     n_out = Xb.shape[0] * Xb.shape[1]
-    b_ms, b_by = bound_ms((xp.numel() + Xb.numel() + n_out) * 8,
-                          n_out * (3 * 2 * D + 6), F64_FLOPS_PER_S)
+    b_ms, b_by = rk.bound_ms(rk.rbf_bytes(1, n_out, n_out, D, 8),
+                             rk.rbf_exact_flops(n_out, D), hw.PEAK_FLOPS_F64)
     print(f"  rbf exact f64 column: device {ms:.4f} ms (bound {b_ms:.4f} ms, "
           f"{b_by}); plain {plain:.4f} ms", flush=True)
     out.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
@@ -786,10 +785,9 @@ def check_icf(torch, ops, ref, gen):
         torch, lambda: ops.icf_barrier_probe(torch.float32, n, R, D),
         "icf_barrier_probe", 5)
     plain = time_ms(lambda: ref.icf_factor(Xs, s2, R), 2, warmup=1)
-    flops = n * R * (R - 1)                  # the GEMVs: 2 i n at step i
-    nbytes = n * D * 4 + R * n * 4 + R * 8 + n * 4 + 4
-    b_ms, b_by = bound_ms(nbytes, flops)
-    stream_bytes = 4 * n * R * (R - 1) // 2  # F[:i] read from HBM each step
+    flops = rk.icf_flops(n, R)               # the GEMVs: 2 i n at step i
+    b_ms, b_by = rk.bound_ms(rk.icf_bytes(n, R, D), flops)
+    stream_bytes = rk.icf_gemv_bytes(n, R)   # F[:i] read from HBM each step
     print(f"  ICF kernel f32 ({n}, {R}, {D}), {plan['blocks']} blocks of "
           f"{plan['width']} columns, {plan['cached_rows']} factor rows a "
           f"column on chip ({plan['smem_rows']} in shared memory, "
@@ -798,7 +796,7 @@ def check_icf(torch, ops, ref, gen):
           f"with no rows on chip); bound {b_ms:.3f} ms ({b_by}, "
           f"{flops / 1e9:.1f} GFLOP); {R} empty grid barriers "
           f"{barrier_ms:.3f} ms ({barrier_ms / R * 1e3:.2f} us each); the "
-          f"GEMVs would take {stream_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms "
+          f"GEMVs would take {stream_bytes / hw.HBM_BW * 1e3:.2f} ms "
           f"streamed from HBM ({stream_bytes / 1e9:.1f} GB, a model), the "
           f"kernel reads them at {stream_bytes / icf_ms / 1e9:.2f} TB/s "
           f"effective; plain loop {plain:.1f} ms", flush=True)
@@ -936,16 +934,16 @@ def check_xcov(torch, ops, ref, gen):
         ms_by_n[n] = time_ms(call, 50)
         # the two or three kernels of a call (panels, chunk sums, reduce)
         dev_by_n[n] = kernel_device_ms(torch, call, "xcov_", 50, (2, 3))
-        flops = 2 * n * s * s
-        nbytes = xcov_bytes(n, s, True)
-        b3, b3_by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
-        bf32, _ = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+        flops = rk.xcov_flops(n, s)
+        nbytes = rk.xcov_bytes(n, s, D, True)
+        b3, b3_by = rk.bound_ms(nbytes, 3 * flops, hw.PEAK_FLOPS_TF32)
+        bf32, _ = rk.bound_ms(nbytes, flops, hw.PEAK_FLOPS_F32)
         print(f"  xcov_diag n={n}, |S|={s}, with L2, f32: "
               f"{ms_by_n[n]:.4f} ms a call back to back, device "
               f"{dev_by_n[n]:.4f} ms; {flops / dev_by_n[n] / 1e9:.1f} "
               f"TFLOP/s of 2 n s^2 = {flops / 1e9:.3f} GFLOP on the device "
               f"time; bound {b3:.4f} ms ({b3_by}, 3xTF32; bytes "
-              f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms), f32 CUDA-core "
+              f"{nbytes / hw.HBM_BW * 1e3:.4f} ms), f32 CUDA-core "
               f"bound {bf32:.4f} ms", flush=True)
     n = 256
     Xq = (torch.rand((n, D), generator=gen, device="cuda") * 4 - 2) / 1.2
@@ -953,10 +951,10 @@ def check_xcov(torch, ops, ref, gen):
     plain = time_ms(lambda: ref.xcov_diag(Xq, Xk, L1, alpha, s2, L2), 10)
     inv_ms = time_ms(lambda: (ops._embed_tri_inv(L1, s),
                               ops._embed_tri_inv(L2, s)), 10)
-    flops = 2 * n * s * s
-    nbytes = xcov_bytes(n, s, True)
-    b_ms, b_by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
-    b_f32_ms, _ = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    flops = rk.xcov_flops(n, s)
+    nbytes = rk.xcov_bytes(n, s, D, True)
+    b_ms, b_by = rk.bound_ms(nbytes, 3 * flops, hw.PEAK_FLOPS_TF32)
+    b_f32_ms, _ = rk.bound_ms(nbytes, flops, hw.PEAK_FLOPS_F32)
     print(f"  xcov_diag plain at n={n}: {plain:.4f} ms; both inverses "
           f"(once per state): {inv_ms:.4f} ms", flush=True)
     return dict(name="xcov_diag", route="cuda",
@@ -1111,10 +1109,9 @@ def check_flash(torch, ops, ref, gen):
     if not row <= TOL_FLASH_ROW["bfloat16"][1]:
         fail(f"flash disagrees with scaled_dot_product_attention: "
              f"row-scaled {row}")
-    pairs = T * (T + 1) // 2                       # causal (query, key) pairs
-    flops = 4 * B * Hq * Dh * pairs
-    nbytes = 2 * (2 * B * Hq * T * Dh + 2 * B * Hkv * T * Dh)
-    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    flops = rk.flash_flops(B, Hq, T, T, Dh, True)
+    nbytes = rk.flash_bytes(B, Hq, Hkv, T, T, Dh)
+    b_ms, b_by = rk.bound_ms(nbytes, flops, hw.PEAK_FLOPS_BF16)
     tflops, lib_tflops = flops / ms / 1e9, flops / lib / 1e9
     # host cost of one decode launch (tensor maps encoded in the C entry
     # point): back-to-back calls that keep the device queue short
@@ -1133,7 +1130,7 @@ def check_flash(torch, ops, ref, gen):
         torch, lambda: ops.attention(qd, kd, vd, q_offset=GEN_PROMPT),
         "flash_sm90", FLASH_HOST_CALLS)
     print(f"  flash at the prefill shape: {ms:.4f} ms, {tflops:.1f} TFLOP/s "
-          f"({100 * tflops * 1e12 / BF16_FLOPS_PER_S:.1f}% of the bf16 "
+          f"({100 * tflops * 1e12 / hw.PEAK_FLOPS_BF16:.1f}% of the bf16 "
           f"peak); SDPA {lib:.4f} ms, {lib_tflops:.1f} TFLOP/s; bound "
           f"{b_ms:.4f} ms ({b_by})", flush=True)
     print(f"  flash decode launch (B={B}, Hq={Hq}, Tq=1, {GEN_PROMPT + 1} "
@@ -1180,9 +1177,9 @@ def time_noncausal(torch, ops, ref, gen, case) -> dict:
     plain = time_ms(lambda: ref.attention(q, k, v, causal=False), 3,
                     warmup=1)
     row = flash_row_err(call(), lib_call(), TOL_FLASH_ROW["bfloat16"][0])
-    flops = 4 * B * Hq * Dh * Tq * Tk
-    nbytes = 2 * (2 * B * Hq * Tq * Dh + 2 * B * Hkv * Tk * Dh)
-    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    flops = rk.flash_flops(B, Hq, Tq, Tk, Dh, False)
+    nbytes = rk.flash_bytes(B, Hq, Hkv, Tq, Tk, Dh)
+    b_ms, b_by = rk.bound_ms(nbytes, flops, hw.PEAK_FLOPS_BF16)
     shape = f"B={B}, Hq={Hq}, Hkv={Hkv}, Tq={Tq}, Tk={Tk}, D={Dh}"
     print(f"  flash non-causal at {shape} bf16: {ms:.4f} ms"
           f"{' (device, profiler)' if Tq == 1 else ''}, "
@@ -1194,29 +1191,6 @@ def time_noncausal(torch, ops, ref, gen, case) -> dict:
              f"{row}")
     return dict(shape=shape, ms=ms, plain_ms=plain, library_ms=lib,
                 bound_ms=b_ms, bound_by=b_by)
-
-
-def ssd_flops(BC, cs, H, P, N) -> tuple[int, int]:
-    """(the function's flops, the flops the kernel's products execute) of
-    one intra-chunk call, both in multiply-adds x 2, before 3xTF32 triples
-    the tensor-core work. The function: the causal half (j <= i) of
-    G = C B^T once per chunk (it does not depend on the head; L zeroes the
-    rest), the causal Y product, the state S. The kernel's figure is a
-    model, counted from the tiles of ssd_intra_chunk.cu, not a measurement:
-    G once per (chunk, 64-row strip, group of 8 heads) over whole 64 x 64
-    tiles, Y over the same tiles, S per pair of heads and 64 columns of N;
-    P, N and the chunk padded to the tiles."""
-    fn = 2 * BC * N * cs * (cs + 1) // 2 \
-        + 2 * BC * H * P * cs * (cs + 1) // 2 + 2 * BC * H * P * N * cs
-
-    def up(x, m):
-        return -(-x // m) * m
-
-    tiles = sum(-(-min(64 * (r + 1), cs) // 64) for r in range(-(-cs // 64)))
-    g = 2 * BC * tiles * 64 * 64 * up(N, 32) * -(-H // 8)
-    y = 2 * BC * tiles * 64 * 64 * up(P, 64) * H
-    s = 2 * BC * up(H, 2) * up(P, 64) * up(N, 64) * up(cs, 32)
-    return fn, g + y + s
 
 
 def check_ssd(torch, ops, ref, gen):
@@ -1267,13 +1241,12 @@ def check_ssd(torch, ops, ref, gen):
     args = inputs(*prefill, torch.float32)
     ms = time_ms(lambda: ops.intra_chunk(*args), 20)
     plain = time_ms(lambda: ref.intra_chunk(*args), 5)
-    flops, executed = ssd_flops(*prefill)
-    nbytes = 4 * (2 * BC * cs * H * P + 2 * BC * H * cs + 2 * BC * cs * N
-                  + BC * H * P * N)
+    flops, executed = rk.ssd_flops(*prefill)
+    nbytes = rk.ssd_bytes(*prefill)
     # the products run in 3xTF32 on the tensor cores: three TF32 products
     # for each one of the function's
-    b_ms, b_by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
-    b_f32_ms, _ = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    b_ms, b_by = rk.bound_ms(nbytes, 3 * flops, hw.PEAK_FLOPS_TF32)
+    b_f32_ms, _ = rk.bound_ms(nbytes, flops, hw.PEAK_FLOPS_F32)
     tflops = flops / ms / 1e9
     print(f"  ssd at the prefill shape: {ms:.4f} ms, {tflops:.1f} TFLOP/s "
           f"of the function's {flops / 1e9:.2f} GFLOP (modelled from the "
@@ -1415,11 +1388,9 @@ def _flash_bwd_timing(torch, ops, ref, gen, case, bthd: bool) -> dict:
           f"{lims[0]:.3e}, {lims[1]:.3e}, {lims[2]:.3e})", flush=True)
     if not all(e <= t for e, t in zip(errs, lims)):
         fail(f"the flash backward disagrees with SDPA's: {errs} > {lims}")
-    pairs = T * (T + 1) // 2
-    flops = 5 * 2 * B * Hq * Dh * pairs   # S, dP, dq, dk, dv
-    # q, o, dO, k, v and the LSE read once, dq, dk, dv written once, bf16
-    nbytes = 2 * 4 * B * T * Dh * (Hq + Hkv) + 4 * B * Hq * T
-    b_ms, b_by = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    flops = rk.flash_bwd_flops(B, Hq, T, Dh)     # S, dP, dq, dk, dv
+    b_ms, b_by = rk.bound_ms(rk.flash_bwd_bytes(B, Hq, Hkv, T, Dh), flops,
+                             hw.PEAK_FLOPS_BF16)
     tflops = flops / ms / 1e9
     print(f"  flash backward at {shape}: {ms:.4f} ms, {tflops:.1f} TFLOP/s "
           f"of the bound's {flops / 1e9:.0f} GFLOP (5 products; the kernels "
@@ -1477,17 +1448,6 @@ def check_flash_bwd(torch, ops, ref, gen):
     return row
 
 
-def ssd_bwd_flops(BC, cs, H, P, N) -> int:
-    """The SSD backward's flops (multiply-adds x 2): G's causal half
-    (recomputed), per head the causal halves of E = dY xdt^T and of
-    (G o L)^T dY, the products xdt dS and B dS^T, then dC = dG B and
-    dB = dG^T C over the causal half."""
-    half = cs * (cs + 1) // 2
-    return 2 * BC * N * half + BC * H * (2 * 2 * P * half
-                                         + 2 * 2 * P * N * cs) \
-        + 2 * 2 * BC * N * half
-
-
 def _ssd_bwd_inputs(torch, gen, BC, cs, H, P, N, dt):
     xdt = torch.randn((BC, cs, H, P), generator=gen, device="cuda")
     dA = -torch.randn((BC, H, cs), generator=gen, device="cuda").abs() * 0.1
@@ -1511,13 +1471,10 @@ def _ssd_bwd_timing(torch, ops, ref, gen, shape) -> dict:
                           "ssd_bwd_dda")}
     plain = time_ms(lambda: ref.intra_chunk_backward(*args, *douts), 3,
                     warmup=1)
-    flops = ssd_bwd_flops(*shape)
-    # xdt, dY, dxdt; dA, dcum, ddA; B, C, dB, dC; dS: each read or
-    # written once, float32
-    nbytes = 4 * (3 * BC * cs * H * P + 3 * BC * H * cs + 4 * BC * cs * N
-                  + BC * H * P * N)
-    b_ms, b_by = bound_ms(nbytes, 3 * flops, TF32_FLOPS_PER_S)
-    b_f32_ms, _ = bound_ms(nbytes, flops, F32_FLOPS_PER_S)
+    flops = rk.ssd_bwd_flops(*shape)
+    nbytes = rk.ssd_bwd_bytes(*shape)
+    b_ms, b_by = rk.bound_ms(nbytes, 3 * flops, hw.PEAK_FLOPS_TF32)
+    b_f32_ms, _ = rk.bound_ms(nbytes, flops, hw.PEAK_FLOPS_F32)
     desc = f"BC={BC}, cs={cs}, H={H}, P={P}, N={N}, f32"
     print(f"  ssd backward at {desc}: {ms:.4f} ms, {flops / ms / 1e9:.1f} "
           f"TFLOP/s of the function's {flops / 1e9:.2f} GFLOP (3xTF32 on "
@@ -1585,17 +1542,6 @@ def check_ssd_bwd(torch, ops, ref, gen):
                max_abs_err=worst, tol=TOL_BWD["ssd"]["float32"],
                err_is="max|err| / max|want| over the four gradients")
     return row
-
-
-def downdate_bytes(n: int, b: int, itemsize: int) -> int:
-    """Bytes the downdate must move: L's lower triangle and W read once,
-    the new triangle written once."""
-    return itemsize * (n * (n + 1) + n * b)
-
-
-def downdate_flops(n: int, b: int) -> int:
-    """Six operations a row for each (sweep, step) pair: 3 b n (n - 1)."""
-    return 3 * b * n * (n - 1)
 
 
 def ptxas_report(log: str) -> dict:
@@ -1669,7 +1615,7 @@ def downdate_issue_bound(lib, n: int, b: int) -> dict:
     update's share of them times the b n (n - 1) / 2 row updates, over the
     card's rate: 64 FP64 lanes a clock an SM for the FP64 pipe, 128 issue
     slots a clock an SM for every instruction (the guide's peaks,
-    F64_FLOPS_PER_S / 2 and F32_FLOPS_PER_S / 2 lane-instructions a
+    hw.PEAK_FLOPS_F64 / 2 and hw.PEAK_FLOPS_F32 / 2 lane-instructions a
     second)."""
     updates = b * n * (n - 1) // 2
     found = {}
@@ -1677,8 +1623,8 @@ def downdate_issue_bound(lib, n: int, b: int) -> dict:
         key = "float64" if "IdE" in name else "float32"
         per = {k: v / 32 for k, v in c.items()}
         issued = per["fp64"] + per["fp32"] + per["shared"] + per["other"]
-        t_issue = updates * issued / (F32_FLOPS_PER_S / 2)
-        t_fp64 = updates * per["fp64"] / (F64_FLOPS_PER_S / 2)
+        t_issue = updates * issued / (hw.PEAK_FLOPS_F32 / 2)
+        t_fp64 = updates * per["fp64"] / (hw.PEAK_FLOPS_F64 / 2)
         found[key] = dict(per_update=per, issued=issued,
                           bound_ms=max(t_issue, t_fp64) * 1e3,
                           by="the FP64 pipe" if t_fp64 > t_issue
@@ -1776,9 +1722,10 @@ def check_downdate(torch, ops, ref, gen):
         ms = kernel_device_ms(torch, lambda: ops.chol_downdate(L1, W),
                               "downdate_kernel", 5)
         b2b = time_ms(lambda: ops.chol_downdate(L1, W), 5)
-        peak = F32_FLOPS_PER_S if dt == torch.float32 else F64_FLOPS_PER_S
-        b_ms, b_by = bound_ms(downdate_bytes(n, b, L1.element_size()),
-                              downdate_flops(n, b), peak)
+        peak = hw.PEAK_FLOPS_F32 if dt == torch.float32 \
+            else hw.PEAK_FLOPS_F64
+        b_ms, b_by = rk.bound_ms(rk.downdate_bytes(n, b, L1.element_size()),
+                                 rk.downdate_flops(n, b), peak)
         W10 = W / 10
         chain = kernel_device_ms(torch, lambda: ops.chain_probe(L1, W10),
                                  "downdate_kernel", 5)
@@ -1792,8 +1739,8 @@ def check_downdate(torch, ops, ref, gen):
         print(f"  chol_downdate at ({n}, {b}) {key}: device {ms:.4f} ms "
               f"(back to back with the wrapper's copies {b2b:.4f} ms); "
               f"bound {b_ms:.4f} ms ({b_by}: "
-              f"{downdate_flops(n, b) / 1e9:.1f} GFLOP, "
-              f"{downdate_bytes(n, b, L1.element_size()) / 1e6:.1f} MB); "
+              f"{rk.downdate_flops(n, b) / 1e9:.1f} GFLOP, "
+              f"{rk.downdate_bytes(n, b, L1.element_size()) / 1e6:.1f} MB); "
               f"issue bound (a model from the SASS) "
               f"{model['bound_ms']:.4f} ms ({model['by']}; SASS a row "
               f"update: {per['fp64']:.3f} FP64, {per['fp32']:.3f} FP32, "
@@ -2755,22 +2702,6 @@ MLE_STEPS, MLE_PARALLEL_STEPS = 10, 3
 F32_EPS = 2.0 ** -24         # unit roundoff of float32
 
 
-def _icf_stream_bytes(plan: dict, n: int, R: int, itemsize: int) -> int:
-    """Bytes the ICF kernel's GEMVs read from L2 or device memory over the
-    run, from its plan: column j keeps its first c_j factor entries on chip
-    (``smem_rows`` in shared memory; the first NC = 8 columns of each
-    warp also the register rows, ``cached_rows`` in all), and step i reads
-    the other max(i - c_j, 0) of the i it sums (rbf_icf.cu, step 3)."""
-    W, K, C = plan["width"], plan["smem_rows"], plan["cached_rows"]
-    cw = W // 8                                   # columns a warp (NWARPS)
-    total = 0
-    for j in range(n):
-        c = C if (j % W) % cw < 8 else K
-        c = min(c, R)
-        total += (R - c) * (R - c - 1) // 2
-    return total * itemsize
-
-
 def check_icf_picf(torch, ops, ref, ds, params) -> dict:
     """The ICF kernel at pICF's instance, (|D|, R, d) = (32000, 2048, 5),
     the AIMPEAK training inputs: float64 against the plain loop (pivots
@@ -2836,23 +2767,24 @@ def check_icf_picf(torch, ops, ref, ds, params) -> dict:
         ms = kernel_device_ms(torch, lambda: ops.icf_factor(Xs, s2d, R),
                               "icf_kernel", 3)
         isz = torch.finfo(dt).bits // 8
-        flops = n * R * (R - 1)
-        peak = F32_FLOPS_PER_S if dt == torch.float32 else 67e12
-        b_ms, b_by = bound_ms(n * D * isz + R * n * isz + n * isz
-                              + R * (8 + isz), flops, peak)
-        stream = _icf_stream_bytes(plan, n, R, isz)
+        flops = rk.icf_flops(n, R)
+        # float64 on the tensor cores' FP64 rate, as its GEMVs could run
+        peak = hw.PEAK_FLOPS_F32 if dt == torch.float32 \
+            else hw.PEAK_FLOPS_F64_TENSOR
+        b_ms, b_by = rk.bound_ms(rk.icf_bytes(n, R, D, isz), flops, peak)
+        stream = rk.icf_stream_bytes(plan, n, R, isz)
         full = isz * n * R * (R - 1) // 2
         print(f"  ICF ({n}, {R}, {D}) {key} plan: {plan}; device {ms:.3f} "
               f"ms ({ms / R * 1e3:.2f} us a step); bound {b_ms:.3f} ms "
               f"({b_by}, {flops / 1e9:.1f} GFLOP); the GEMVs stream "
               f"{stream / 1e9:.1f} GB of {full / 1e9:.1f} GB from L2/HBM "
               f"({100 * (1 - stream / full):.1f}% on chip): "
-              f"{stream / HBM_BYTES_PER_S * 1e3:.2f} ms at "
-              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s (a model), read at "
+              f"{stream / hw.HBM_BW * 1e3:.2f} ms at "
+              f"{hw.HBM_BW / 1e12:.2f} TB/s (a model), read at "
               f"{stream / ms / 1e9:.2f} TB/s effective", flush=True)
         out.update({f"picf_icf_{key}_ms": ms, f"picf_icf_{key}_bound_ms":
                     b_ms, f"picf_icf_{key}_stream_ms":
-                    stream / HBM_BYTES_PER_S * 1e3,
+                    stream / hw.HBM_BW * 1e3,
                     f"picf_icf_{key}_plan": plan})
         del Xs
     out["picf_icf_shape"] = f"({n}, {R}, {D}), AIMPEAK training inputs"
@@ -5136,6 +5068,74 @@ def mesh_one_rank(torch, card, attn_ops, ssd_ops) -> dict:
     return out
 
 
+def _tensor_bytes(torch, tree) -> int:
+    """numel x element size over the tensors of ``tree`` (a cache's
+    host-int length holds no device bytes)."""
+    from repro_torch.optim.adam import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def mesh_dryrun(torch, cfg, force_tp: bool) -> dict:
+    """10b's steps as the dry-run traces them for rank 0 of mesh (2, 2) on
+    the meta device (``launch.dryrun``; MESH_GLOO's cut config, float32
+    compute, tensor parallelism forced as the ranks force it): the
+    per-rank bytes of the train state and of the parameters with the serve
+    state, and the collectives' calls and bytes of one train step and of
+    the 4 serve steps."""
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel import sharding as shd
+    g, f32 = MESH_GLOO, torch.float32
+    sizes = dict(zip(("data", "model"), g["shape"]))
+    keep, t0 = shd.PURE_DP_THRESHOLD_BYTES, time.perf_counter()
+    shd.PURE_DP_THRESHOLD_BYTES = 0 if force_tp else keep
+    try:
+        tr = dryrun.trace_train(cfg, sizes, batch=g["batch"], seq=g["seq"],
+                                compute_dtype=f32)
+        sv = dryrun.trace_decode(cfg, sizes, batch=g["batch"],
+                                 max_len=2 * g["serve_steps"],
+                                 steps=g["serve_steps"], cache_dtype=f32,
+                                 compute_dtype=f32)
+    finally:
+        shd.PURE_DP_THRESHOLD_BYTES = keep
+    table = lambda c: {k: (v["calls"], v["bytes"])
+                       for k, v in c["collectives"].items()}
+    return {"train_bytes": tr["bytes_per_device"],
+            "serve_bytes": sv["bytes_per_device"],
+            "train": table(tr["collective"]), "serve": table(sv["collective"]),
+            "s": time.perf_counter() - t0}
+
+
+def mesh_vs_dryrun(card: str, name: str, dry: dict, ranks: list) -> None:
+    """10b's ranks against the dry-run (``mesh_dryrun``): each rank's shard
+    bytes, and its collectives' calls and bytes in both train steps and in
+    the serve steps, collective by collective, must be the dry-run's."""
+    got = lambda c: {k: (v[0], v[2]) for k, v in c.items()}
+    bad = []
+    for i, r in enumerate(ranks):
+        if r["shard_bytes"] != dry["train_bytes"] or \
+                r["serve_bytes"] != dry["serve_bytes"]:
+            bad.append(f"rank {i} bytes {r['shard_bytes']}, "
+                       f"{r['serve_bytes']}")
+        for j, c in enumerate(r["train_coll"]):
+            if got(c) != dry["train"]:
+                bad.append(f"rank {i} train step {j + 1}: {got(c)}")
+        if got(r["serve_coll"]) != dry["serve"]:
+            bad.append(f"rank {i} serve: {got(r['serve_coll'])}")
+    fmt = lambda t: ", ".join(f"{k.strip('_')} {n} calls {b / 1e9:.4f} GB"
+                              for k, (n, b) in sorted(t.items()))
+    print(f"  [{card}] 10b {name} vs the dry-run (meta, rank 0, "
+          f"{dry['s']:.1f} s): shard bytes a rank, train state "
+          f"{dry['train_bytes']:.0f} B, parameters and serve state "
+          f"{dry['serve_bytes']:.0f} B; a train step's collectives "
+          f"{fmt(dry['train'])}; the serve steps' {fmt(dry['serve'])}: "
+          f"{'every rank equal' if not bad else 'DIFFER'}", flush=True)
+    if bad:
+        fail(f"10b {name}: the ranks differ from the dry-run (want "
+             f"{dry['train_bytes']:.0f} / {dry['serve_bytes']:.0f} B, "
+             f"{dry['train']}, {dry['serve']}): {bad}")
+
+
 def _time_collectives(torch, cls) -> dict:
     """Wrap the collectives of ``cls`` (``sharding.MeshAxes``) in this
     process: each call synchronizes the card before and after and adds
@@ -5249,6 +5249,8 @@ def _mesh_rank(rank, rdv, sh, q):
                 device=dev).manual_seed(0), device=dev)
             specs = train.state_specs(state0, mesh)
             local = shd.local_shards(state0, specs, mesh)
+            shard_bytes = _tensor_bytes(torch, (local.params, local.opt.mu,
+                                                local.opt.nu))
             b = next(TokenLoader(cfg, mesh, batch=g["batch"], seq=g["seq"],
                                  seed=0, device=dev))
             place = lambda spec, t: shd.Placement(
@@ -5314,6 +5316,7 @@ def _mesh_rank(rank, rdv, sh, q):
             st = shd.local_shards(tf.init_serve(cfg, B, 2 * g["serve_steps"],
                                                 device=dev, cache_dtype=f32),
                                   sspec, mesh)
+            serve_bytes = _tensor_bytes(torch, (local.params, st))
             lspec = shd.logits_spec(mesh, batch=B, vocab=cfg.vocab_padded)
             serve_err, t1 = 0.0, time.perf_counter()
             _mesh_reset(attn_ops, ssd_ops)
@@ -5332,6 +5335,8 @@ def _mesh_rank(rank, rdv, sh, q):
                              serve_s=time.perf_counter() - t1,
                              serve_counts=_mesh_counts(attn_ops, ssd_ops),
                              train_coll=train_coll, serve_coll=dict(spent),
+                             shard_bytes=shard_bytes,
+                             serve_bytes=serve_bytes,
                              case_s=time.perf_counter() - t_case)
             del local, new, yard, st
             torch.cuda.empty_cache()
@@ -5407,6 +5412,7 @@ def mesh_gloo(torch, card) -> dict:
                                    for lg in logits], spread=spread,
                         loss=float(m.loss), grad_norm=float(m.grad_norm))
         del state0, yard, logits, st
+        sh[name]["dry"] = mesh_dryrun(torch, cfg, force_tp)
     t0, wall0 = time.perf_counter(), time.time()
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
@@ -5490,6 +5496,7 @@ def mesh_gloo(torch, card) -> dict:
         if not (launched and serve_launched):
             fail(f"10b {name}: a kernel was not launched: "
                  f"{[r['counts'] for r in ranks]}")
+        mesh_vs_dryrun(card, name, d["dry"], ranks)
         coll = lambda c: ", ".join(
             f"{k.strip('_')} {n} calls {sec:.2f} s {b / 1e9:.2f} GB"
             for k, (n, sec, b) in sorted(c.items()))
@@ -5530,6 +5537,144 @@ def mesh_steps(torch, card: str, attn_ops, ssd_ops) -> dict:
     return {"one_rank": one, "gloo": gloo}
 
 
+DRY_MESH = {"data": 1, "model": 1}
+DECODE_TIMED = 8            # phase 11's decode steps timed after a warm-up
+
+
+def _dry_line(card, what, dry, real_bytes, peak_gb, seconds, roof) -> None:
+    print(f"  [{card}] 11 {what}: per-rank bytes dry-run "
+          f"{dry['bytes_per_device']:.0f}, card {real_bytes} "
+          f"({'equal' if real_bytes == dry['bytes_per_device'] else 'DIFFER'}"
+          f"); peak {peak_gb:.2f} GB; traced {dry['flops'] / 1e12:.3f} "
+          f"TFLOP (meta, {dry['compile_s']:.1f} s), model "
+          f"{roof.model_flops / 1e12:.3f} TFLOP; t_compute "
+          f"{roof.t_compute * 1e3:.3f} ms, t_memory {roof.t_memory * 1e3:.3f}"
+          f" ms ({roof.bottleneck}); measured {seconds * 1e3:.3f} ms",
+          flush=True)
+    if real_bytes != dry["bytes_per_device"]:
+        fail(f"11 {what}: the dry-run's per-rank bytes "
+             f"{dry['bytes_per_device']} differ from the card's {real_bytes}")
+
+
+def dryrun_vs_card(torch, card: str) -> dict:
+    """Phase 11: (a) the dry-run (``launch.dryrun`` at mesh (1, 1), rank 0
+    on meta) against the same steps on the card; (c) the contract audit on
+    the card."""
+    from repro_torch.analysis import contracts
+    from repro_torch.configs.registry import get_config
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data import synthetic
+    from repro_torch.data.loader import TokenLoader
+    from repro_torch.launch import dryrun, train
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim.adam import Adam
+    from repro_torch.roofline import analysis
+
+    def roof(name, dry, shape, last=False):
+        return analysis.analyze(
+            name, shape.name, "data1_model1", chips=1,
+            traced={"flops": dry["flops"], "bytes": dry["bytes"],
+                    "collective": dry["collective"]}, cfg=get_config(name),
+            shape=shape, bytes_per_device=dry["bytes_per_device"],
+            last_logits=last)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, \
+            torch.cuda.max_memory_allocated() / 1e9
+
+    out = {}
+    for name, run in (("qwen3-1.7b", TRAIN_QWEN),
+                      ("mamba2-130m", TRAIN_MAMBA)):
+        cfg = get_config(name)
+        B, mb = run["batch"], run["microbatches"]
+        dry = dryrun.trace_train(cfg, DRY_MESH, batch=B, seq=LM_SEQ,
+                                 microbatches=mb)
+        torch.cuda.empty_cache()
+        opt = Adam(lr=TRAIN_LR)
+        state = train.init_state(
+            cfg, opt, generator=torch.Generator(device="cuda").manual_seed(0))
+        real = _tensor_bytes(torch, (state.params, state.opt.mu,
+                                     state.opt.nu))
+        step, _ = train.make_train_step(cfg, None, opt, microbatches=mb,
+                                        remat=True)
+        loader = TokenLoader(cfg, batch=B, seq=LM_SEQ, seed=0)
+        state, _ = step(state, next(loader))                  # warm-up
+        batch = next(loader)
+        (state, m), sec, peak = timed(lambda: step(state, batch))
+        if not math.isfinite(float(m.loss)):
+            fail(f"11 {name}: the step's loss is not finite")
+        shape = ShapeSpec("train", LM_SEQ, B, "train")
+        _dry_line(card, f"{name} train step {B} x {LM_SEQ} ({mb} "
+                  f"microbatches)", dry, real, peak, sec,
+                  roof(name, dry, shape))
+        out[f"{name} train"] = dict(bytes=real, peak_gb=peak, s=sec,
+                                    flops=dry["flops"])
+        if name != "qwen3-1.7b":
+            del state
+            continue
+        params = state.params
+        del state
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        toks = synthetic.lm_tokens(gen, batch=LM_BATCH, seq=LM_SEQ - 1,
+                                   vocab=cfg.vocab)
+        dry = dryrun.trace_prefill(cfg, DRY_MESH, batch=LM_BATCH, seq=LM_SEQ,
+                                   last_logits=True)
+        fwd = lambda: tf.forward(params, toks, cfg, logits_last_only=True)
+        fwd()                                                  # warm-up
+        _, sec, peak = timed(fwd)
+        shape = ShapeSpec("prefill", LM_SEQ, LM_BATCH, "prefill")
+        _dry_line(card, f"{name} prefill {LM_BATCH} x {LM_SEQ}", dry,
+                  _tensor_bytes(torch, params), peak, sec,
+                  roof(name, dry, shape, last=True))
+        max_len = GEN_PROMPT + GEN_NEW
+        dry = dryrun.trace_decode(cfg, DRY_MESH, batch=LM_BATCH,
+                                  max_len=max_len)
+        st = tf.init_serve(cfg, LM_BATCH, max_len)
+        real = _tensor_bytes(torch, (params, st))
+        tok = toks[:, :1]
+        for _ in range(GEN_PROMPT):                            # a prompt
+            _, st = tf.decode_step(params, tok, st, cfg)
+        step_s = []
+        for _ in range(DECODE_TIMED):
+            (_, st), sec, peak = timed(
+                lambda: tf.decode_step(params, tok, st, cfg))
+            step_s.append(sec)
+        shape = ShapeSpec("decode", GEN_PROMPT, LM_BATCH, "decode")
+        _dry_line(card, f"{name} decode step B={LM_BATCH} (p50 of "
+                  f"{DECODE_TIMED})", dry, real, peak,
+                  sorted(step_s)[len(step_s) // 2], roof(name, dry, shape))
+        del params, st
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    contracts.reset_registry()
+    report = contracts.run_audit()
+    gens = report["launches"]
+    print(f"  [{card}] 11 contract audit (routed pPIC on the card): "
+          f"{report['n_executables']} callables, {report['n_audited']} "
+          f"audited over {report['n_rebind_generations']} rebind "
+          f"generations: fingerprints and launches identical "
+          f"{report['rebind_identical']}, callables built "
+          f"{report['rebind_new_traces']}; kernel launches a generation "
+          f"{gens[0]}; tenant interleaving identical "
+          f"{report['interleaving_identical']}; no_retrace "
+          f"{report['no_retrace']}, violations "
+          f"{report['no_retrace_violations']}; {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    launched = sum(n for made in gens[0].values() for n in made.values())
+    if not (report["ok"] and all(g == gens[0] for g in gens)
+            and launched > 0):
+        fail(f"11 the contract audit on the card: {report}")
+    out["audit_ok"] = report["ok"]
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
@@ -5537,13 +5682,15 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default=None,
                     help="comma-separated subset of 3 (the backward "
                     "kernels' checks), 8 (LM training), 9 (the continuous "
-                    "batcher), 10 (the LM's steps over a mesh) and downdate "
-                    "(the downdate's checks) to run after the card and "
-                    "build phases; prints no kernels line")
+                    "batcher), 10 (the LM's steps over a mesh), 11 (the "
+                    "dry-run against the card, the contract audit) and "
+                    "downdate (the downdate's checks) to run after the card "
+                    "and build phases; prints no kernels line")
     only = ap.parse_args(argv).phases
     only = None if only is None else set(only.split(","))
-    if only is not None and not only <= {"3", "8", "9", "10", "downdate"}:
-        print(f"FAIL: --phases takes 3, 8, 9, 10 and downdate; got "
+    if only is not None and not only <= {"3", "8", "9", "10", "11",
+                                         "downdate"}:
+        print(f"FAIL: --phases takes 3, 8, 9, 10, 11 and downdate; got "
               f"{sorted(only)}", flush=True)
         return 2
     try:
@@ -5561,6 +5708,8 @@ def main(argv=None) -> int:
         return 3
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (turns TF32 off)
+    global hw, rk
+    from repro_torch.roofline import hw, kernels as rk
     from repro_torch.kernels import build
     from repro_torch.kernels.rbf import ops, ref
 
@@ -5624,6 +5773,9 @@ def main(argv=None) -> int:
         if "10" in only:
             phase("phase 10: LM steps over a mesh")
             mesh_steps(torch, card, attn_ops, ssd_ops)
+        if "11" in only:
+            phase("phase 11: the dry-run against the card; contract audit")
+            dryrun_vs_card(torch, card)
         phase("")
         print(card, flush=True)
         print(json.dumps({"ok": True, "phases": sorted(only), "device": {
@@ -5798,6 +5950,8 @@ def main(argv=None) -> int:
                 "launches"][name[1]]
     rows[0]["lm_batcher"] = batched
     rows[0]["lm_mesh"] = meshed
+    phase("phase 11: the dry-run against the card; contract audit")
+    rows[0]["dryrun_vs_card"] = dryrun_vs_card(torch, card)
 
     for row in rows:
         row["launches"] = launches[row["name"]]

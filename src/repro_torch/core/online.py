@@ -201,6 +201,8 @@ def _downdate(L: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     the limit the cold fit's own float32 error sets (``chip_smoke.py``
     phase 4d on an H100; ROADMAP §3). Run in float64, the downdate of the
     float32 factor adds only the final rounding to it."""
+    # float64 whatever the store's dtype, on purpose (above; ROADMAP §3 6)
+    # analysis: ignore[DTY001]
     rd = torch.promote_types(L.dtype, torch.float64)
     return linalg.chol_update_rank(L.to(rd), W.to(rd),
                                    sign=-1.0).to(L.dtype)

@@ -166,6 +166,9 @@ def _global_pieces(params, Fm, ym, Sdot_m, *, axis_name):
     """Steps 3-4 (eqs. 19-23): one fused psum of [Phi_m | ydot_m | Sdot_m]
     over this process's machines Fm (L, R, b), ym (L, b), Sdot_m (L, R, u),
     in the R-space dtype (float64). Returns (ydd (R,), Sdd (R, u))."""
+    # pICF's R-space in float64 for any data dtype, on purpose (the module
+    # docstring; ROADMAP §3 item 7)
+    # analysis: ignore[DTY001]
     rd = torch.promote_types(Fm.dtype, torch.float64)
     s2 = cov.noise_var(params).to(rd)
     Fr = Fm.to(rd)
@@ -185,6 +188,9 @@ def machine_step(kfn, params, Xm, ym, U, Fm, *, axis_name):
     """Steps 3-6 with U replicated, for this process's machines Xm (L, b,
     d), ym (L, b), Fm (L, R, b); ``axis_name`` is the runner's machine axis.
     Returns the replicated (mean (u,), cov (u, u)) in U's dtype."""
+    # pICF's R-space in float64 for any data dtype, on purpose (the module
+    # docstring; ROADMAP §3 item 7)
+    # analysis: ignore[DTY001]
     rd = torch.promote_types(Fm.dtype, torch.float64)
     s2 = cov.noise_var(params).to(rd)
     Kud = kfn(params, U, Xm).to(rd)                         # (L, u, b)
@@ -215,6 +221,9 @@ def machine_step_sharded_u(kfn, params, Xm, ym, Ub_all, Fm, *, axis_name):
     Returns this process's (mean (L, u/M), cov (L, u/M, u/M)) in U's
     dtype."""
     ax = axis_name
+    # pICF's R-space in float64 for any data dtype, on purpose (the module
+    # docstring; ROADMAP §3 item 7)
+    # analysis: ignore[DTY001]
     rd = torch.promote_types(Fm.dtype, torch.float64)
     s2 = cov.noise_var(params).to(rd)
     M, bu, dim = Ub_all.shape
@@ -516,7 +525,9 @@ def init_picf_store(kfn, params, X, y, *, rank: int, runner: Runner,
     Xb, yb = runner.shard_blocks(X), runner.shard_blocks(y)
     if local is None:
         local = factor(kfn, params, X, rank, runner)        # (L, R, b)
-    # the R-space algebra in float64 (the module docstring says why)
+    # the R-space algebra in float64 (the module docstring says why;
+    # ROADMAP §3 item 7)
+    # analysis: ignore[DTY001]
     rd = torch.promote_types(local.F.dtype, torch.float64)
     Fr, s2 = local.F.to(rd), cov.noise_var(params).to(rd)
     R = local.F.shape[1]

@@ -39,6 +39,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import no_retrace
 from repro_torch.core import api, clustering
 from repro_torch.core import covariance as cov
 from repro_torch.core import linalg
@@ -316,9 +317,15 @@ def route_queries(state: api.PICState, U) -> torch.Tensor:
     return torch.argmin(d2, dim=1)
 
 
+@no_retrace("ppic.cinv_blocks")
 def cinv_blocks(C_L: torch.Tensor) -> torch.Tensor:
     """(M, b, b) dense symmetric inverses ``(C_L C_Lᵀ)⁻¹`` per block — the
-    one-time plan-build cost behind ``ServeSpec(cached_cinv=True)``."""
+    one-time plan-build cost behind ``ServeSpec(cached_cinv=True)``.
+
+    Under the ``no_retrace`` contract (``analysis.contracts``): after a
+    deployment's warm-up ``contracts.freeze()``, a rebind or refresh must
+    only ever call this with the (shape, dtype, device) signature it was
+    warmed with."""
     eye = torch.eye(C_L.shape[-1], dtype=C_L.dtype, device=C_L.device)
     return linalg.chol_solve(C_L, eye.expand(C_L.shape))
 
@@ -513,6 +520,9 @@ class PICServePlan(api.ServePlan):
         through the degraded program; ``stats.last_degraded`` says which
         (None on fully-healthy requests, which run the baseline program)."""
         Up, u = self._padded(U)
+        # The one designed host sync of a routed request: the host routes
+        # the staged batch (nearest centroid, then the overflow groups).
+        # analysis: ignore[SYN001]
         assign, g = self._route(Up.cpu().numpy(), u)
         dev = Up.device
         assign_t = torch.as_tensor(assign).to(dev)
@@ -531,7 +541,7 @@ class PICServePlan(api.ServePlan):
                 self.params, self.state, self.caches, Up, assign_t,
                 torch.as_tensor(dead).to(dev))
             self.stats.last_degraded = dead[:u].copy()
-            self.stats.n_degraded_rows += int(dead[:u].sum())
+            self.stats.n_degraded_rows += np.count_nonzero(dead[:u])
         else:
             mean, var = self._routed_exec(g)(self.params, self.state,
                                              self.caches, Up, assign_t)

@@ -9,6 +9,13 @@ is. ``build_all`` starts one ``nvcc`` per missing library, all at once, and
 keeps each compiler's output (``-Xptxas -v``: registers, shared memory,
 spills) beside the library as ``.log``.
 
+Each wrapper routes its inputs through ``on_cpu``: all on the CPU, or all
+on the ``meta`` device, take the plain version (``ref.py``); all on one
+CUDA device launch the kernel; anything else raises. Meta tensors hold
+shapes and no data, and a caller gets them only by asking
+(``launch.dryrun`` traces a step there), so the meta route is not a
+fallback: a CUDA tensor launches its kernel or raises.
+
 Pointers cross the C boundary as ``ctypes.c_void_p`` and the stream as
 ``torch.cuda.current_stream().cuda_stream``; each C entry point returns
 ``cudaGetLastError()`` and the wrapper raises when it is not 0.
@@ -109,15 +116,24 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def on_cpu(*tensors) -> bool:
-    """True for all-CPU inputs (a wrapper's plain path), False for all
-    inputs on one CUDA device (its kernel path); anything else raises."""
+    """The route of a wrapper's inputs: True where the plain version runs,
+    False where the kernel launches; anything else raises.
+
+    - all on the CPU: the plain version (``ref.py``);
+    - all on the ``meta`` device: the plain version too. Meta tensors hold
+      shapes and no data, so there is nothing to launch a kernel on; a
+      caller gets them only by asking for them (``launch.dryrun`` traces a
+      step's shapes, FLOP and collectives there). It is not a fallback;
+    - all on one CUDA device: the kernel (a CUDA tensor launches its kernel
+      or raises, never the plain version)."""
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    if kinds in ({"cpu"}, {"meta"}):
         return True
     if kinds == {"cuda"} and len({t.device for t in tensors}) == 1:
         return False
-    raise ValueError(f"inputs must all lie on the CPU or all on one CUDA "
-                     f"device; got {sorted(str(t.device) for t in tensors)}")
+    raise ValueError(f"inputs must all lie on the CPU, all on the meta "
+                     f"device or all on one CUDA device; got "
+                     f"{sorted(str(t.device) for t in tensors)}")
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

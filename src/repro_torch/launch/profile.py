@@ -5,7 +5,9 @@
 
 For each window it prints the wall time, the device's busy share (the union
 of the kernels' intervals over the window) and the kernels that took the
-most device time, grouped by name. Random weights from ``init_model``
+most device time, grouped by name; then the window's model FLOP
+(``roofline.analysis.model_flops``) over its wall time, against the card's
+bf16 peak (``roofline.hw``). Random weights from ``init_model``
 (seed 0) at the configuration's full width and depth; bfloat16 compute;
 the prefill and prompt shapes of ``chip_smoke.py``'s LM phases. Needs a
 CUDA card and fails without one.
@@ -20,8 +22,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.registry import get_config
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.data import synthetic
 from repro_torch.models import transformer as tf
+from repro_torch.roofline import analysis, hw
 
 # chip_smoke.py's LM shapes: prefill batch x length, prompt length; then a
 # few decode steps, and the kernel names printed per window
@@ -47,9 +51,9 @@ def busy_us(intervals) -> float:
     return total
 
 
-def report(label: str, fn) -> None:
+def report(label: str, fn, model_flops: float | None = None) -> None:
     """Profile ``fn`` once (after one untraced warm-up) and print its
-    breakdown."""
+    breakdown, and ``model_flops``, where given, over its wall time."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -75,6 +79,12 @@ def report(label: str, fn) -> None:
                                 )[:TOP]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / kernel_ms:5.1f}% "
               f"x{n:<5d} {name[:90]}", flush=True)
+    if model_flops is None:
+        return
+    rate = model_flops / wall_ms / 1e9
+    print(f"  model FLOP {model_flops / 1e9:.1f} G: {rate:.1f} TFLOP/s over "
+          f"the wall time, {100 * rate * 1e12 / hw.PEAK_FLOPS_BF16:.1f}% of "
+          f"the bf16 peak", flush=True)
 
 
 def main(argv=None) -> int:
@@ -91,7 +101,9 @@ def main(argv=None) -> int:
     print(f"{args.model} on {torch.cuda.get_device_name(0)}, batch {BATCH}",
           flush=True)
     report(f"prefill {BATCH} x {SEQ}",
-           lambda: tf.forward(params, toks, cfg, logits_last_only=True))
+           lambda: tf.forward(params, toks, cfg, logits_last_only=True),
+           analysis.model_flops(cfg, ShapeSpec("prefill", SEQ, BATCH,
+                                               "prefill"), last_logits=True))
 
     max_len = PROMPT + 2 * DECODE_STEPS + 2
     holder = {}
@@ -111,7 +123,9 @@ def main(argv=None) -> int:
 
     fresh()
     report(f"{DECODE_STEPS} decode steps after a {PROMPT}-token prompt",
-           steps)
+           steps, sum(analysis.model_flops(cfg, ShapeSpec(
+               "decode", PROMPT + i, BATCH, "decode"))
+               for i in range(DECODE_STEPS)))
     return 0
 
 

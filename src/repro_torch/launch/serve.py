@@ -164,7 +164,7 @@ class _MeshOps(tf.DecodeOps):
 
     def __init__(self, cfg, mesh, pspec, batch: int):
         self.cfg, self.pspec = cfg, pspec
-        self.axes = axes = shd.MeshAxes(mesh)
+        self.axes = axes = shd.mesh_axes(mesh)
         sizes = axes.sizes
         caches = serve_state_specs(cfg, sizes, batch=batch).caches
         kv = next((c.k for c in caches if isinstance(c, attn.KVCache)),

@@ -207,12 +207,14 @@ def make_train_step(cfg: ModelConfig, mesh, opt: Adam, *,
     def on_mesh(state: TrainState):
         """The step over ``mesh`` for a state shaped like ``state`` (its
         full shapes: the specs come from them; the leaves may lie on the
-        ``meta`` device). Each rank of the mesh calls it."""
+        ``meta`` device). Each rank of the mesh calls it. ``mesh`` may
+        also be a ``MeshAxes`` (``sharding.mesh_axes``), as the dry-run
+        passes its recording axes."""
         if mesh is None:
             raise ValueError("on_mesh needs a mesh: make_train_step was "
                              "given none (mesh=None)")
         specs = state_specs(state, mesh)
-        axes = shd.MeshAxes(mesh)
+        axes = shd.mesh_axes(mesh)
         rows = axes.group(shd.batch_axes(mesh))
         R = rows.size
 

@@ -8,12 +8,16 @@ compute), after a warm-up step.
 It prints the step's wall time, the device's busy share, the kernel time of
 the backward kernels (every kernel whose name holds ``bwd``: flash
 attention's and the SSD block's) and their share of all kernel time, and
-the kernels that took the most time. Random weights and Adam (seed 0) at
+the kernels that took the most time; then the backward kernels' bound at
+the step's shapes (``roofline.kernels``: each layer's, times the
+microbatches) and the step's model FLOP (``roofline.analysis``) over its
+wall time. Random weights and Adam (seed 0) at
 the configuration's full width and depth, sequences of 4096 tokens from
 ``TokenLoader``: ``chip_smoke.py``'s phase 8. Needs a CUDA card and fails
 without one. It uses only the entry points a user calls, so it also traces
 an earlier tree's step: run it with that tree's ``src`` first on the path
-(``runpy.run_path`` of this file leaves the path as it is).
+(``runpy.run_path`` of this file leaves the path as it is); the tree must
+hold ``repro_torch.roofline``.
 """
 from __future__ import annotations
 
@@ -24,9 +28,37 @@ from collections import defaultdict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.launch.profile import busy_us, kernels
+from repro_torch.roofline import analysis, hw
+from repro_torch.roofline import kernels as rk
 
 SEQ, LR, TOP = 4096, 1e-5, 10
+
+
+def backward_bound_ms(cfg, batch: int, microbatches: int) -> float:
+    """The least time the step's backward kernels could take: each
+    attention layer's flash backward (bf16, causal) and each SSD layer's
+    intra-chunk backward (3xTF32) at a microbatch's shape, times the
+    microbatches."""
+    b, total = batch // microbatches, 0.0
+    for desc in cfg.plan():
+        if desc.kind == "attn":
+            ms, _ = rk.bound_ms(
+                rk.flash_bwd_bytes(b, cfg.n_heads, cfg.n_kv_heads, SEQ,
+                                   cfg.head_dim),
+                rk.flash_bwd_flops(b, cfg.n_heads, SEQ, cfg.head_dim),
+                hw.PEAK_FLOPS_BF16)
+        else:
+            cs = cfg.ssm_chunk
+            shape = (b * SEQ // cs, cs,
+                     cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim,
+                     cfg.ssm_headdim, cfg.ssm_state)
+            ms, _ = rk.bound_ms(rk.ssd_bwd_bytes(*shape),
+                                3 * rk.ssd_bwd_flops(*shape),
+                                hw.PEAK_FLOPS_TF32)
+        total += ms * microbatches
+    return total
 
 
 def trace_step(step, state, batch):
@@ -99,6 +131,15 @@ def main(argv=None) -> int:
     report(f"{cfg.name} training step, batch {args.batch} x {SEQ} "
            f"({args.microbatches} microbatches), "
            f"{torch.cuda.get_device_name(0)}", r)
+    bound = backward_bound_ms(cfg, args.batch, args.microbatches)
+    model = analysis.model_flops(cfg, ShapeSpec("train", SEQ, args.batch,
+                                                "train"))
+    rate = model / r["wall_ms"] / 1e9
+    print(f"  backward kernels {r['bwd_ms']:.3f} ms against a bound of "
+          f"{bound:.3f} ms ({r['bwd_ms'] / bound:.1f}x); model FLOP "
+          f"{model / 1e12:.2f} T, {rate:.1f} TFLOP/s over the wall time, "
+          f"{100 * rate * 1e12 / hw.PEAK_FLOPS_BF16:.1f}% of the bf16 peak",
+          flush=True)
     return 0
 
 

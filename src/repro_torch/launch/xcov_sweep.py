@@ -7,7 +7,8 @@ At |S| = 2048, d = 5, with L2 (the GP serving path's shape), from a
 call's kernels (panels, chunk sums, reduction) for k-chunks of 128, 256,
 512 and whole panels, at n = 8, 64, 256 and 1024, one JSON line each, with
 ``chosen`` marking the chunk ``ops._tc_chunk`` picks. This is the table
-its thresholds are read from.
+its thresholds are read from. Each line also carries the call's bound
+(``roofline.kernels``: 3xTF32 operations or bytes, whichever is larger).
 
 Inputs are random (seed 0) with well-conditioned factors, as in
 ``chip_smoke.py``'s timing. Needs a CUDA card and fails without one.
@@ -21,6 +22,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.kernels import build
 from repro_torch.kernels.rbf import ops
+from repro_torch.roofline import hw, kernels as rk
 
 S, D, ITERS = 2048, 5, 30
 CHUNK_N, CHUNKS = (8, 64, 256, 1024), (128, 256, 512, S)
@@ -69,11 +71,14 @@ def main() -> int:
           f"device us per call", flush=True)
     for n in CHUNK_N:
         Xq = (torch.rand((n, D), generator=gen, device="cuda") * 4 - 2) / 1.2
+        bound, by = rk.bound_ms(rk.xcov_bytes(n, S, D, True),
+                                3 * rk.xcov_flops(n, S), hw.PEAK_FLOPS_TF32)
         for kc in CHUNKS:
             us = device_us(lambda: ops.xcov_diag_inv(
                 Xq, Xk, inv[0], alpha, s2, inv[1], kc=kc))
             print(json.dumps(dict(n=n, kc=kc, chosen=kc == ops._tc_chunk(n, S),
-                                  us=us)), flush=True)
+                                  us=us, bound_us=round(bound * 1e3, 2),
+                                  bound_by=by)), flush=True)
     return 0
 
 

@@ -426,6 +426,14 @@ class MeshAxes:
             self.live(entry_axes(e)) for e in spec)
 
 
+def mesh_axes(mesh) -> MeshAxes:
+    """``mesh``'s axes on this rank: ``MeshAxes(mesh)`` of a
+    ``DeviceMesh``, or ``mesh`` itself when it is a ``MeshAxes`` already
+    (``launch.dryrun``'s recording axes, which trace one rank's step with no
+    process group)."""
+    return mesh if isinstance(mesh, MeshAxes) else MeshAxes(mesh)
+
+
 class _Gather(torch.autograd.Function):
     """``MeshAxes.gather`` with the backward ``MeshAxes.reduce_to_shard``
     (the gradient summed over the axes ``names``, in rank order)."""

@@ -45,7 +45,14 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.optim.compression",
             "repro_torch.checkpoint.io", "repro_torch.checkpoint.manager",
             "repro_torch.parallel.sharding", "repro_torch.data.loader",
-            "repro_torch.launch.train", "repro_torch.launch.scheduler"} \
+            "repro_torch.launch.train", "repro_torch.launch.scheduler",
+            "repro_torch.configs.shapes", "repro_torch.launch.specs",
+            "repro_torch.launch.dryrun", "repro_torch.roofline.hw",
+            "repro_torch.roofline.kernels", "repro_torch.roofline.analysis",
+            "repro_torch.roofline.report", "repro_torch.roofline.rescore",
+            "repro_torch.analysis", "repro_torch.analysis.engine",
+            "repro_torch.analysis.rules", "repro_torch.analysis.contracts",
+            "repro_torch.analysis.__main__"} \
         <= set(mods)
     code = (
         "import importlib, sys\n"
