@@ -7,10 +7,10 @@ card. Run from the root of a checkout, with one card visible:
 Phases, in order; any failure exits non-zero before the last line:
 
 1. card: name and power limit (nvidia-smi);
-2. build: the nine CUDA sources (rbf, rbf_icf, xcov_diag,
+2. build: the ten CUDA sources (rbf, rbf_icf, xcov_diag,
    flash_attention, flash_attention_bwd, ssd_intra_chunk,
    ssd_intra_chunk_bwd, chol_downdate and its probes,
-   chol_downdate_probe) from the checkout
+   chol_downdate_probe, row_products) from the checkout
    (nvcc, sm_90a, one compiler per source, started together) into
    build/kernels/; every float32 xcov_diag instance must hold wgmma (HGMMA)
    in its SASS;
@@ -52,7 +52,15 @@ Phases, in order; any failure exits non-zero before the last line:
    store, and counts the wgmma route's launches (bf16 at D = 64 and 128,
    not D = 256, not f32); both timed at the training and prefill shapes
    beside their bounds, the plain versions, the flash backward's two-pass
-   mma.sync route on the same inputs and, for flash, SDPA's backward;
+   mma.sync route on the same inputs and, for flash, SDPA's backward; the
+   row products of pPIC's routed diag (rows_mm, rows_reduce) at a 256-row
+   request's shapes in float32 and float64, each stage on the previous
+   one's output (bitwise the plain version in float64 and for
+   rows_reduce, rows_mm float32 within TOL_ROWS_F32), three runs equal,
+   each row the same bits alone, in the capacity-|U| batch and as an
+   indexed overflow group, timed beside their bounds, the plain versions,
+   the library's GEMMs on the same inverses (bmm, baddbmm) and the
+   parent's route (trsm and GEMM against the factors) on the same stages;
 4. GP main path: pPITC at the paper's AIMPEAK configuration (|D| = 32000,
    M = 20, |S| = 2048, d = 5, float32): support selection, fit, plan,
    warm-up, 8 requests through ``plan.diag``; support selection must be
@@ -66,12 +74,15 @@ Phases, in order; any failure exits non-zero before the last line:
    8 requests through ``plan(ServeSpec(routed=True)).routed_diag`` after
    warming the whole overflow ladder; the test RMSE must be at most
    0.3040 + 0.002 with no negative variance, the error against a float64
-   fit of the same data within 10 x pPITC's own + 1e-4, a permuted request
-   bitwise equal, a skewed request must overflow (g > 0) and agree with
-   the capacity-|U| layout (the first is also run stage by stage in both
-   layouts, printing the first stage of the per-block program where they
-   part), the cached C^-1 with the trsm path, and a dead block's rows must
-   be served by xcov_diag from the global posterior;
+   fit of the same data within 10 x pPITC's own + 1e-4, every request
+   launching rows_mm and rows_reduce, a permuted request and the request
+   served in chunks of 7 and 64 bitwise equal to the whole, a skewed request at each of four blocks must overflow (g > 0)
+   and equal the capacity-|U| layout bitwise (the first is also run stage
+   by stage in both layouts, every stage of the per-block program
+   bitwise), the cached C^-1 with the default path, a dead block's rows
+   must be served by xcov_diag from the global posterior, and a traced
+   256-row request (kernels, busy share) must show rows_mm and
+   rows_reduce and no trsm kernel;
 4c. GP pICF and MLE, on phase 4's data and hyperparameters, M = 20,
    R = 2048: the ICF kernel at pICF's instance (32000, 2048, 5) against
    the plain loop in float64 (pivots identical; F, residual and pivot
@@ -125,7 +136,8 @@ Phases, in order; any failure exits non-zero before the last line:
    ``TenantScheduler`` over the pPITC tenant (weight 1) and a routed pPIC
    tenant (weight 2), the same points alternating: each tenant bitwise a
    single-tenant ``GPServer`` fed the same flushes (the dispatch log's),
-   no callable built after warm-up, a third tenant of pPIC's lineage
+   the pPIC tenant's tickets bitwise one ``routed_diag`` over all of their
+   queries, no callable built after warm-up, a third tenant of pPIC's lineage
    sharing its callables; (c) a server over ``init_store("ppitc")`` on
    the first wave, then ``update`` (the second), ``retire_machine(3)``
    and ``revive_machine(3)``, 100 tickets pending across each swap
@@ -272,7 +284,11 @@ backward kernels or the training path. ``--phases downdate`` runs phases
 1 and 2, then only phase 3's ``check_downdate``: the quick run after a
 change to the downdate kernel. ``--phases 9,10`` runs phases 1 and 2, then
 9 and 10: the quick run after a change to the batcher or the steps over a
-mesh. ``--phases 11`` runs phases 1 and 2, then 11.
+mesh. ``--phases 11`` runs phases 1 and 2, then 11. ``--phases 4b`` runs
+phases 1 and 2, phase 3's ``check_rows``, phase 4 (for the data, support
+set and state 4b reuses) and 4b, then prints a kernels line of rows_mm and
+rows_reduce alone: the quick run after a change to the row products or to
+pPIC's routed serving.
 """
 from __future__ import annotations
 
@@ -372,6 +388,19 @@ TOL_CONSISTENCY = 2e-3
 #  1e-5 in f32, where a wrong row, column or sweep errs by O(0.1).
 TOL_DOWNDATE = {"float32": 1e-5, "float64": 1e-12}
 DOWNDATE_REPEAT = 3      # launches of each downdate case (each equal)
+#  The row products of pPIC's diag (row_products.cu) against their plain
+#  versions (ref.rows_mm, ref.rows_reduce) on the same inputs. float64 and
+#  rows_reduce in both types: bitwise (the same correctly rounded products
+#  and sums in the same order). rows_mm float32: max |kernel - plain| over
+#  max (|C0| + |X| |op B|) <= TOL_ROWS_F32. Both sum K products in float32:
+#  the plain version over K / 8 tree sums in turn (<= (K / 8 + 3) 2^-24 of
+#  the sum of |terms|, 1.5e-5 at K = 2048), the kernel over K / 8 mma steps
+#  (the same, 1.5e-5), and 3xTF32 drops lo lo' and truncates lo (<= 3 x
+#  2^-21 a product, 1.4e-6); 1e-4 is 3x their sum. A wrong tile, entry or
+#  mask errs by O(1) of the scale.
+TOL_ROWS_F32 = 1e-4
+ROWS_REPEAT = 3          # launches of each row-product case (each equal)
+ROWS_U = 32              # rows a block: the main bucket of a 256-row request
 #  The backward kernels against their plain versions (autograd through
 #  ref.attention / ref.intra_chunk in float32 on the same inputs), max abs
 #  error per gradient <= tol x max|want| of that gradient.
@@ -1792,6 +1821,294 @@ def check_downdate(torch, ops, ref, gen):
                 shape=f"(n, b) = ({n}, {b}) f32")
 
 
+def _rows_tables(torch, gen, dt) -> dict:
+    """Random operands of the routed diag program at AIMPEAK's widths, M
+    blocks of ROWS_U rows (the 256-row request's main bucket): K_US,
+    K_UD, the factors L, L2 (s, s) and C_L (M, b, b) with their inverses,
+    Q and K_SD (M, s, b), alpha and Wy; entries O(1) over their sums."""
+    from repro_torch.core import ppic
+    s, b = S_SIZE, N_TRAIN // M
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def factor(*shape):
+        n = shape[-1]
+        return (torch.tril(randn(*shape, scale=0.3 / n ** 0.5), -1)
+                + torch.diag_embed(1.0 + torch.rand(shape[:-1], generator=gen,
+                                                    device="cuda")))
+    t = dict(Kus=randn(M, ROWS_U, s), Kud=randn(M, ROWS_U, b),
+             L=factor(s, s), L2=factor(s, s), C_L=factor(M, b, b),
+             Q=randn(M, s, b, scale=s ** -0.5),
+             Ksd=randn(M, s, b, scale=b ** -0.5), alpha=randn(s, scale=0.1),
+             Wy=randn(M, b, scale=0.1), kdiag=1.0 + torch.rand(
+                 (M, ROWS_U), generator=gen, device="cuda"))
+    t = {k: v.to(dt) for k, v in t.items()}
+    eye = torch.eye(s, dtype=dt, device="cuda")
+    t["Linv"] = torch.linalg.solve_triangular(t["L"], eye, upper=False)
+    t["L2inv"] = torch.linalg.solve_triangular(t["L2"], eye, upper=False)
+    t["CLinv"] = ppic.chol_inv_blocks(t["C_L"])
+    return t
+
+
+def _rows_stages(mm, t: dict, X=None, idx=None) -> list:
+    """The program's six rows_mm stages (``ppic._diag_stages``) through
+    ``mm`` (the wrapper or the plain version), each on the previous one's
+    output; X in place of K_US (then t's K_UD matches it) and idx for the
+    tables where given."""
+    Kus = t["Kus"] if X is None else X
+    A = mm(Kus, t["Linv"], trans=True, lower=True)
+    R = mm(A, t["Q"], idx, C0=t["Kud"])
+    V = mm(R, t["CLinv"], idx, trans=True, lower=True)
+    W = mm(V, t["CLinv"], idx, lower=True)
+    Phi = mm(W, t["Ksd"], idx, trans=True, C0=Kus)
+    return [A, R, V, W, Phi, mm(Phi, t["L2inv"], trans=True, lower=True)]
+
+
+def _rows_library(torch, t: dict) -> list:
+    """The same six stages, one PyTorch call each on the same cached
+    inverses and tables (cuBLAS GEMM; its blocking and split-K follow the
+    row count): the library's time for the same function."""
+    A = torch.matmul(t["Kus"], t["Linv"].mT)
+    R = torch.baddbmm(t["Kud"], A, t["Q"], alpha=-1)
+    V = torch.bmm(R, t["CLinv"].mT)
+    W = torch.bmm(V, t["CLinv"])
+    Phi = torch.baddbmm(t["Kus"], W, t["Ksd"].mT, alpha=-1)
+    return [A, R, V, W, Phi, torch.matmul(Phi, t["L2inv"].mT)]
+
+
+def _rows_parent_route(torch, t: dict) -> list:
+    """The same six stages as the port's earlier route took them to the
+    library (cuBLAS trsm and GEMM against the factors)."""
+    from repro_torch.core import linalg
+    Kus, s = t["Kus"], t["Kus"].shape[-1]
+
+    def right(L, X):
+        return linalg.tri_solve_right(L, X.reshape(-1, X.shape[-1])
+                                      ).reshape(X.shape)
+    A = right(t["L"], Kus)
+    R = t["Kud"] - A @ t["Q"]
+    V = linalg.tri_solve_right(t["C_L"], R)
+    W = torch.linalg.solve_triangular(t["C_L"], V, upper=False, left=False)
+    Phi = Kus - W @ t["Ksd"].mT
+    return [A, R, V, W, Phi, right(t["L2"], Phi)]
+
+
+def check_rows(torch, ops, ref, gen) -> list:
+    """The row products of pPIC's routed diag (``ops.rows_mm``,
+    ``ops.rows_reduce``) against their plain versions at the 256-row
+    request's shapes (M = 20 blocks of 32 rows, s = 2048, b = 1600), in
+    float32 and float64, each stage on the previous one's kernel output:
+    f64 and rows_reduce bitwise, rows_mm f32 within TOL_ROWS_F32 of its
+    scale; each launched ROWS_REPEAT times, every run equal. Row-count
+    independence: each stage's rows are the same bits alone (one block, one
+    row), inside the capacity-|U| batch (256 rows a block) and as overflow
+    groups reading their owner's entries through an index. Timed (device,
+    from a trace) over the six stages of a request beside their summed
+    bounds, the plain version, the library's GEMMs on the same inverses
+    and the parent's route (trsm and GEMM against the factors) on the same
+    stages; rows_reduce alone."""
+    def eq(a, b):
+        return bool(torch.equal(a, b))
+
+    out = {}
+    for dt in (torch.float32, torch.float64):
+        key = str(dt).split(".")[1]
+        t = _rows_tables(torch, gen, dt)
+        n0, calls = ops.rows_mm_launches, []
+
+        def recorded(X, B, idx=None, **kw):
+            calls.append((X, B, idx, kw))
+            return ops.rows_mm(X, B, idx, **kw)
+        runs = [_rows_stages(recorded, t)] + [
+            _rows_stages(ops.rows_mm, t) for _ in range(ROWS_REPEAT - 1)]
+        if ops.rows_mm_launches - n0 != 6 * ROWS_REPEAT:
+            fail(f"rows_mm {key}: {ops.rows_mm_launches - n0} launches for "
+                 f"{ROWS_REPEAT} x 6 stages")
+        if not all(eq(a, b) for r in runs[1:] for a, b in zip(r, runs[0])):
+            fail(f"rows_mm {key}: repeated launches disagree")
+        got = runs[0]
+        errs, abs_errs, bitwise = [], [], []
+        for (X, B, idx, kw), y in zip(calls, got):
+            want = ref.rows_mm(X, B, idx, **kw)
+            abs_errs.append(max_err(y, want))
+            scale = (X.abs().double() @ (B.abs().double().mT if kw.get(
+                "trans") else B.abs().double())).amax()
+            if kw.get("C0") is not None:
+                scale = scale + kw["C0"].abs().amax()
+            errs.append(max_err(y, want) / float(scale))
+            bitwise.append(eq(y, want))
+        # row-count independence: one row alone; the capacity-|U| batch;
+        # overflow groups (blocks 3, 3, 7) through an index
+        big = torch.randn((M, 8 * ROWS_U, S_SIZE), generator=gen,
+                          device="cuda").to(dt)
+        big[:, :ROWS_U] = t["Kus"]
+        cap = _rows_stages(ops.rows_mm, dict(t, Kud=torch.cat(
+            [t["Kud"], big[:, ROWS_U:, :t["Kud"].shape[-1]]], 1)), big)
+        grp = torch.tensor([3, 3, 7], device="cuda")
+        over = _rows_stages(ops.rows_mm, dict(t, Kud=t["Kud"][grp]),
+                            t["Kus"][grp], grp)
+        one = _rows_stages(ops.rows_mm, dict(t, Kud=t["Kud"][5:6, 9:10]),
+                           t["Kus"][5:6, 9:10], torch.tensor([5],
+                                                             device="cuda"))
+        indep = all(eq(c[:, :ROWS_U], g) and eq(o, g[grp])
+                    and eq(z[0, 0], g[5, 9])
+                    for c, o, z, g in zip(cap, over, one, got))
+        # a table read in place through other strides (Q column-major, as
+        # the triangular solve returns it): the same bits
+        Qc = t["Q"].mT.contiguous().mT
+        indep &= eq(ops.rows_mm(got[0], Qc, C0=t["Kud"]), got[1])
+        tol = 0.0 if dt == torch.float64 else TOL_ROWS_F32
+        print(f"  rows_mm {key} (M, u, s, b) = ({M}, {ROWS_U}, {S_SIZE}, "
+              f"{N_TRAIN // M}) x{ROWS_REPEAT}, stages A R V W Phi Z: error "
+              f"vs plain over scale {[float(f'{e:.2e}') for e in errs]} (limit "
+              f"{tol:.0e}), bitwise {bitwise}; rows the same alone, in the "
+              f"capacity batch and as indexed groups, and Q read "
+              f"column-major the same: {indep}", flush=True)
+        if not indep or (dt == torch.float64 and not all(bitwise)) \
+                or max(errs) > tol:
+            fail(f"rows_mm {key}: errors {errs}, bitwise {bitwise}, "
+                 f"row-independent {indep}")
+
+        A, R, V, W, Phi, Z = got
+        red, red_errs = [], []
+        for cinv, T in ((False, V), (True, W)):
+            args = (t["kdiag"], Phi, t["alpha"], R, t["Wy"], None, A, T, Z)
+            n0 = ops.rows_reduce_launches
+            rr = [ops.rows_reduce(*args, cinv=cinv)
+                  for _ in range(ROWS_REPEAT)]
+            want = ref.rows_reduce(*args, cinv=cinv)
+            red_errs += [max_err(rr[0][0], want[0]),
+                         max_err(rr[0][1], want[1])]
+            m1, v1 = ops.rows_reduce(
+                args[0][3:4, 9:10], Phi[3:4, 9:10], t["alpha"],
+                R[3:4, 9:10], t["Wy"], torch.tensor([3], device="cuda"),
+                A[3:4, 9:10], T[3:4, 9:10], Z[3:4, 9:10], cinv=cinv)
+            ok = (ops.rows_reduce_launches - n0 == ROWS_REPEAT + 1
+                  and all(eq(r[0], rr[0][0]) and eq(r[1], rr[0][1])
+                          for r in rr)
+                  and eq(rr[0][0], want[0]) and eq(rr[0][1], want[1])
+                  and eq(m1[0, 0], want[0][3, 9])
+                  and eq(v1[0, 0], want[1][3, 9]))
+            red.append(ok)
+        print(f"  rows_reduce {key} (cinv False, True) x{ROWS_REPEAT}: "
+              f"bitwise the plain version, repeated runs equal, a row alone "
+              f"the same: {red}; max|kernel - plain| {max(red_errs):.3e}",
+              flush=True)
+        if not all(red):
+            fail(f"rows_reduce {key}: {red}")
+
+        # times: the six stages of one request, device, from a trace
+        ms = kernel_device_ms(torch, lambda: _rows_stages(ops.rows_mm, t),
+                              "rows_mm", 5, per_call=(6,))
+        stage_ms = [kernel_device_ms(
+            torch, lambda a=a: ops.rows_mm(*a[:3], **a[3]), "rows_mm", 5)
+            for a in calls]
+        t0 = time.perf_counter()
+        _rows_stages(ref.rows_mm, t)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        lib = kernel_device_ms(torch, lambda: _rows_library(torch, t), "", 5,
+                               per_call=tuple(range(1, 10000)))
+        lib_err = max(max_rel(a, b) for a, b in zip(_rows_library(torch, t),
+                                                    got))
+        parent = kernel_device_ms(
+            torch, lambda: _rows_parent_route(torch, t), "", 5,
+            per_call=tuple(range(1, 10000)))
+        parent_err = max(max_rel(a, b) for a, b in zip(
+            _rows_parent_route(torch, t), got))
+        # a matrix product: f64 at the tensor cores' (DMMA) rate
+        peak = hw.PEAK_FLOPS_TF32 if dt == torch.float32 \
+            else hw.PEAK_FLOPS_F64_TENSOR
+        mult = 3 if dt == torch.float32 else 1
+        size = torch.finfo(dt).bits // 8
+        stages = rk.ppic_diag_stages(M, ROWS_U, S_SIZE, N_TRAIN // M)
+        nbytes = [rk.rows_mm_bytes(r, K, N, e, lo, c, size)
+                  for _, r, K, N, e, lo, c in stages]
+        fl = [rk.rows_mm_flops(r, K, N, lo)
+              for _, r, K, N, e, lo, c in stages]
+        bounds = [rk.bound_ms(nb, mult * f, peak) for nb, f in zip(nbytes, fl)]
+        b_ms, flops = sum(b for b, _ in bounds), sum(fl)
+        by = "bytes" if sum(nbytes) / hw.HBM_BW >= mult * flops / peak \
+            else "operations"
+        args = (t["kdiag"], Phi, t["alpha"], R, t["Wy"], None, A, V, Z)
+        r_ms = kernel_device_ms(torch, lambda: ops.rows_reduce(*args),
+                                "rows_reduce", 5)
+        t0 = time.perf_counter()
+        ref.rows_reduce(*args)
+        torch.cuda.synchronize()
+        r_plain = (time.perf_counter() - t0) * 1e3
+        sums = time_ms(lambda: (
+            torch.sum(Phi * t["alpha"], -1) + torch.sum(R * t["Wy"][:, None],
+                                                        -1),
+            t["kdiag"] - torch.sum(A * A, -1) - torch.sum(V * V, -1)
+            + torch.sum(Z * Z, -1)), 5)
+        rows = M * ROWS_U
+        r_b, r_by = rk.bound_ms(
+            rk.rows_reduce_bytes(rows, S_SIZE, N_TRAIN // M, M, size),
+            rk.rows_reduce_flops(rows, S_SIZE, N_TRAIN // M),
+            hw.PEAK_FLOPS_F32 if dt == torch.float32 else hw.PEAK_FLOPS_F64)
+        print(f"  rows_mm {key}, the six stages of a 256-row request: device "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s; stages "
+              f"{[round(x, 4) for x in stage_ms]} ms); bound {b_ms:.4f} ms "
+              f"(stages {[(round(b, 4), w) for b, w in bounds]}); plain "
+              f"{plain:.2f} ms; the library's GEMMs on the same inverses "
+              f"(bmm, baddbmm) {lib:.4f} ms device, its rows within "
+              f"{lib_err:.2e} of 1 + |value| of the kernel's; the parent's "
+              f"route (trsm and GEMM against the factors) {parent:.4f} ms "
+              f"device, within {parent_err:.2e}", flush=True)
+        print(f"  rows_reduce {key} ({rows} rows): device {r_ms:.4f} ms; "
+              f"bound {r_b:.4f} ms ({r_by}); plain {r_plain:.2f} ms; "
+              f"torch.sum of the products (the earlier route) {sums:.4f} ms "
+              f"back to back", flush=True)
+        out[key] = dict(mm=dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                bound_by=by, library_ms=lib,
+                                parent_route_ms=parent, stage_ms=stage_ms,
+                                max_abs_err=max(abs_errs),
+                                max_rel_err=max(errs)),
+                        red=dict(ms=r_ms, plain_ms=r_plain, bound_ms=r_b,
+                                 bound_by=r_by, sums_ms=sums,
+                                 max_abs_err=max(red_errs)))
+        del t, runs, got, cap, over, one, big, calls
+        torch.cuda.empty_cache()
+    f32, f64 = out["float32"], out["float64"]
+    src = "src/repro_torch/kernels/linalg/csrc/row_products.cu"
+    pallas = ("none: the port's own kernel (the reference computes the "
+              "routed diag in jnp under jit)")
+    shape = (f"a 256-row request's main bucket: (M, u, s, b) = ({M}, "
+             f"{ROWS_U}, {S_SIZE}, {N_TRAIN // M}) f32")
+    mm = dict(name="rows_mm", route="cuda", source=src,
+              replaces="src/repro/core/ppic.py:141", pallas=pallas,
+              **{k: f32["mm"][k] for k in ("max_abs_err", "max_rel_err",
+                                           "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "parent_route_ms", "stage_ms")},
+              rel_tol=TOL_ROWS_F32,
+              err_is="max_abs_err: max|kernel - plain| over the six stages; "
+                     "max_rel_err: each stage's over max(|X| |op(B)|) + "
+                     "max|C0|, held to rel_tol",
+              library="the same six stages, one cuBLAS GEMM each (bmm, "
+                      "baddbmm) on the same inverses and tables, summed",
+              parent_route="the six stages through cuBLAS trsm and GEMM "
+                           "against the factors (the parent's route), summed",
+              timed_as="the six stages of one request, device time summed",
+              f64_ms=f64["mm"]["ms"], f64_plain_ms=f64["mm"]["plain_ms"],
+              f64_bound_ms=f64["mm"]["bound_ms"],
+              f64_library_ms=f64["mm"]["library_ms"],
+              f64_parent_route_ms=f64["mm"]["parent_route_ms"],
+              f64_max_abs_err=f64["mm"]["max_abs_err"], shape=shape)
+    red = dict(name="rows_reduce", route="cuda", source=src,
+               replaces="src/repro/core/ppic.py:162", pallas=pallas,
+               max_abs_err=f32["red"]["max_abs_err"], tol=0.0,
+               f64_max_abs_err=f64["red"]["max_abs_err"],
+               **{k: f32["red"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by")},
+               library_ms=None, sums_ms=f32["red"]["sums_ms"],
+               f64_ms=f64["red"]["ms"], f64_plain_ms=f64["red"]["plain_ms"],
+               f64_bound_ms=f64["red"]["bound_ms"], shape=shape)
+    return [mm, red]
+
+
 def lm_path(torch, card: str, cfg, counter, params, gen, *,
             check_cfg=None) -> dict:
     """Prefill and generation of ``cfg`` at full width (and the depth it
@@ -2408,20 +2725,20 @@ def main_path(torch, card: str):
 
 # pPIC routed serving (phase 4b). Tolerances:
 #  the permuted request must be bitwise equal (same shapes, same programs);
-#  skewed traffic against the capacity-|U| layout, in units of 1 + |value|:
-#  SKEW_TOL, fixed. The layouts run batched products and solves of other
-#  shapes; on the H100 they differed by 7.3e-5 at one skew target, where
-#  1e-5 failed. The limit leaves that reading room, and a wrong block or
-#  slot errs by O(0.1). The check runs at SKEW_TARGETS blocks' centroids and
-#  prints each reading. The CPU tests hold the layouts bitwise;
-#  cached C^-1 against the trsm path: the reference's 1e-3
-#  (tests/test_plan.py), a different float path of the same math;
+#  skewed traffic against the capacity-|U| layout: bitwise (torch.equal,
+#  mean and var) at SKEW_TARGETS blocks' centroids, each with overflow
+#  groups. Every stage of the per-block program runs through the row
+#  products (row_products.cu), whose arithmetic for a row does not depend
+#  on the batch, so the layouts are the same bits, as in the CPU tests;
+#  cached C^-1 against the default path (C_L^-1 twice): the reference's
+#  1e-3 (tests/test_plan.py), a different float path of the same math;
 #  f32 against an f64 fit of the same data: <= 10 x pPITC's own f32-vs-f64
 #  error on the same queries + 1e-4, the shape of phase 4's limit;
 #  degraded rows against global_diag: 1e-6 (1 + |value|) (same call).
 PPIC_F64_QUERIES = 1024
 SKEW_ROWS, SKEW_SCALE = 256, 0.01
-SKEW_TARGETS, SKEW_TOL = (0, 5, 10, 15), 3e-4
+SKEW_TARGETS = (0, 5, 10, 15)
+RECHUNK = (7, 64)            # the 256-row request served in chunks of these
 
 
 def max_rel(a, b) -> float:
@@ -2429,59 +2746,50 @@ def max_rel(a, b) -> float:
                   / (1.0 + b.double().abs())).max())
 
 
-LAYOUT_STAGES = ("K_US", "K_UD", "A = K_US L^-T", "R = K_UD - A Q",
-                 "W = R C^-1", "mean", "var")
-
-
 def layout_stages(torch, plan, state, U, layout: str) -> list:
-    """The per-block program of a routed request (``ppic._block_posterior_
-    diag``), stage by stage, in the two-bucket layout the plan serves
-    (``layout="two"``, its host assignment and group count) or in the
+    """The per-block program of a routed request (``ppic._diag_stages``),
+    stage by stage, in the two-bucket layout the plan serves
+    (``layout="two"``, its host assignment and group count; the groups in
+    one batch with the main bucket, as the program runs them) or in the
     capacity-|U| layout (``"capacity"``), each stage's rows gathered back
-    to the caller's order: LAYOUT_STAGES."""
-    from repro_torch.core import linalg, ppic
+    to the caller's order: ``ppic.DIAG_STAGES``."""
+    from repro_torch.core import ppic
     from repro_torch.parallel import runner as rn
-    kfn, params = plan.kfn, plan.params
     M = state.Xb.shape[0]
     assign, g = plan._route(U.cpu().numpy(), U.shape[0])
     assign = torch.as_tensor(assign).to(U.device)
-    fields = ppic._block_fields(state, plan.caches.Q)
 
-    def stages(Ub, f):
-        Kus = kfn(params, Ub, state.S)
-        Kud = kfn(params, Ub, f.Xb)
-        A = ppic._rows(linalg.tri_solve_right, state.Kss_L, Kus)
-        R = Kud - A @ f.Q
-        W = linalg.chol_solve_right(f.C_L, R)
-        mean, var = ppic._diag_terms(kfn, params, state, Ub, f, Kus, A, R,
-                                     W)
-        return [Kus, Kud, A, R, W, mean, var]
+    def stages(Ub, blk=None):
+        return ppic._diag_stages(plan.kfn, plan.params, state, Ub,
+                                 plan.caches, blk)
 
     if layout == "capacity":
         Ub, order, block_of, slot = rn.scatter_by_block(U, assign, M)
         return [rn.gather_by_block(t, order, block_of, slot)
-                for t in stages(Ub, fields)]
+                for t in stages(Ub)]
     lay = rn.scatter_two_bucket(U, assign, M, alpha=plan.spec.alpha,
                                 tile=plan.block_q, max_groups=g)
-    main = stages(lay.Xb, fields)
-    over = [None] * len(main) if lay.Xo is None else stages(
-        lay.Xo, ppic.BlockFields(*(a[lay.o_blk] for a in fields)))
-    return [rn.gather_two_bucket(a, b, lay) for a, b in zip(main, over)]
+    if lay.Xo is None:
+        return [rn.gather_two_bucket(t, None, lay) for t in stages(lay.Xb)]
+    blk = torch.cat([torch.arange(M, device=U.device), lay.o_blk])
+    return [rn.gather_two_bucket(t[:M], t[M:], lay)
+            for t in stages(torch.cat([lay.Xb, lay.Xo]), blk)]
 
 
 def layout_divergence(torch, plan, state, U) -> str:
     """Where the two-bucket and capacity layouts part for request U: each
-    stage's max |difference| / (1 + |value|) and whether it is bitwise
-    equal, and the first stage that is not."""
+    stage's max |difference| / (1 + |value|) or "bitwise", and the first
+    stage that is not bitwise (None where every stage is)."""
+    from repro_torch.core import ppic
     two = layout_stages(torch, plan, state, U, "two")
     cap = layout_stages(torch, plan, state, U, "capacity")
     parts, first = [], None
-    for name, a, b in zip(LAYOUT_STAGES, two, cap):
+    for name, a, b in zip(ppic.DIAG_STAGES, two, cap):
         same = bool(torch.equal(a, b))
         if not same and first is None:
             first = name
         parts.append(f"{name} {'bitwise' if same else f'{max_rel(a, b):.2e}'}")
-    return f"first stage that differs: {first}; " + ", ".join(parts)
+    return f"first stage that differs: {first}; " + ", ".join(parts), first
 
 
 def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
@@ -2493,6 +2801,7 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
     import numpy as np
     from repro_torch.core import api, clustering, covariance as cov, linalg, \
         ppic
+    from repro_torch.kernels.linalg import ops as lops
     from repro_torch.kernels.rbf import ops
     from repro_torch.parallel.runner import VmapRunner
 
@@ -2500,6 +2809,7 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_counts()
+    lops.reset_counts()
     t0 = time.perf_counter()
     Xc, yc, _, _, _ = clustering.cocluster(
         ds.X.cpu().numpy(), ds.y.cpu().numpy(), ds.X_test.cpu().numpy(), M,
@@ -2526,25 +2836,34 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
     t_plan = time.perf_counter() - t2
     plan.warmup(D)
     t3 = time.perf_counter()
-    outs, lat_ms, gs, off = [], [], [], 0
+    outs, lat_ms, gs, per_req, off = [], [], [], [], 0
     for size in REQUEST_SIZES:
         idx = torch.arange(off, off + size, device=dev) % N_TEST
         U = ds.X_test.index_select(0, idx)
+        n0 = (lops.rows_mm_launches, lops.rows_reduce_launches)
         torch.cuda.synchronize()
         ts = time.perf_counter()
         mean, var = plan.routed_diag(U)
         torch.cuda.synchronize()
         lat_ms.append((time.perf_counter() - ts) * 1e3)
+        per_req.append((lops.rows_mm_launches - n0[0],
+                        lops.rows_reduce_launches - n0[1]))
         gs.append(plan.stats.last_g)
         outs.append((idx, mean, var))
         off = (off + size) % N_TEST
     launches = {"rbf": ops.rbf_launches + ops.icf_launches,
-                "xcov_diag": ops.xcov_launches}
+                "xcov_diag": ops.xcov_launches,
+                "rows_mm": lops.rows_mm_launches,
+                "rows_reduce": lops.rows_reduce_launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"  counts during the fit and requests: {launches} (xcov_diag: "
-          f"the degraded programs' warm-up)", flush=True)
+          f"the degraded programs' warm-up; rows_mm, rows_reduce a request: "
+          f"{per_req})", flush=True)
     if launches["rbf"] <= 0:
         fail("kernel rbf was not launched on the pPIC path")
+    if not all(a > 0 and b > 0 for a, b in per_req):
+        fail(f"a routed request launched no rows_mm or rows_reduce: "
+             f"{per_req}")
     for idx, mean, var in outs:
         if mean.shape != idx.shape or var.shape != idx.shape:
             fail(f"routed_diag shapes {tuple(mean.shape)}/"
@@ -2615,6 +2934,17 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
     print(f"  permuted 256-row request bitwise equal: {bitwise}", flush=True)
     if not bitwise:
         fail("a permuted request is not bitwise equal row by row")
+    for c in RECHUNK:
+        parts = [plan.routed_diag(U[i:i + c]) for i in range(0, 256, c)]
+        mc, vc = (torch.cat([p[j] for p in parts]) for j in (0, 1))
+        same = bool(torch.equal(mc, m) and torch.equal(vc, v))
+        print(f"  the 256-row request served in chunks of {c}: bitwise the "
+              f"whole request {same}"
+              + ("" if same else f", max {max(max_rel(mc, m), max_rel(vc, v)):.3e} "
+                 f"of 1 + |value|"), flush=True)
+        if not same:
+            fail(f"the 256-row request served in chunks of {c} is not "
+                 f"bitwise the whole request")
 
     st64 = api.PICState(*(t.double() for t in model.state))
     skew = []
@@ -2628,22 +2958,25 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
                                                    model.state, Us)
         mt, vt = ppic.predict_routed_diag_capacity(spec64, p64, st64,
                                                    Us.double())
+        same = bool(torch.equal(ms, mc) and torch.equal(vs, vc))
         e_skew = max(max_rel(ms, mc), max_rel(vs, vc))
         e_cap = max(max_rel(mc, mt), max_rel(vc, vt))
         e_two = max(max_rel(ms, mt), max_rel(vs, vt))
-        skew.append((g_skew, e_skew))
+        skew.append((g_skew, same, e_skew))
         print(f"  skewed request ({SKEW_ROWS} rows around block {blk}'s "
-              f"centroid): g {g_skew}, against the capacity layout "
-              f"{e_skew:.3e} of 1 + |value| (limit {SKEW_TOL:.0e}); each "
-              f"layout against an f64 evaluation of the state: capacity "
+              f"centroid): g {g_skew}, against the capacity layout bitwise "
+              f"{same} (max {e_skew:.3e} of 1 + |value|); each layout "
+              f"against an f64 evaluation of the state: capacity "
               f"{e_cap:.3e}, two-bucket {e_two:.3e}", flush=True)
         if blk == SKEW_TARGETS[0]:
-            print(f"  the layouts' per-block program, stage by stage: "
-                  f"{layout_divergence(torch, plan, model.state, Us)}",
+            line, first = layout_divergence(torch, plan, model.state, Us)
+            print(f"  the layouts' per-block program, stage by stage: {line}",
                   flush=True)
+            if first is not None:
+                fail(f"the layouts part at stage {first}")
     del st64
-    if not all(g > 0 and e <= SKEW_TOL for g, e in skew):
-        fail(f"skewed requests (g, error): {skew}")
+    if not all(g > 0 and same for g, same, _ in skew):
+        fail(f"skewed requests (g, bitwise, error): {skew}")
 
     t6 = time.perf_counter()
     cplan = model.plan(api.ServeSpec(routed=True, max_batch=256,
@@ -2652,10 +2985,10 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
     t7 = time.perf_counter()
     mi, vi = cplan.routed_diag(U)
     e_cinv = max(max_err(mi, m), max_err(vi, v))
-    print(f"  cached C^-1 (built in {t7 - t6:.3f} s) against the trsm path: "
-          f"{e_cinv:.3e} (limit 1e-3)", flush=True)
+    print(f"  cached C^-1 (built in {t7 - t6:.3f} s) against the default "
+          f"path (C_L^-1 twice): {e_cinv:.3e} (limit 1e-3)", flush=True)
     if not e_cinv <= 1e-3:
-        fail(f"cached C^-1 disagrees with the trsm path: {e_cinv}")
+        fail(f"cached C^-1 disagrees with the default path: {e_cinv}")
 
     dead_blk = int(np.bincount(clustering.nearest_center_np(
         U.cpu().numpy(), plan._centroids_host), minlength=M).argmax())
@@ -2680,9 +3013,19 @@ def ppic_path(torch, card: str, ds, spec, params, S) -> dict:
         fail("bounded degradation: degraded rows, xcov_diag launch or "
              "agreement with global_diag wrong")
 
-    # where a request's time goes: one 256-row routed request, traced
+    # where a request's time goes: one 256-row routed request, traced; the
+    # per-block program takes no triangular solve of the library
     from repro_torch.launch.profile import report
-    report("  one 256-row routed request", lambda: plan.routed_diag(U))
+    tr = report("  one 256-row routed request", lambda: plan.routed_diag(U))
+    named = {k: sum(n for name, (n, _) in tr["by_name"].items() if k in name)
+             for k in ("rows_mm", "rows_reduce", "trsm")}
+    print(f"  [{card}] traced 256-row routed request: {tr['n_kernels']} "
+          f"kernels (PR 19: 467), device busy "
+          f"{100 * tr['busy_ms'] / tr['wall_ms']:.1f}% of {tr['wall_ms']:.3f} "
+          f"ms (PR 19: 25-37%); rows_mm {named['rows_mm']}, rows_reduce "
+          f"{named['rows_reduce']}, trsm {named['trsm']}", flush=True)
+    if named["trsm"] or not (named["rows_mm"] and named["rows_reduce"]):
+        fail(f"the traced routed request's kernels: {named}")
     print(f"  [{card}] phase peak device memory (the f64 fit included) "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB", flush=True)
     return launches, cold
@@ -3147,7 +3490,9 @@ def stream_path(torch, card: str, ds, spec, params, S, cold_state,
             times[name] = time.perf_counter() - t
         last.update(rbf=ops.rbf_launches, icf=ops.icf_launches,
                     xcov_diag=ops.xcov_launches,
-                    chol_downdate=lops.chol_downdate_launches)
+                    chol_downdate=lops.chol_downdate_launches,
+                    rows_mm=lops.rows_mm_launches,
+                    rows_reduce=lops.rows_reduce_launches)
         into = tally["main" if main else "yardsticks"]
         for k, v in last.items():
             into[k] = into.get(k, 0) + v
@@ -3532,8 +3877,8 @@ def stream_path(torch, card: str, ds, spec, params, S, cold_state,
 
     times.pop("request")
     launches = {"rbf": tally["main"]["rbf"] + tally["main"]["icf"],
-                "xcov_diag": tally["main"]["xcov_diag"],
-                "chol_downdate": tally["main"]["chol_downdate"]}
+                **{k: tally["main"][k] for k in ("xcov_diag", "chol_downdate",
+                                                 "rows_mm", "rows_reduce")}}
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"  counts of the main path (the float32 stores' steps and "
           f"serving): {launches} (rbf: {tally['main']['rbf']} block "
@@ -3597,14 +3942,16 @@ def serving_path(torch, card: str, ds, spec, params, S, cold_state,
     ops.reset_counts()
     lops.reset_counts()
     failures, readings = [], {}
-    tally = {"serving": dict.fromkeys(("rbf", "xcov_diag", "chol_downdate"),
-                                      0)}
+    tally = {"serving": dict.fromkeys(("rbf", "xcov_diag", "chol_downdate",
+                                       "rows_mm", "rows_reduce"), 0)}
     tally["yardsticks"] = dict(tally["serving"])
 
     def counts():
         return {"rbf": ops.rbf_launches + ops.icf_launches,
                 "xcov_diag": ops.xcov_launches,
-                "chol_downdate": lops.chol_downdate_launches}
+                "chol_downdate": lops.chol_downdate_launches,
+                "rows_mm": lops.rows_mm_launches,
+                "rows_reduce": lops.rows_reduce_launches}
 
     def run(fn, serving=True):
         """``fn()``, its kernels' launches added to the serving tally (or
@@ -3768,6 +4115,13 @@ def serving_path(torch, card: str, ds, spec, params, S, cold_state,
         same &= nxt == len(rows) and bitwise(
             stacked(out), stacked([got[tid][k] for k in range(len(rows))]))
     grow = {k: t.plan.stats.n_traces - traces[k] for k, t in tens.items()}
+    # a routed ticket is a function of its query and the state alone: the
+    # pPIC tenant's tickets, bitwise one routed_diag over all its queries
+    rows = np.array(rows_of["ppic"])
+    whole, _ = run(lambda: tens["ppic"].plan.routed_diag(Uh[rows]),
+                   serving=False)
+    one_call = bitwise(stacked([got["ppic"][k] for k in range(len(rows))]),
+                       whole)
     # a third tenant of pPIC's lineage: the same callables, none built
     third = sched.admit("ppic2", api.FittedGP(api.get("ppic"), spec, params,
                                               cold_pic["state"]), rspec)
@@ -3795,6 +4149,8 @@ def serving_path(torch, card: str, ds, spec, params, S, cold_state,
     need(answered, "(b) every ticket answered, finite")
     need(same, "(b) each tenant bitwise a single-tenant GPServer fed the "
                "same flushes")
+    need(one_call, f"(b) the routed tickets bitwise one plan.routed_diag "
+                   f"over all {len(rows)} of their queries")
     need(not any(grow.values()), "(b) no callable built after warm-up")
     need(shared, "(b) a third tenant of the lineage shares its callables, "
                  "none built")
@@ -5681,16 +6037,18 @@ def main(argv=None) -> int:
                                  "card; every phase unless --phases.")
     ap.add_argument("--phases", default=None,
                     help="comma-separated subset of 3 (the backward "
-                    "kernels' checks), 8 (LM training), 9 (the continuous "
-                    "batcher), 10 (the LM's steps over a mesh), 11 (the "
-                    "dry-run against the card, the contract audit) and "
-                    "downdate (the downdate's checks) to run after the card "
-                    "and build phases; prints no kernels line")
+                    "kernels' checks), 4b (the row products' checks, then "
+                    "phase 4 for the data and 4b, pPIC routed serving; "
+                    "prints the kernels line of those two kernels), 8 (LM "
+                    "training), 9 (the continuous batcher), 10 (the LM's "
+                    "steps over a mesh), 11 (the dry-run against the card, "
+                    "the contract audit) and downdate (the downdate's "
+                    "checks) to run after the card and build phases")
     only = ap.parse_args(argv).phases
     only = None if only is None else set(only.split(","))
-    if only is not None and not only <= {"3", "8", "9", "10", "11",
+    if only is not None and not only <= {"3", "4b", "8", "9", "10", "11",
                                          "downdate"}:
-        print(f"FAIL: --phases takes 3, 8, 9, 10, 11 and downdate; got "
+        print(f"FAIL: --phases takes 3, 4b, 8, 9, 10, 11 and downdate; got "
               f"{sorted(only)}", flush=True)
         return 2
     try:
@@ -5764,6 +6122,19 @@ def main(argv=None) -> int:
             phase("phase 3: kernel vs plain (the backward kernels)")
             check_flash_bwd(torch, attn_ops, attn_ref, gen)
             check_ssd_bwd(torch, ssd_ops, ssd_ref, gen)
+        if "4b" in only:
+            phase("phase 3: kernel vs plain (the row products)")
+            rows_only = check_rows(torch, lin_ops, lin_ref, gen)
+            torch.cuda.empty_cache()
+            phase("phase 4: GP main path (the data 4b reuses)")
+            data = main_path(torch, card)[2]
+            phase("phase 4b: GP pPIC routed")
+            ppic_launches = ppic_path(torch, card, **data)[0]
+            del data
+            torch.cuda.empty_cache()
+            for row in rows_only:
+                row["launches"] = row["launches_ppic"] = \
+                    ppic_launches[row["name"]]
         if "8" in only:
             phase("phase 8: LM training")
             training(torch, card, attn_ops, ssd_ops)
@@ -5778,6 +6149,8 @@ def main(argv=None) -> int:
             dryrun_vs_card(torch, card)
         phase("")
         print(card, flush=True)
+        if "4b" in only:
+            print(json.dumps({"kernels": rows_only}), flush=True)
         print(json.dumps({"ok": True, "phases": sorted(only), "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}), flush=True)
@@ -5788,7 +6161,8 @@ def main(argv=None) -> int:
             check_ssd(torch, ssd_ops, ssd_ref, gen),
             check_downdate(torch, lin_ops, lin_ref, gen),
             check_flash_bwd(torch, attn_ops, attn_ref, gen),
-            check_ssd_bwd(torch, ssd_ops, ssd_ref, gen)]
+            check_ssd_bwd(torch, ssd_ops, ssd_ref, gen),
+            *check_rows(torch, lin_ops, lin_ref, gen)]
     rows[0].update(check_icf(torch, ops, ref, gen))
     torch.cuda.empty_cache()
 
@@ -5803,6 +6177,8 @@ def main(argv=None) -> int:
     for row in rows:
         if row["name"] in ppic_launches:
             row["launches_ppic"] = ppic_launches[row["name"]]
+    for name in ("rows_mm", "rows_reduce"):     # the routed path's kernels
+        launches[name] = ppic_launches[name]
     torch.cuda.empty_cache()
 
     phase("phase 4c: GP pICF and MLE")
@@ -5823,8 +6199,9 @@ def main(argv=None) -> int:
     stream = stream_path(torch, card, **data, cold_state=cold_state,
                          cold_pic=cold_pic)
     side = stream["yardstick_launches"]
-    side = {"rbf": side["rbf"] + side["icf"], "xcov_diag": side["xcov_diag"],
-            "chol_downdate": side["chol_downdate"]}
+    side = {"rbf": side["rbf"] + side["icf"],
+            **{k: side[k] for k in ("xcov_diag", "chol_downdate", "rows_mm",
+                                    "rows_reduce")}}
     for row in rows:
         if row["name"] in stream["launches"]:
             row["launches_stream"] = stream["launches"][row["name"]]

@@ -47,6 +47,8 @@ from repro_torch.core.gp import GPPosterior
 from repro_torch.core.ppitc import (GlobalSummary, LocalSummary,
                                     ParallelPosterior, global_summary,
                                     local_summary)
+from repro_torch.kernels.linalg import ops as lops
+from repro_torch.kernels.rbf.ops import tri_inv
 from repro_torch.parallel.runner import (ROUTED_ALPHA, Runner,
                                          gather_by_block, gather_two_bucket,
                                          pad_blocks, routed_capacity,
@@ -124,21 +126,6 @@ def _rowdot(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.sum(A * v[..., None, :], dim=-1)
 
 
-def _rows(solve, L: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
-    """A right-sided ``solve`` against one shared (s, s) factor L for A
-    (..., u, s): all rows of all blocks as one solve (the query axis on
-    rows). The result is made row-major: the library returns it
-    column-major, and a reduction over a strided last axis sums in an order
-    that depends on the row count, which would break the layouts' bitwise
-    equality."""
-    return solve(L, A.reshape(-1, A.shape[-1])).reshape(A.shape).contiguous()
-
-
-def _solve_rows(L: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
-    """A (L Lᵀ)⁻¹ for one shared (s, s) factor L and A (..., u, s)."""
-    return _rows(linalg.chol_solve_right, L, A)
-
-
 def _kdiag(kfn, params, U: torch.Tensor) -> torch.Tensor:
     """diag k(U, U) for U (..., u, d)."""
     d = cov.kdiag(kfn, params, U.reshape(-1, U.shape[-1]))
@@ -169,9 +156,28 @@ def _kdiag(kfn, params, U: torch.Tensor) -> torch.Tensor:
 # which is eqs. (12)-(14) with K_US K_SS^{-1} Sdot_m - Sdot_US = -R C^{-1}
 # K_DS and K_US K_SS^{-1} ydot_m - ydot_U = -R C^{-1} y_m multiplied out.
 # The state keeps the reference's fields (B, beta and Sdot among them); the
-# serving program reads Q_m in place of B and beta. A plan builds Q once per
-# state (``PICServePlan._rebuild_caches``, again on ``rebind``); the free
-# functions below build it per call.
+# serving program reads Q_m in place of B and beta.
+#
+# The diag program (``_diag_stages``) writes every solve as a product with
+# a cached inverse and runs each stage through the fixed-order row
+# products of ``kernels/linalg`` (``rows_mm``, ``rows_reduce``):
+#
+#   A   = K_US L^{-T}                 (L^{-1} = tri_inv(Kss_L))
+#   R   = K_{U,D_m} - A Q_m
+#   V   = R C_m^{-T},  W = V C_m^{-1}  (C_m^{-1} of chol C_m, cached)
+#   Phi = K_US - W K_{D_m,S}
+#   Z   = Phi L2^{-T}                 (L2^{-1} = tri_inv(Sdd_L))
+#   mean = Phi alpha + R Wy,   var = k(u, u) - |A|^2 - |V|^2 + |Z|^2
+#
+# (with ``cached_cinv``: W = R C^{-1}, and R.W in place of |V|^2). Each
+# output element of each stage is summed in one order fixed by the kernel,
+# so a row's posterior is the same bits whatever else its batch holds, its
+# slot, the number of rows or the layout: the two-bucket and capacity-|U|
+# layouts agree bitwise on the card as on the CPU. Every variance term is
+# a sum of squares (or R.W), as ``xcov_diag`` keeps them. A plan builds Q
+# and the blocks' C_m^{-1} once per state (``PICServePlan._rebuild_caches``,
+# again on ``rebind``); the free functions below build them per call. The
+# dense covariance (``_block_posterior``) keeps the library's solves.
 # ---------------------------------------------------------------------------
 
 class BlockFields(NamedTuple):
@@ -185,9 +191,11 @@ class BlockFields(NamedTuple):
 
 
 class PICCaches(NamedTuple):
-    """A plan's per-state serving caches (``ServePlan.caches``)."""
+    """A plan's per-state serving caches (``ServePlan.caches``): the tables
+    the diag program reads, one entry a block."""
     Q: torch.Tensor               # (M, s, b) L^{-1} K_{S,D_m}
     Cinv: torch.Tensor | None     # (M, b, b) C⁻¹ with ``cached_cinv``
+    CLinv: torch.Tensor | None = None  # (M, b, b) C_L⁻¹ otherwise
 
 
 def whitened_ksd(state: api.PICState) -> torch.Tensor:
@@ -196,9 +204,26 @@ def whitened_ksd(state: api.PICState) -> torch.Tensor:
     return linalg.tri_solve(state.Kss_L, state.Ksd)
 
 
-def _block_fields(state: api.PICState, Q=None) -> BlockFields:
+def _block_fields(state: api.PICState) -> BlockFields:
     return BlockFields(state.Xb, state.Ksd, state.C_L, state.Wy,
-                       whitened_ksd(state) if Q is None else Q)
+                       whitened_ksd(state))
+
+
+def chol_inv_blocks(C_L: torch.Tensor) -> torch.Tensor:
+    """(M, b, b) C_L⁻¹ per block, lower triangular (exact zeros above the
+    diagonal, which ``rows_mm``'s ``lower`` skips)."""
+    eye = torch.eye(C_L.shape[-1], dtype=C_L.dtype, device=C_L.device)
+    return torch.tril(linalg.tri_solve(C_L, eye.expand(C_L.shape)))
+
+
+def serve_caches(state: api.PICState, cached_cinv: bool = False
+                 ) -> PICCaches:
+    """The diag program's per-state tables: Q (row-major, as the row
+    products read it fastest), and C⁻¹ (``cached_cinv``) or C_L⁻¹."""
+    Q = whitened_ksd(state).contiguous()
+    if cached_cinv:
+        return PICCaches(Q, cinv_blocks(state.C_L))
+    return PICCaches(Q, None, chol_inv_blocks(state.C_L))
 
 
 def _residual(kfn, params, state: api.PICState, Um, f: BlockFields):
@@ -206,7 +231,9 @@ def _residual(kfn, params, state: api.PICState, Um, f: BlockFields):
     (K, u, d), queries on rows."""
     Kus = kfn(params, Um, state.S)
     Kud = kfn(params, Um, f.Xb)
-    A = _rows(linalg.tri_solve_right, state.Kss_L, Kus)
+    # all rows of all blocks as one solve, made row-major
+    A = linalg.tri_solve_right(state.Kss_L, Kus.reshape(-1, Kus.shape[-1]))
+    A = A.reshape(Kus.shape).contiguous()
     return Kus, A, Kud - A @ f.Q
 
 
@@ -224,46 +251,41 @@ def _block_posterior(kfn, params, state: api.PICState, Um,
     return mean, covm
 
 
-def _diag_terms(kfn, params, state: api.PICState, Um, f: BlockFields, Kus,
-                A, R, W):
-    """Mean and variance of eqs. (12)-(13) from the block solve W = R C⁻¹
-    (shared by the trsm and the cached-C⁻¹ programs)."""
-    Phi = Kus - W @ f.Ksd.mT                           # (K, u, s)
-    mean = _rowdot(Phi, state.alpha) + _rowdot(R, f.Wy)
-    var = (_kdiag(kfn, params, Um)
-           - torch.sum(A * A, -1)
-           - torch.sum(R * W, -1)
-           + torch.sum(Phi * _solve_rows(state.Sdd_L, Phi), -1))
-    return mean, var
+DIAG_STAGES = ("K_US", "K_UD", "A = K_US L^-T", "R = K_UD - A Q",
+               "V = R C_L^-T", "W = V C_L^-1", "Phi = K_US - W K_DS",
+               "Z = Phi L2^-T", "mean", "var")
+
+
+def _diag_stages(kfn, params, state: api.PICState, Um, caches: PICCaches,
+                 blk=None) -> tuple:
+    """The diag program for query blocks Um (K, u, d), stage by stage
+    (``DIAG_STAGES``; V is None with a cached C⁻¹): block k reads entry
+    ``blk[k]`` of the state's and the caches' per-block tables (k where
+    ``blk`` is None), so an overflow group reads its owner block's factors
+    in place; only its (b, d) training inputs are gathered."""
+    Xb = state.Xb if blk is None else state.Xb.index_select(0, blk)
+    Kus = kfn(params, Um, state.S)                          # (K, u, s)
+    Kud = kfn(params, Um, Xb)                               # (K, u, b)
+    A = lops.rows_mm(Kus, tri_inv(state.Kss_L), trans=True, lower=True)
+    R = lops.rows_mm(A, caches.Q, blk, C0=Kud)
+    if caches.Cinv is None:
+        V = lops.rows_mm(R, caches.CLinv, blk, trans=True, lower=True)
+        W = lops.rows_mm(V, caches.CLinv, blk, lower=True)
+    else:
+        V, W = None, lops.rows_mm(R, caches.Cinv, blk)
+    Phi = lops.rows_mm(W, state.Ksd, blk, trans=True, C0=Kus)  # eq. (14)
+    Z = lops.rows_mm(Phi, tri_inv(state.Sdd_L), trans=True, lower=True)
+    mean, var = lops.rows_reduce(                           # eqs. (12)-(13)
+        _kdiag(kfn, params, Um), Phi, state.alpha, R, state.Wy, blk, A,
+        W if V is None else V, Z, cinv=V is None)
+    return Kus, Kud, A, R, V, W, Phi, Z, mean, var
 
 
 def _block_posterior_diag(kfn, params, state: api.PICState, Um,
-                          f: BlockFields):
-    """Diagonal of eqs. (12)-(13) for query blocks Um (K, u, d), no
-    |U_m|^2 buffers.
-
-    Every contraction keeps the query axis on matrix ROWS (row-wise
-    multiply-reduce instead of gemv, right-sided solves instead of a
-    left-sided solve on Kᵀ, row-major products), as the reference does: a
-    query-column form lets the library's choice of panels depend on a row's
-    slot and on the buffer width, which would break routed permutation
-    invariance and the two-bucket layout's equality with the capacity-|U|
-    layout.
-    """
-    Kus, A, R = _residual(kfn, params, state, Um, f)
-    W = linalg.chol_solve_right(f.C_L, R)              # R C^{-1}
-    return _diag_terms(kfn, params, state, Um, f, Kus, A, R, W)
-
-
-def _block_posterior_diag_cinv(kfn, params, state: api.PICState, Um,
-                               f: BlockFields, Cinv_m):
-    """``_block_posterior_diag`` with the per-block solve served from a
-    precomputed dense inverse: R C⁻¹ is one batched matmul instead of the
-    two-sided batched triangular solve. The plan-owned cache of
-    ``ServeSpec(cached_cinv=True)``; a different float path than the trsm
-    (same math), hence opt-in."""
-    Kus, A, R = _residual(kfn, params, state, Um, f)
-    return _diag_terms(kfn, params, state, Um, f, Kus, A, R, R @ Cinv_m)
+                          caches: PICCaches, blk=None):
+    """Diagonal of eqs. (12)-(13) for query blocks Um (K, u, d) from the
+    per-state tables (``_diag_stages``), no |U_m|^2 buffers."""
+    return _diag_stages(kfn, params, state, Um, caches, blk)[-2:]
 
 
 def predict_blocks(kfn, params, state: api.PICState,
@@ -301,7 +323,7 @@ def predict_batch_diag(kfn, params, state: api.PICState, U):
     u = U.shape[0]
     Ub, _ = pad_blocks(U, M)
     means, vars_ = _block_posterior_diag(kfn, params, state, Ub,
-                                         _block_fields(state))
+                                         serve_caches(state))
     return means.reshape(-1)[:u], vars_.reshape(-1)[:u]
 
 
@@ -335,36 +357,32 @@ def _routed_diag_program(kfn, params, state: api.PICState,
                          alpha: int, tile: int, n_groups: int | None):
     """The routed serving program: two-bucket scatter -> per-block
     posterior -> gather, for one overflow-group count, from a plan's
-    ``caches`` (Q, and C⁻¹ or None) or, with None, from Q built here.
+    ``caches`` or, with None, from tables built here.
     ``predict_routed_diag`` is this program at its
     worst-case defaults (assignment derived on the device);
     ``PICServePlan`` runs one per selected group count and passes its host
     assignment in — the SAME assignment that sized the group count, so the
     scatter never sees a row the selection did not provision for (a device
-    re-derivation could flip a near-boundary argmin and drop the row)."""
+    re-derivation could flip a near-boundary argmin and drop the row).
+
+    The main bucket's M blocks and the G overflow groups run as one batch
+    of M + G blocks, each group reading its owner block's table entries
+    (``lay.o_blk``)."""
     M = state.Xb.shape[0]
     if assign is None:
         assign = route_queries(state, U)
     lay = scatter_two_bucket(U, assign, M, alpha=alpha, tile=tile,
                              max_groups=n_groups)
-
-    def run(Ub, fields, Ci):
-        if Ci is None:
-            return _block_posterior_diag(kfn, params, state, Ub, fields)
-        return _block_posterior_diag_cinv(kfn, params, state, Ub, fields,
-                                          Ci)
-
-    fields = _block_fields(state, None if caches is None else caches.Q)
-    Cinv = None if caches is None else caches.Cinv
-    means, vars_ = run(lay.Xb, fields, Cinv)
-    means_o = vars_o = None
+    if caches is None:
+        caches = serve_caches(state)
+    Ub, blk = lay.Xb, None
     if lay.Xo is not None:
-        # overflow groups: the owning block's cached factors per group
-        mf_o = BlockFields(*(a[lay.o_blk] for a in fields))
-        means_o, vars_o = run(lay.Xo, mf_o,
-                              None if Cinv is None else Cinv[lay.o_blk])
-    return (gather_two_bucket(means, means_o, lay),
-            gather_two_bucket(vars_, vars_o, lay))
+        Ub = torch.cat([lay.Xb, lay.Xo])
+        blk = torch.cat([torch.arange(M, device=U.device), lay.o_blk])
+    means, vars_ = _block_posterior_diag(kfn, params, state, Ub, caches, blk)
+    over = lay.Xo is not None
+    return (gather_two_bucket(means[:M], means[M:] if over else None, lay),
+            gather_two_bucket(vars_[:M], vars_[M:] if over else None, lay))
 
 
 def global_diag(kfn, params, state: api.PICState, U):
@@ -418,7 +436,7 @@ def predict_routed_diag_capacity(kfn, params, state: api.PICState, U):
     assign = route_queries(state, U)
     Ub, order, block_of, slot = scatter_by_block(U, assign, M)
     means, vars_ = _block_posterior_diag(kfn, params, state, Ub,
-                                         _block_fields(state))
+                                         serve_caches(state))
     return (gather_by_block(means, order, block_of, slot),
             gather_by_block(vars_, order, block_of, slot))
 
@@ -458,9 +476,9 @@ class PICServePlan(api.ServePlan):
     """``api.ServePlan`` with the PIC-specific assets:
 
     * backend caches — ``caches`` (``PICCaches``) holds the blocks'
-      whitened cross-covariances Q and, when the spec asks for it
-      (``cached_cinv=True``), the per-block dense ``C⁻¹``; both are built
-      once per state and rebuilt on ``rebind``;
+      whitened cross-covariances Q and their C_L⁻¹ or, when the spec asks
+      for it (``cached_cinv=True``), the per-block dense ``C⁻¹``; all are
+      built once per state and rebuilt on ``rebind``;
     * a routed program LADDER — one program per overflow-group count
       g ∈ {0, 1, 2, 4, ..., G_worst}, selected per request from the host
       occupancy: balanced traffic runs the G=0 program (main bucket only),
@@ -474,9 +492,7 @@ class PICServePlan(api.ServePlan):
     """
 
     def _rebuild_caches(self, state):
-        return PICCaches(whitened_ksd(state),
-                         cinv_blocks(state.C_L) if self.spec.cached_cinv
-                         else None)
+        return serve_caches(state, self.spec.cached_cinv)
 
     @functools.cached_property
     def _centroids_host(self) -> np.ndarray:

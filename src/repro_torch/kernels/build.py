@@ -23,9 +23,10 @@ Pointers cross the C boundary as ``ctypes.c_void_p`` and the stream as
 The flash-attention and SSD kernels have backward kernels
 (``flash_attention_bwd.cu``, ``ssd_intra_chunk_bwd.cu``) that their wrappers
 record through ``torch.autograd.Function``s. The others (rbf, its ICF and
-exact instances, ``xcov_diag``, the downdate) have none, so their wrappers
-call ``refuse_grad`` before they launch: a kernel's fresh output has no
-``grad_fn``, and a graph through it would otherwise be cut without a word.
+exact instances, ``xcov_diag``, the downdate, the row products) have none,
+so their wrappers call ``refuse_grad`` before they launch: a kernel's fresh
+output has no ``grad_fn``, and a graph through it would otherwise be cut
+without a word.
 """
 from __future__ import annotations
 

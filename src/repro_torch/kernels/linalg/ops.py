@@ -1,4 +1,6 @@
-"""Launch wrapper of the Cholesky downdate kernel (``csrc/chol_downdate.cu``).
+"""Launch wrappers of the linear-algebra kernels: the Cholesky downdate
+(``csrc/chol_downdate.cu``) and the fixed-order row products of pPIC's
+serving diag (``csrc/row_products.cu``: ``rows_mm``, ``rows_reduce``).
 
 The reference has no Pallas kernel here: its rank-b downdate is
 ``repro.core.linalg.chol_update_rank(L, W, sign=-1.0)``, LINPACK sweeps
@@ -17,6 +19,13 @@ backward: given tensors that require grad, in grad mode, the wrapper raises
 
 The probes (``chain_probe``, ``quotient_probe``) are a library of their own,
 ``csrc/chol_downdate_probe.cu``: the shipped kernel carries none of them.
+
+``rows_mm`` and ``rows_reduce`` follow the same rules (the plain versions
+for CPU and meta tensors, the kernel or an error for CUDA tensors,
+``refuse_grad``), and count their launches in ``rows_mm_launches`` and
+``rows_reduce_launches``. The reference computes their program in jnp under
+``jit`` (``src/repro/core/ppic.py:141-167``); see the source for why the
+port's order of summation is part of the kernel.
 """
 from __future__ import annotations
 
@@ -29,15 +38,19 @@ from repro_torch.kernels import build
 from repro_torch.kernels.linalg import ref
 
 chol_downdate_launches = 0
+rows_mm_launches = 0
+rows_reduce_launches = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _INT_MAX = 2 ** 31 - 1
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ROWS_BLOCK = 32          # row_products.cu's BM: rows a block of the grid
+_GRID_MAX = 65535         # grid.y and grid.z
 
 
 def reset_counts() -> None:
-    global chol_downdate_launches
-    chol_downdate_launches = 0
+    global chol_downdate_launches, rows_mm_launches, rows_reduce_launches
+    chol_downdate_launches = rows_mm_launches = rows_reduce_launches = 0
 
 
 @functools.cache
@@ -172,3 +185,148 @@ def quotient_probe(a: torch.Tensor, c: torch.Tensor, mask: torch.Tensor
                      stream)
     build.check(lib, code, "chol_downdate quotient probe")
     return q, fast.bool()
+
+
+# --- row_products.cu ---------------------------------------------------------
+
+@functools.cache
+def _rows_entry():
+    """The row products' library and its two entries."""
+    lib = build.library("row_products")
+    lib.rows_mm.argtypes = [_I, _P, _P, _P, _LL, _LL, _LL, _LL, _P, _P, _I,
+                            _I, _I, _I, _I, _I, _P]
+    lib.rows_reduce.argtypes = [_I, _LL, _I, _I, _I] + [_P] * 6 + [_LL] \
+        + [_P, _P, _I, _P, _P, _P, _P]
+    for fn in (lib.rows_mm, lib.rows_reduce):
+        fn.restype = _I
+    return lib, lib.rows_mm, lib.rows_reduce
+
+
+def _float_dtype(what: str, *tensors) -> torch.dtype:
+    dt = tensors[0].dtype
+    if dt not in _DTYPE_CODE or any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{what} takes float32 or float64 tensors of one "
+                        f"dtype; got {[t.dtype for t in tensors]}")
+    return dt
+
+
+def _table_index(idx: torch.Tensor | None, nblk: int, table: torch.Tensor,
+                 what: str) -> torch.Tensor | None:
+    """Check a block's entries of a per-state table: ``idx`` (nblk,) int64
+    into its leading axis, or None for block k reading entry k."""
+    if idx is None:
+        if table.shape[0] != nblk:
+            raise ValueError(f"{what}: {nblk} blocks and a table of "
+                             f"{table.shape[0]} entries need an index")
+        return None
+    if idx.dtype != torch.int64 or idx.shape != (nblk,):
+        raise ValueError(f"{what}: idx must be ({nblk},) int64; got "
+                         f"{tuple(idx.shape)} {idx.dtype}")
+    return idx.contiguous()
+
+
+def rows_mm(X: torch.Tensor, B: torch.Tensor, idx: torch.Tensor | None = None,
+            *, trans: bool = False, lower: bool = False,
+            C0: torch.Tensor | None = None) -> torch.Tensor:
+    """Y[k] = X[k] op(B_e), or C0[k] - X[k] op(B_e) where C0 is given, for
+    X (nblk, u, K), float32 or float64: B_e is B (P, Q) for every block, or
+    entry idx[k] (or k where idx is None) of a table B (nt, P, Q); op(B_e)
+    = B_eᵀ with ``trans``; ``lower`` says B_e is lower triangular. Returns
+    a new (nblk, u, N) tensor. Every output element is summed over K in the
+    same order whatever u, nblk, the row's slot or the other blocks
+    (``ref.rows_mm``). B is read in place through its strides. On the card
+    an index outside the table gives NaN rows (checking it here would wait
+    for the device)."""
+    global rows_mm_launches
+    given = [t for t in (X, B, idx, C0) if t is not None]
+    if build.on_cpu(*given):
+        return ref.rows_mm(X, B, idx, trans=trans, lower=lower, C0=C0)
+    build.refuse_grad("rows_mm", X, B, C0)
+    dt = _float_dtype("rows_mm", *(t for t in (X, B, C0) if t is not None))
+    if X.ndim != 3 or B.ndim not in (2, 3):
+        raise ValueError(f"need X (nblk, u, K) and B (P, Q) or (nt, P, Q); "
+                         f"got {tuple(X.shape)}, {tuple(B.shape)}")
+    nblk, u, K = X.shape
+    P, Q = B.shape[-2:]
+    N = P if trans else Q
+    if (Q if trans else P) != K or (lower and P != Q):
+        raise ValueError(f"op(B) of B {tuple(B.shape)} (trans={trans}, "
+                         f"lower={lower}) does not take X's K = {K}")
+    if B.ndim == 2 and idx is not None:
+        raise ValueError("rows_mm: an index needs a table B (nt, P, Q)")
+    if B.ndim == 3:
+        idx = _table_index(idx, nblk, B, "rows_mm")
+    if C0 is not None and C0.shape != (nblk, u, N):
+        raise ValueError(f"C0 must be {(nblk, u, N)}; got {tuple(C0.shape)}")
+    if nblk > _GRID_MAX or -(-u // _ROWS_BLOCK) > _GRID_MAX:
+        raise ValueError(f"rows_mm: {nblk} blocks of {u} rows exceed the "
+                         f"kernel's grid")
+    Y = torch.empty((nblk, u, N), dtype=dt, device=X.device)
+    if Y.numel() == 0:
+        return Y
+    if K == 0:
+        return Y.zero_() if C0 is None else Y.copy_(C0)
+    X = X.contiguous()
+    C0 = None if C0 is None else C0.contiguous()
+    # B is read in place through its strides (a table is never copied)
+    bstride = 0 if B.ndim == 2 else B.stride(0)
+    sp, sq = B.stride()[-2:]
+    lib, entry, _ = _rows_entry()
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        code = entry(_DTYPE_CODE[dt], X.data_ptr(), B.data_ptr(),
+                     None if idx is None else idx.data_ptr(),
+                     1 if B.ndim == 2 else B.shape[0], bstride, sp, sq,
+                     None if C0 is None else C0.data_ptr(), Y.data_ptr(),
+                     nblk, u, K, N, int(trans), int(lower), stream)
+    build.check(lib, code, "rows_mm launch")
+    rows_mm_launches += 1
+    return Y
+
+
+def rows_reduce(kdiag: torch.Tensor, Phi: torch.Tensor, alpha: torch.Tensor,
+                R: torch.Tensor, Wy: torch.Tensor, idx: torch.Tensor | None,
+                A: torch.Tensor, V: torch.Tensor, Z: torch.Tensor, *,
+                cinv: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, var) (nblk, u) of eqs. (12)-(13): mean = Phi.alpha + R.Wy_e,
+    var = ((kdiag - |A|²) - |V|²) + |Z|², R.V in place of |V|² where
+    ``cinv``; Phi, A, Z (nblk, u, s), R, V (nblk, u, b), alpha (s,), Wy a
+    table (nt, b) read at idx[k] (or k), kdiag (nblk, u). One launch; each
+    row's sums in a fixed order (``ref.rows_reduce``). An index outside
+    the table gives NaN rows, as in ``rows_mm``."""
+    global rows_reduce_launches
+    given = [t for t in (kdiag, Phi, alpha, R, Wy, idx, A, V, Z)
+             if t is not None]
+    if build.on_cpu(*given):
+        return ref.rows_reduce(kdiag, Phi, alpha, R, Wy, idx, A, V, Z,
+                               cinv=cinv)
+    build.refuse_grad("rows_reduce", kdiag, Phi, alpha, R, Wy, A, V, Z)
+    dt = _float_dtype("rows_reduce", kdiag, Phi, alpha, R, Wy, A, V, Z)
+    nblk, u, s = Phi.shape
+    b = R.shape[-1]
+    if not (kdiag.shape == (nblk, u) and A.shape == Z.shape == Phi.shape
+            and R.shape == V.shape == (nblk, u, b) and alpha.shape == (s,)
+            and Wy.ndim == 2 and Wy.shape[1] == b):
+        raise ValueError(
+            f"rows_reduce shapes: kdiag {tuple(kdiag.shape)}, Phi/A/Z "
+            f"{tuple(Phi.shape)}/{tuple(A.shape)}/{tuple(Z.shape)}, R/V "
+            f"{tuple(R.shape)}/{tuple(V.shape)}, alpha {tuple(alpha.shape)}, "
+            f"Wy {tuple(Wy.shape)}")
+    idx = _table_index(idx, nblk, Wy, "rows_reduce")
+    mean = torch.empty((nblk, u), dtype=dt, device=Phi.device)
+    var = torch.empty_like(mean)
+    if mean.numel() == 0:
+        return mean, var
+    ts = [t.contiguous() for t in (kdiag, Phi, alpha, R, Wy, A, V, Z)]
+    kd, ph, al, r, w, a, v, z = ts
+    lib, _, entry = _rows_entry()
+    with torch.cuda.device(Phi.device):
+        stream = torch.cuda.current_stream(Phi.device).cuda_stream
+        code = entry(_DTYPE_CODE[dt], nblk * u, u, s, b, kd.data_ptr(),
+                     ph.data_ptr(), al.data_ptr(), r.data_ptr(),
+                     w.data_ptr(), None if idx is None else idx.data_ptr(),
+                     Wy.shape[0], a.data_ptr(), v.data_ptr(), int(cinv), z.data_ptr(),
+                     mean.data_ptr(), var.data_ptr(), stream)
+    build.check(lib, code, "rows_reduce launch")
+    rows_reduce_launches += 1
+    return mean, var

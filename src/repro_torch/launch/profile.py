@@ -51,9 +51,11 @@ def busy_us(intervals) -> float:
     return total
 
 
-def report(label: str, fn, model_flops: float | None = None) -> None:
+def report(label: str, fn, model_flops: float | None = None) -> dict:
     """Profile ``fn`` once (after one untraced warm-up) and print its
-    breakdown, and ``model_flops``, where given, over its wall time."""
+    breakdown, and ``model_flops``, where given, over its wall time.
+    Returns the trace's wall and busy ms, its kernel count and its kernels
+    by name ({name: (count, us)})."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -79,12 +81,15 @@ def report(label: str, fn, model_flops: float | None = None) -> None:
                                 )[:TOP]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / kernel_ms:5.1f}% "
               f"x{n:<5d} {name[:90]}", flush=True)
+    out = dict(wall_ms=wall_ms, busy_ms=busy_ms, n_kernels=len(ks),
+               by_name={k: tuple(v) for k, v in by_name.items()})
     if model_flops is None:
-        return
+        return out
     rate = model_flops / wall_ms / 1e9
     print(f"  model FLOP {model_flops / 1e9:.1f} G: {rate:.1f} TFLOP/s over "
           f"the wall time, {100 * rate * 1e12 / hw.PEAK_FLOPS_BF16:.1f}% of "
           f"the bf16 peak", flush=True)
+    return out
 
 
 def main(argv=None) -> int:

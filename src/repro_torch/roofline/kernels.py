@@ -202,3 +202,48 @@ def downdate_bytes(n: int, b: int, itemsize: int) -> int:
 def downdate_flops(n: int, b: int) -> int:
     """Six operations a row for each (sweep, step) pair: 3 b n (n - 1)."""
     return 3 * b * n * (n - 1)
+
+
+# -- row_products.cu: pPIC's routed diag --------------------------------------
+
+def rows_mm_flops(rows: int, K: int, N: int, lower: bool = False) -> int:
+    """X (rows, K) op(B) (K, N): 2 rows K N; with a lower triangular B
+    (square, K = N) the products with its triangle, rows K (K + 1)."""
+    return rows * K * (K + 1) if lower else 2 * rows * K * N
+
+
+def rows_mm_bytes(rows: int, K: int, N: int, entries: int, lower: bool,
+                  with_c0: bool, itemsize: int = 4) -> int:
+    """X read once, each table entry it reads once (a triangle of a lower
+    B), C0 read and Y written once."""
+    entry = K * (K + 1) // 2 if lower else K * N
+    return itemsize * (rows * K + entries * entry
+                       + rows * N * (2 if with_c0 else 1))
+
+
+def rows_reduce_flops(rows: int, s: int, b: int) -> int:
+    """A row's five dots (Phi.alpha, |A|^2, |Z|^2 over s; R.Wy and |V|^2
+    over b), 2 operations an element."""
+    return 2 * rows * (3 * s + 2 * b)
+
+
+def rows_reduce_bytes(rows: int, s: int, b: int, entries: int,
+                      itemsize: int = 4) -> int:
+    """Phi, A, Z, R, V and kdiag read once, alpha and the Wy entries once,
+    mean and var written once."""
+    return itemsize * (rows * (3 * s + 2 * b + 3) + s + entries * b)
+
+
+def ppic_diag_stages(nblk: int, u: int, s: int, b: int,
+                     cinv: bool = False) -> list[tuple]:
+    """The rows_mm launches of one routed request's diag program over nblk
+    blocks of u rows (``core.ppic._diag_stages``): (stage, rows, K, N,
+    table entries read, lower, with C0)."""
+    rows = nblk * u
+    solve = [("W = R C^-1", rows, b, b, nblk, False, False)] if cinv else [
+        ("V = R C_L^-T", rows, b, b, nblk, True, False),
+        ("W = V C_L^-1", rows, b, b, nblk, True, False)]
+    return [("A = K_US L^-T", rows, s, s, 1, True, False),
+            ("R = K_UD - A Q", rows, s, b, nblk, False, True), *solve,
+            ("Phi = K_US - W K_DS", rows, b, s, nblk, False, True),
+            ("Z = Phi L2^-T", rows, s, s, 1, True, False)]

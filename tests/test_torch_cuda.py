@@ -1,5 +1,6 @@
 """The port's CUDA kernels (rbf, xcov_diag, flash attention, SSD, the
-Cholesky downdate) against their plain versions, on the card.
+Cholesky downdate, the row products of pPIC's routed diag) against their
+plain versions, on the card.
 
 Every test here needs a CUDA card (the kernels have no CPU mode) and skips
 with that reason elsewhere; run them on a machine with one:
@@ -478,7 +479,8 @@ def test_picf_plan_on_the_card_matches_the_plain_path(cuda):
     assert bool(torch.isfinite(mk).all() and torch.isfinite(vk).all())
 
 
-@pytest.mark.parametrize("call", ["rbf", "icf", "xcov", "downdate"])
+@pytest.mark.parametrize("call", ["rbf", "icf", "xcov", "downdate",
+                                  "rows_mm", "rows_reduce"])
 def test_kernel_wrappers_refuse_a_graph(cuda, call):
     """Asked for a gradient, each CUDA wrapper without a backward kernel
     raises (it would return a tensor cut from the graph); under no_grad, or
@@ -496,7 +498,12 @@ def test_kernel_wrappers_refuse_a_graph(cuda, call):
     run = {"rbf": lambda x: ops.rbf_covariance(x, X[:16], s2),
            "icf": lambda x: ops.icf_factor(x, s2, 8),
            "xcov": lambda x: ops.xcov_diag(x, X[:16], L1, alpha, s2),
-           "downdate": lambda x: linalg_ops.chol_downdate(L1, W)}[call]
+           "downdate": lambda x: linalg_ops.chol_downdate(L1, W),
+           "rows_mm": lambda x: linalg_ops.rows_mm(W.mT[None], L1,
+                                                    C0=W.mT[None]),
+           "rows_reduce": lambda x: linalg_ops.rows_reduce(
+               W[None, :, 0], W[None], alpha[:3], W[None], W[:1], None,
+               W[None], W[None], W[None])}[call]
     with pytest.raises(RuntimeError, match="no backward"):
         run(X)
     with torch.no_grad():
@@ -1082,9 +1089,9 @@ def test_routed_permutation_is_bitwise_on_the_card(cuda):
 
 
 def test_routed_skewed_batch_overflows_and_matches_capacity_on_the_card(cuda):
-    """Skewed traffic takes g > 0 and agrees with the capacity-|U| layout
-    within 1e-5 (1 + |value|): the two layouts run batched products of
-    other shapes, for which cuBLAS may pick other kernels."""
+    """Skewed traffic takes g > 0 and equals the capacity-|U| layout
+    bitwise: every stage of the per-block program runs through the row
+    products, whose arithmetic for a row does not depend on the batch."""
     from repro_torch.core import api, ppic
     model, _ = _fitted_ppic(cuda)
     plan = model.plan(api.ServeSpec(max_batch=256, routed=True))
@@ -1095,8 +1102,7 @@ def test_routed_skewed_batch_overflows_and_matches_capacity_on_the_card(cuda):
     assert plan.stats.last_g > 0
     m_c, v_c = ppic.predict_routed_diag_capacity(plan.kfn, model.params,
                                                  model.state, U)
-    for a, b in ((m, m_c), (v, v_c)):
-        assert bool(((a - b).abs() <= 1e-5 * (1 + b.abs())).all())
+    assert torch.equal(m, m_c) and torch.equal(v, v_c)
 
 
 def test_routed_cinv_and_degraded_rows_on_the_card(cuda):
@@ -1589,3 +1595,152 @@ def test_ssd_backward_repeats_bitwise_at_the_training_split(cuda):
                 for _ in range(2)]
         for a, b in zip(*runs):
             assert torch.equal(a, b)
+
+
+# --- the row products of pPIC's routed diag ------------------------------------
+
+def _rows_case(cuda, dtype, nblk, u, K, N, trans, lower, table, c0, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    P, Q = (N, K) if trans else (K, N)
+    nt = nblk + 2 if table else 1
+    X = torch.randn((nblk, u, K), generator=g, device=cuda, dtype=dtype)
+    B = torch.randn((nt, P, Q), generator=g, device=cuda, dtype=dtype) \
+        / K ** 0.5
+    if lower:
+        B = torch.tril(B)
+    idx = torch.randint(0, nt, (nblk,), generator=g, device=cuda) \
+        if table else None
+    C0 = torch.randn((nblk, u, N), generator=g, device=cuda, dtype=dtype) \
+        if c0 else None
+    return X, (B if table else B[0]), idx, C0
+
+
+ROWS_CASES = [(nblk, u, K, trans, lower, table, c0)
+              for nblk, u, K in ((20, 32, 2048), (3, 33, 71), (2, 1, 8),
+                                 (5, 65, 130))
+              for trans, lower, table, c0 in ((True, True, False, False),
+                                              (False, False, True, True),
+                                              (False, True, True, False),
+                                              (True, False, True, True))]
+
+
+@pytest.mark.parametrize("nblk,u,K,trans,lower,table,c0", ROWS_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_mm_kernel_matches_plain(cuda, dtype, nblk, u, K, trans, lower,
+                                      table, c0):
+    """float64 bitwise the plain version (the same correctly rounded
+    operations in the same order); float32 within 1e-4 of the scale
+    max(|C0| + |X| |op B|) (chip_smoke.py's TOL_ROWS_F32: both sum K
+    products in float32, the kernel's in 3xTF32). Repeated launches equal;
+    ragged u, K and N."""
+    from repro_torch.kernels.linalg import ops as lops, ref as lref
+    N = K if lower else K // 2 + 3
+    X, B, idx, C0 = _rows_case(cuda, dtype, nblk, u, K, N, trans, lower,
+                               table, c0)
+    before = lops.rows_mm_launches
+    got = lops.rows_mm(X, B, idx, trans=trans, lower=lower, C0=C0)
+    again = lops.rows_mm(X, B, idx, trans=trans, lower=lower, C0=C0)
+    torch.cuda.synchronize()
+    assert lops.rows_mm_launches == before + 2 and torch.equal(got, again)
+    want = lref.rows_mm(X, B, idx, trans=trans, lower=lower, C0=C0)
+    if dtype == torch.float64:
+        assert torch.equal(got, want)
+    else:
+        Bs = B.abs() if B.ndim == 2 else B.abs()[idx]
+        scale = float((X.abs() @ (Bs.mT if trans else Bs)).max())
+        scale += 0.0 if C0 is None else float(C0.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_mm_reads_strided_tables_in_place(cuda, dtype, trans):
+    """A table of other strides (column-major entries, as a triangular
+    solve returns them; a strided slice) gives the same bits as its
+    contiguous copy."""
+    from repro_torch.kernels.linalg import ops as lops
+    X, B, idx, C0 = _rows_case(cuda, dtype, 4, 37, 96, 70, trans, False,
+                               True, True, seed=4)
+    want = lops.rows_mm(X, B, idx, trans=trans, C0=C0)
+    assert torch.equal(lops.rows_mm(X, B.mT.contiguous().mT, idx,
+                                    trans=trans, C0=C0), want)
+    wide = torch.zeros(B.shape[:-1] + (2 * B.shape[-1],), device=cuda,
+                       dtype=dtype)
+    wide[..., ::2] = B
+    assert torch.equal(lops.rows_mm(X, wide[..., ::2], idx, trans=trans,
+                                    C0=C0), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_kernels_are_row_count_independent(cuda, dtype):
+    """A row's output is the same bits alone, at another slot, inside the
+    capacity-|U| batch, and as an indexed overflow group of its block."""
+    from repro_torch.kernels.linalg import ops as lops
+    X, B, idx, C0 = _rows_case(cuda, dtype, 6, 40, 300, 300, False, False,
+                               True, True, seed=3)
+    whole = lops.rows_mm(X, B, idx, C0=C0)
+    big = torch.cat([X, torch.randn_like(X[:, :7]), X], 1)
+    bigc = torch.cat([C0, torch.randn_like(C0[:, :7]), C0], 1)
+    cap = lops.rows_mm(big, B, idx, C0=bigc)
+    assert torch.equal(cap[:, :40], whole) and torch.equal(cap[:, 47:], whole)
+    grp = torch.tensor([4, 4, 1], device=cuda)
+    over = lops.rows_mm(X[grp], B, idx[grp], C0=C0[grp])
+    assert torch.equal(over, whole[grp])
+    perm = torch.randperm(40, device=cuda)
+    moved = lops.rows_mm(X[:, perm], B, idx, C0=C0[:, perm])
+    assert torch.equal(moved, whole[:, perm])
+    one = lops.rows_mm(X[2:3, 17:18], B, idx[2:3], C0=C0[2:3, 17:18])
+    assert torch.equal(one[0, 0], whole[2, 17])
+    T = torch.randn_like(X[..., :100])
+    kd = torch.rand_like(X[..., 0]) + 1
+    args = (kd, X, X[0, 0], T, T[:, 0], None, X, T, X)
+    m, v = lops.rows_reduce(*args)
+    m1, v1 = lops.rows_reduce(kd[3:4, 5:6], X[3:4, 5:6], X[0, 0],
+                              T[3:4, 5:6], T[:, 0], torch.tensor([3],
+                                                                 device=cuda),
+                              X[3:4, 5:6], T[3:4, 5:6], X[3:4, 5:6])
+    assert torch.equal(m1[0, 0], m[3, 5]) and torch.equal(v1[0, 0], v[3, 5])
+
+
+@pytest.mark.parametrize("cinv", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("s,b", [(2048, 1600), (33, 7), (1, 64)])
+def test_rows_reduce_kernel_is_bitwise_the_plain_version(cuda, dtype, cinv,
+                                                         s, b):
+    from repro_torch.kernels.linalg import ops as lops, ref as lref
+    g = torch.Generator(device=cuda).manual_seed(5)
+    r = lambda *sh: torch.randn(sh, generator=g, device=cuda, dtype=dtype)
+    nblk, u = 4, 9
+    args = (r(nblk, u), r(nblk, u, s), r(s), r(nblk, u, b), r(nblk + 3, b),
+            torch.tensor([6, 0, 6, 2], device=cuda), r(nblk, u, s),
+            r(nblk, u, b), r(nblk, u, s))
+    before = lops.rows_reduce_launches
+    got = lops.rows_reduce(*args, cinv=cinv)
+    torch.cuda.synchronize()
+    assert lops.rows_reduce_launches == before + 1
+    want = lref.rows_reduce(*args, cinv=cinv)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_rows_kernels_give_nan_rows_for_an_index_outside_the_table(cuda):
+    from repro_torch.kernels.linalg import ops as lops
+    X, B, idx, C0 = _rows_case(cuda, torch.float32, 3, 5, 16, 16, False,
+                               False, True, True)
+    bad = torch.tensor([0, 5, -1], device=cuda)          # 5 entries: 0..4
+    Y = lops.rows_mm(X, B, bad, C0=C0)
+    assert bool(torch.isfinite(Y[0]).all()) and bool(Y[1:].isnan().all())
+    m, v = lops.rows_reduce(X[..., 0], X, X[0, 0], X, B[:, 0], bad, X, X, X)
+    assert bool(torch.isfinite(m[0]).all()) and bool(m[1:].isnan().all())
+    assert bool(v[1:].isnan().all())
+
+
+def test_routed_request_launches_the_row_products_on_the_card(cuda):
+    """Every stage of a routed request's per-block program launches the row
+    products: six rows_mm and one rows_reduce, whatever g."""
+    from repro_torch.core import api
+    from repro_torch.kernels.linalg import ops as lops
+    model, U = _fitted_ppic(cuda)
+    plan = model.plan(api.ServeSpec(max_batch=256, routed=True)).warmup(5)
+    lops.reset_counts()
+    plan.routed_diag(U[:256])
+    assert (lops.rows_mm_launches, lops.rows_reduce_launches) == (6, 1)

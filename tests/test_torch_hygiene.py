@@ -29,6 +29,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.core.picf", "repro_torch.core.hyper",
             "repro_torch.optim.adam", "repro_torch.core.online",
             "repro_torch.kernels.rbf.ops", "repro_torch.kernels.linalg.ops",
+            "repro_torch.kernels.linalg.ref",
+            "repro_torch.launch.routed_profile",
             "repro_torch.runtime.fault", "repro_torch.runtime.straggler",
             "repro_torch.runtime.elastic",
             "repro_torch.kernels.attention.ops", "repro_torch.kernels.ssd.ops",
