@@ -401,6 +401,9 @@ DOWNDATE_REPEAT = 3      # launches of each downdate case (each equal)
 TOL_ROWS_F32 = 1e-4
 ROWS_REPEAT = 3          # launches of each row-product case (each equal)
 ROWS_U = 32              # rows a block: the main bucket of a 256-row request
+#  rows a block of the 3200-row request's main bucket: routed_capacity(3328,
+#  20) at the 8-row query tile, 6720 rows in all
+ROWS_U_LARGE = 336
 #  The backward kernels against their plain versions (autograd through
 #  ref.attention / ref.intra_chunk in float32 on the same inputs), max abs
 #  error per gradient <= tol x max|want| of that gradient.
@@ -1894,6 +1897,74 @@ def _rows_parent_route(torch, t: dict) -> list:
     return [A, R, V, W, Phi, right(t["L2"], Phi)]
 
 
+def _rows_large(torch, ops, ref, gen, t: dict, got: list, key: str
+                ) -> dict:
+    """The six stages at the 3200-row request's shape, M blocks of
+    ROWS_U_LARGE rows whose first ROWS_U rows are ``t``'s (``got``: the
+    kernel's stages on ``t`` alone): f64 bitwise the plain version, f32
+    within TOL_ROWS_F32 of its scale, each ROWS_U row the same bits inside
+    the larger batch. Timed (device, from a trace) beside the bound and the
+    library's GEMMs at that shape."""
+    dt = t["Kus"].dtype
+    b = t["Kud"].shape[-1]
+
+    def widen(x, cols):
+        w = torch.randn((M, ROWS_U_LARGE, cols), generator=gen,
+                        device="cuda").to(dt)
+        w[:, :ROWS_U] = x
+        return w
+    tl = dict(t, Kus=widen(t["Kus"], S_SIZE), Kud=widen(t["Kud"], b))
+    calls = []
+
+    def recorded(X, B, idx=None, **kw):
+        calls.append((X, B, idx, kw))
+        return ops.rows_mm(X, B, idx, **kw)
+    large = _rows_stages(recorded, tl)
+    same = all(bool(torch.equal(y[:, :ROWS_U], g))
+               for y, g in zip(large, got))
+    errs, bitwise = [], []
+    for (X, B, idx, kw), y in zip(calls, large):
+        want = ref.rows_mm(X, B, idx, **kw)
+        scale = (X.abs().double() @ (B.abs().double().mT if kw.get(
+            "trans") else B.abs().double())).amax()
+        if kw.get("C0") is not None:
+            scale = scale + kw["C0"].abs().amax()
+        errs.append(max_err(y, want) / float(scale))
+        bitwise.append(bool(torch.equal(y, want)))
+        del want
+    ms = kernel_device_ms(torch, lambda: _rows_stages(ops.rows_mm, tl),
+                          "rows_mm", 3, per_call=(6,))
+    lib = kernel_device_ms(torch, lambda: _rows_library(torch, tl), "", 3,
+                           per_call=tuple(range(1, 10000)))
+    peak = hw.PEAK_FLOPS_TF32 if dt == torch.float32 \
+        else hw.PEAK_FLOPS_F64_TENSOR
+    mult = 3 if dt == torch.float32 else 1
+    size = torch.finfo(dt).bits // 8
+    stages = rk.ppic_diag_stages(M, ROWS_U_LARGE, S_SIZE, b)
+    bounds = [rk.bound_ms(rk.rows_mm_bytes(r, K, N, e, lo, c, size),
+                          mult * rk.rows_mm_flops(r, K, N, lo), peak)
+              for _, r, K, N, e, lo, c in stages]
+    flops = sum(rk.rows_mm_flops(r, K, N, lo)
+                for _, r, K, N, e, lo, c in stages)
+    b_ms = sum(x for x, _ in bounds)
+    by = "+".join(sorted({w for _, w in bounds}))
+    tol = 0.0 if dt == torch.float64 else TOL_ROWS_F32
+    print(f"  rows_mm {key} at the 3200-row request's shape (M, u, s, b) = "
+          f"({M}, {ROWS_U_LARGE}, {S_SIZE}, {b}): device {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s of {flops / 1e9:.1f} GFLOP); "
+          f"bound {b_ms:.4f} ms ({by}); the library's GEMMs {lib:.4f} ms; "
+          f"error vs plain over scale {[float(f'{e:.2e}') for e in errs]} "
+          f"(limit {tol:.0e}), bitwise {bitwise}; the {ROWS_U}-row blocks' "
+          f"rows the same bits inside the {ROWS_U_LARGE}-row batch: {same}",
+          flush=True)
+    if not same or (dt == torch.float64 and not all(bitwise)) \
+            or max(errs) > tol:
+        fail(f"rows_mm {key} at u = {ROWS_U_LARGE}: errors {errs}, bitwise "
+             f"{bitwise}, the {ROWS_U}-row rows the same {same}")
+    return dict(ms=ms, bound_ms=b_ms, bound_by=by, library_ms=lib,
+                max_rel_err=max(errs))
+
+
 def check_rows(torch, ops, ref, gen) -> list:
     """The row products of pPIC's routed diag (``ops.rows_mm``,
     ``ops.rows_reduce``) against their plain versions at the 256-row
@@ -1998,6 +2069,8 @@ def check_rows(torch, ops, ref, gen) -> list:
         if not all(red):
             fail(f"rows_reduce {key}: {red}")
 
+        large = _rows_large(torch, ops, ref, gen, t, got, key)
+        torch.cuda.empty_cache()
         # times: the six stages of one request, device, from a trace
         ms = kernel_device_ms(torch, lambda: _rows_stages(ops.rows_mm, t),
                               "rows_mm", 5, per_call=(6,))
@@ -2066,6 +2139,7 @@ def check_rows(torch, ops, ref, gen) -> list:
                                 parent_route_ms=parent, stage_ms=stage_ms,
                                 max_abs_err=max(abs_errs),
                                 max_rel_err=max(errs)),
+                        large=large,
                         red=dict(ms=r_ms, plain_ms=r_plain, bound_ms=r_b,
                                  bound_by=r_by, sums_ms=sums,
                                  max_abs_err=max(red_errs)))
@@ -2096,7 +2170,10 @@ def check_rows(torch, ops, ref, gen) -> list:
               f64_bound_ms=f64["mm"]["bound_ms"],
               f64_library_ms=f64["mm"]["library_ms"],
               f64_parent_route_ms=f64["mm"]["parent_route_ms"],
-              f64_max_abs_err=f64["mm"]["max_abs_err"], shape=shape)
+              f64_max_abs_err=f64["mm"]["max_abs_err"], shape=shape,
+              **{f"u{ROWS_U_LARGE}_{k}": v for k, v in f32["large"].items()},
+              **{f"f64_u{ROWS_U_LARGE}_{k}": v
+                 for k, v in f64["large"].items()})
     red = dict(name="rows_reduce", route="cuda", source=src,
                replaces="src/repro/core/ppic.py:162", pallas=pallas,
                max_abs_err=f32["red"]["max_abs_err"], tol=0.0,

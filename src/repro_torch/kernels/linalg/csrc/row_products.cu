@@ -2,7 +2,7 @@
 // (eqs. 12-14 in the whitened form of core/ppic.py) as products and row
 // reductions whose arithmetic, for every output element, is fixed by
 // construction: it does not depend on the number of rows, on the row's
-// slot, on the batch of blocks or on the layout.
+// slot, on the batch of blocks, on the layout or on the table's strides.
 //
 // Replaces no Pallas kernel: the reference computes this program in jnp
 // under jit (src/repro/core/ppic.py:141-167). The port's earlier route took
@@ -16,49 +16,93 @@
 // or the one shared B), X[k] (u, K) row-major query rows, op(B) = B or
 // B^T, B_e one (P, Q) entry of a per-state table read in place through its
 // strides, so overflow groups read their owner block's entry and nothing
-// is copied. With
-// `lower`, B_e is lower triangular and K tiles that are zero for a whole
-// output tile are skipped (which tiles depends on the output columns
-// only).
-//  * float32: 3xTF32 on the tensor cores (mma.sync m16n8k8: hi hi' + lo hi'
-//    + hi lo', f32 accumulators, the split of ssd_common.cuh). An output
-//    element is summed over K in k-steps of 8, taken in order from the
-//    first K tile its column tile needs; no split-K, no atomics. Each
-//    element of an m16n8k8 tile is the same dot product of its row of A
-//    and column of B, whatever its slot.
-//  * float64: FP64 on the CUDA cores, each product and sum correctly
-//    rounded (the _rn intrinsics, never contracted to an FMA): a k-step's
-//    8 products p_0..p_7 summed as ((p0+p4)+(p2+p6)) + ((p1+p5)+(p3+p7)),
-//    then added to the element's running sum. The plain version
-//    (ref.rows_mm) does the same operations in the same order, so the two
-//    agree bit for bit.
+// is copied. With `lower`, B_e is lower triangular and the K tiles that are
+// zero for a whole panel of 64 output columns are skipped (which tiles
+// depends on the panel only).
+//
+// What bounds it (roofline/kernels.py rows_mm_flops / rows_mm_bytes):
+//  * the 256-row request, (M, u, s, b) = (20, 32, 2048, 1600): the six
+//    stages read each block's Q_m, K_{S D_m} and C_Lm^-1, 0.81 GB, against
+//    17.0 GFLOP, so the bytes bound it (0.26 ms at 3.35 TB/s; the 3xTF32
+//    operations 0.10 ms). What matters is keeping copies in flight.
+//  * the 3200-row request, 20 blocks of u = 336: the same tables against
+//    178.9 GFLOP, so the 3xTF32 operations bound it (1.08 ms at 495
+//    TFLOP/s). What matters is the tensor cores' rate and reusing each
+//    table element over many query rows.
+//
+// float32 (rows_mm_f32): 3xTF32 on wgmma, tables on M and queries on N.
+//  * A warpgroup computes Y^T = op(B_e)^T X^T for a panel of 64 output
+//    columns (wgmma's M) and the block's QT tiles of 32 query rows
+//    (wgmma's N): one m64n32k8 shape for every u, so nothing in a row's
+//    arithmetic depends on u. More rows are more instructions over the
+//    same table fragment, never a wider one. A block of one tile (u <= 32)
+//    is one warpgroup; a larger one is two warpgroups on 128 columns that
+//    share its query tiles (u = 336: 11 tiles, blocks of 6 and 5), which
+//    halves the query bytes each product needs, the limit at that size.
+//  * A is the panel, staged in shared memory and read into registers, each
+//    element by one thread and split there into hi and lo once; B is the
+//    query tile, K-major under the 128-byte swizzle, its hi plane the
+//    staged floats and its lo plane written once by the thread that copied
+//    them. Per k slice of 8, hi hi' + lo hi' + hi lo', in that order.
+//  * Every stage comes in by cp.async into a ring of 3 stages (K tiles of
+//    32), 16 bytes a copy along the table's unit-stride axis (k-contiguous
+//    and n-contiguous entries each have their shared layout, both free of
+//    bank conflicts for the fragment loads) and along the query rows; other
+//    strides, ragged K and unaligned bases copy one element at a time into
+//    the k-contiguous layout. One barrier a K tile; the lo plane of tile
+//    t + 1 is split while tile t's products run.
+//  * Blocks are numbered by table block, then panel (longest k range first
+//    under `lower`), then query group, so a block's groups share each table
+//    tile through L2. Under `lower`, where every table block's queries fit
+//    in L2 together, by panel rank first (panel_major): the longest panels
+//    of all table blocks start first and only short ones are left for the
+//    tail.
+//  * Fixed order: an output element is the sum over its 64-column panel's
+//    K tiles in order (each warpgroup multiplies only its own panel's
+//    range, whatever the block's width), k slices in order, the three
+//    products in order, on one accumulator; no split-K, no atomics. Every
+//    staging path puts the same values in the same fragment slots, so
+//    every stride gives the same bits; a row's slot inside its tile only
+//    picks the accumulator lane.
+// float64 (rows_mm_f64): FP64 on the CUDA cores, each product and sum
+//    correctly rounded (the _rn intrinsics, never contracted to an FMA): a
+//    k-step's 8 products p_0..p_7 summed as ((p0+p4)+(p2+p6)) +
+//    ((p1+p5)+(p3+p7)), then added to the element's running sum. The plain
+//    version (ref.rows_mm) does the same operations in the same order, so
+//    the two agree bit for bit. Tiles of 32 rows x 64 columns, a thread 4 x
+//    4 of them; the same 3-stage cp.async ring (one element a copy), and a
+//    k-step's 32 table values held in registers over the thread's 4 rows.
 // rows_reduce: per row, the dots and sums of squares of eqs. (12)-(13),
 //    mean = Phi.alpha + R.Wy_e and var = ((kdiag - |A|^2) - |V|^2) + |Z|^2
 //    (R.W in place of |V|^2 with a cached C^-1), in one launch. One warp a
 //    row: lane l sums elements l, l + 32, ... in order, then a fixed
 //    butterfly (xor 16, 8, 4, 2, 1); lane 0 writes. Correctly rounded
 //    products and sums, in both types: bitwise ref.rows_reduce.
-//
-// What bounds it (roofline/kernels.py rows_mm_flops / rows_mm_bytes): at
-// the 256-row request (M = 20, 32 rows a block, s = 2048, b = 1600) the
-// stages read each block's Q_m, K_{S D_m} and C_Lm^-1 once, 0.73 GB, so
-// the bytes bound it (0.22 ms at 3.35 TB/s); the capacity-|U| layout (5120
-// rows) is bound by its 3xTF32 operations. This first version is simple:
-// tiles of 32 rows x 64 columns staged through shared memory in K tiles of
-// 32, one barrier pair a tile, no cp.async or TMA ring.
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
+
+#include "wgmma_tf32.cuh"
 
 namespace {
 
-constexpr int BM = 32;        // output rows a block
-constexpr int BN = 64;        // output columns a block
-constexpr int BK = 32;        // K of a staged tile
-constexpr int KS = 8;         // a k-step: one mma's depth, one tree
-constexpr int THREADS = 128;  // 4 warps
+using namespace rows_sm90;
+
+constexpr int PM = 64;        // output columns a panel: wgmma's M
+constexpr int QN = 32;        // query rows a tile: wgmma's N
+constexpr int BK = 32;        // K of a stage
+constexpr int STAGES = 3;     // the copy ring
+constexpr int KS = 8;         // a k-step: one product's depth, one tree
+constexpr int THREADS = 128;  // one warpgroup; 4 warps for float64
+constexpr int BM64 = 32;      // float64: output rows a block
 constexpr int REDUCE_WARPS = 8;
+
+// How the f32 kernel stages a table panel: entries with k-contiguous rows
+// (16-byte copies along k), n-contiguous rows (16-byte copies along n), or
+// any other strides (4-byte copies). The wrapper picks (ops.rows_plan).
+enum Layout { KMAJ = 0, NMAJ = 1, ANY = 2 };
 
 __device__ __forceinline__ float mul_rn(float a, float b) {
   return __fmul_rn(a, b);
@@ -86,27 +130,8 @@ __device__ __forceinline__ void set_nan(double& x) {
   x = __longlong_as_double(0x7ff8000000000000LL);
 }
 
-// d += a b on one m16n8k8 tile: TF32 operands (the tensor core reads the
-// top 19 bits of each register), float32 accumulator.
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// x = hi + lo for 3xTF32, as ssd_common.cuh splits it: hi is x, which the
-// tensor core truncates to TF32; lo = x - trunc(x) is exact in float32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = __float_as_uint(x);
-  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
-}
-
-// The K range of output columns [n0, n0 + BN): all of it, or with a lower
-// triangular B the tiles that are not zero for every column of the tile.
+// The K range of output columns [n0, n0 + PM): all of it, or with a lower
+// triangular B the tiles that are not zero for every column of the panel.
 // op(B)[k][n] = B[n][k] (trans) is zero for k > n; B[k][n] for n > k.
 __device__ __forceinline__ void k_range(int K, int n0, bool trans,
                                         bool lower, int& lo, int& hi) {
@@ -114,187 +139,413 @@ __device__ __forceinline__ void k_range(int K, int n0, bool trans,
   hi = K;
   if (lower) {
     if (trans)
-      hi = min(K, n0 + BN);
+      hi = min(K, n0 + PM);
     else
       lo = n0 / BK * BK;
   }
 }
 
-// Stage the K tile [k0, k0 + BK) of X's rows [r0, r0 + BM) and of op(B)'s
-// columns [n0, n0 + BN), zero past u, K and N; op(B)[k][n] lies at
-// Be[k sk + n sn]. T is float or double; Xs is [BM][BK + XPAD]; Bs is
-// [BN][BK + BPAD] (n-major) when NMAJOR, else [BK][BN + BPAD] (k-major).
-template <typename T, int XPAD, int BPAD, bool NMAJOR>
-__device__ __forceinline__ void stage(T* Xs, T* Bs, const T* __restrict__ Xk,
-                                      const T* __restrict__ Be, int u, int K,
-                                      int N, long long sk, long long sn,
-                                      int r0, int n0, int k0) {
-  for (int e = threadIdx.x; e < BM * BK; e += THREADS) {
-    const int r = e / BK, k = e % BK, gr = r0 + r, gk = k0 + k;
-    Xs[r * (BK + XPAD) + k] =
-        gr < u && gk < K ? Xk[static_cast<long long>(gr) * K + gk] : T(0);
-  }
-  for (int e = threadIdx.x; e < BN * BK; e += THREADS) {
-    // consecutive threads along B's unit-stride axis
-    int n, k;
-    if (sn == 1) {
-      k = e / BN;
-      n = e % BN;
-    } else {
-      n = e / BK;
-      k = e % BK;
-    }
-    const int gn = n0 + n, gk = k0 + k;
-    const T v = gn < N && gk < K ? Be[gk * sk + gn * sn] : T(0);
-    if (NMAJOR)
-      Bs[n * (BK + BPAD) + k] = v;
-    else
-      Bs[k * (BN + BPAD) + n] = v;
-  }
-}
-
-// A block whose index lies outside the table writes NaN over its output
-// tile (the wrapper cannot check a device index without a sync).
+// Y's rows [r0, r0 + rows) x columns [n0, n0 + cols) of block blk as NaN:
+// a block whose index lies outside the table (the wrapper cannot check a
+// device index without a sync).
 template <typename T>
 __device__ __forceinline__ void nan_tile(T* Y, int blk, int u, int N, int r0,
-                                         int n0) {
-  for (int e = threadIdx.x; e < BM * BN; e += THREADS) {
-    const int r = r0 + e / BN, n = n0 + e % BN;
+                                         int rows, int n0, int cols) {
+  for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
+    const int r = r0 + e / cols, n = n0 + e % cols;
     if (r < u && n < N)
       set_nan(Y[(static_cast<long long>(blk) * u + r) * N + n]);
   }
 }
 
-// float32: each of the 4 warps computes the tile's 32 rows x its 16
-// columns as 2 x 2 m16n8 tiles. op(B) is staged n-major when trans (B's
-// rows are k-contiguous) and k-major otherwise; both pads leave the
-// fragment loads free of bank conflicts.
-template <bool TRANS>
-__global__ void __launch_bounds__(THREADS)
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int X_TILE = QN * BK;  // a stage's query tile (one plane), floats
+
+// dynamic shared memory of rows_mm_f32<WG, QT>, in floats: the alignment
+// slack, the ring ([stage][panel of 64 WG columns | QT query tiles]) and
+// two lo planes of QT tiles
+__host__ __device__ constexpr int f32_smem_floats(int wg, int qt) {
+  return 256 + STAGES * (wg * PM * BK + qt * X_TILE) + 2 * qt * X_TILE;
+}
+
+// Word offset of (k, n) in an n-contiguous panel [32 k][cols n]: its 16-byte
+// chunks XORed with 2 (k mod 4), so the fragment loads (8 rows n by 4 k of
+// one k mod 4 each) hit 32 distinct banks.
+template <int COLS>
+__device__ __forceinline__ int nmaj(int k, int n) {
+  return k * COLS + ((((n >> 2) ^ (2 * (k & 3)))) << 2) + (n & 3);
+}
+
+// WG warpgroups, each its own 64 output columns of the block's panel of 64
+// WG, over the block's QT query tiles, which they share. Block blockIdx.x:
+// (table block blk, panel rank, query group), the group fastest, then the
+// panel rank, or then the table block where panel_major; panel p = rank,
+// or P - 1 - rank where the last panel has the longest k range (lower and
+// trans).
+template <int WG, int QT, int LAYOUT>
+__global__ void __launch_bounds__(128 * WG)
     rows_mm_f32(const float* __restrict__ X, const float* __restrict__ B,
                 const long long* __restrict__ idx, long long nt,
                 long long bstride, long long sk, long long sn,
                 const float* __restrict__ C0, float* __restrict__ Y, int u,
-                int K, int N, bool lower) {
-  constexpr int XPAD = 4, BPAD = TRANS ? 4 : 8;
-  __shared__ float Xs[BM * (BK + XPAD)];
-  __shared__ float Bs[TRANS ? BN * (BK + BPAD) : BK * (BN + BPAD)];
-  const int n0 = blockIdx.x * BN, r0 = blockIdx.y * BM, blk = blockIdx.z;
+                int K, int N, bool trans, bool lower, bool xvec,
+                bool panel_major, int P, int NG) {
+  constexpr int NT = 128 * WG;          // threads
+  constexpr int CM = PM * WG;           // output columns a block
+  constexpr int T_TILE = CM * BK;       // a stage's panel, floats
+  constexpr int STAGE = T_TILE + QT * X_TILE;
+  constexpr int XPASS = QT * X_TILE / 4 / NT;  // a thread's query chunks
+  static_assert(XPASS * NT * 4 == QT * X_TILE, "query chunks");
+  extern __shared__ __align__(16) float smem_raw[];
+  const uint32_t raw =
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  float* ring = smem_raw + ((1024 - (raw & 1023)) & 1023) / 4;
+  float* lo_planes = ring + STAGES * STAGE;   // [2][QT][32 x 32]
+
+  long long id = blockIdx.x;
+  const int grp = static_cast<int>(id % NG);
+  id /= NG;
+  const int nblk = static_cast<int>(gridDim.x / (1LL * P * NG));
+  const int rank = static_cast<int>(panel_major ? id / nblk : id % P);
+  const int blk = static_cast<int>(panel_major ? id % nblk : id / P);
+  const int p = lower && trans ? P - 1 - rank : rank;
+  const int n0 = p * CM, q0 = grp * QT * QN;
   const long long e = idx ? idx[blk] : bstride ? blk : 0;
   if (e < 0 || e >= nt) {
-    nan_tile(Y, blk, u, N, r0, n0);
+    nan_tile(Y, blk, u, N, q0, QT * QN, n0, CM);
     return;
   }
   const float* Xk = X + static_cast<long long>(blk) * u * K;
   const float* Be = B + e * bstride;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  float acc[2][2][4] = {};
-  int lo, hi;
-  k_range(K, n0, TRANS, lower, lo, hi);
-  for (int k0 = lo; k0 < hi; k0 += BK) {
-    stage<float, XPAD, BPAD, TRANS>(Xs, Bs, Xk, Be, u, K, N, sk, sn, r0, n0,
-                                    k0);
-    __syncthreads();
+  // the warpgroup's index broadcast from lane 0, so that the compiler
+  // knows it (and the branch on its k range below) to be warp-uniform
+  const int tid = threadIdx.x, w = tid / 32 % 4;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const bool nfast = sn <= sk;   // ANY: copy along the faster axis
+  // this warpgroup's 64 columns and the K tiles it multiplies (its own
+  // k_range, whatever WG); the block stages the union, from its first
+  // panel's start to its last panel's end
+  const int nw = n0 + PM * wg;
+  int wlo, whi, klo, khi, unused;
+  k_range(K, nw, trans, lower, wlo, whi);
+  k_range(K, n0, trans, lower, klo, unused);
+  k_range(K, n0 + CM - PM, trans, lower, unused, khi);
+  const bool active = nw < N;
+  const int steps = (khi - klo + BK - 1) / BK;
+
+  // The thread's query chunks: 16 bytes at k 4 (tid % 8) of rows
+  // tid / 8 + NT / 8 i of the group, the same in every stage.
+  const int xc = tid % 8;
+  auto x_off = [&](int row) {
+    return (row / QN) * X_TILE + sw128(row % QN, 4 * xc);
+  };
+
+  // stage buf <- the panel's and the group's K tile [k0, k0 + 32), zero
+  // past N, K and u
+  auto stage = [&](int buf, int k0) {
+    float* Ts = ring + buf * STAGE;
+    float* Xs = Ts + T_TILE;
+    if constexpr (LAYOUT == KMAJ) {
+      const int c = tid % 8, k = k0 + 4 * c;
+      const int kb = 4 * max(0, min(4, K - k));
 #pragma unroll
-    for (int ks = 0; ks < BK; ks += KS) {
-      uint32_t ah[2][4], al[2][4];
+      for (int i = 0; i < CM * 8 / NT; ++i) {
+        const int r = tid / 8 + NT / 8 * i, n = n0 + r;
+        const bool ok = n < N && kb > 0;
+        cp_async16(Ts + sw128(r, 4 * c), ok ? Be + n * sn + k : Be,
+                   ok ? kb : 0);
+      }
+    } else if constexpr (LAYOUT == NMAJ) {
+      const int c = tid % (CM / 4), n = n0 + 4 * c;
+      const int nb = 4 * max(0, min(4, N - n));
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+      for (int i = 0; i < BK * CM / 4 / NT; ++i) {
+        const int kr = tid / (CM / 4) + NT / (CM / 4) * i, k = k0 + kr;
+        const bool ok = k < K && nb > 0;
+        cp_async16(Ts + nmaj<CM>(kr, 4 * c), ok ? Be + k * sk + n : Be,
+                   ok ? nb : 0);
+      }
+    } else {
+#pragma unroll 4
+      for (int j = 0; j < T_TILE / NT; ++j) {
+        const int f = tid + NT * j;
+        const int r = nfast ? f % CM : f / BK, kc = nfast ? f / CM : f % BK;
+        const int n = n0 + r, k = k0 + kc;
+        const bool ok = n < N && k < K;
+        cp_async_elem(Ts + sw128(r, kc), ok ? Be + k * sk + n * sn : Be, ok);
+      }
+    }
+    const int k = k0 + 4 * xc;
 #pragma unroll
-        for (int v = 0; v < 4; ++v)
-          split_tf32(Xs[(mt * 16 + g + 8 * (v % 2)) * (BK + XPAD) + ks + t +
-                        4 * (v / 2)],
-                     ah[mt][v], al[mt][v]);
+    for (int i = 0; i < XPASS; ++i) {
+      const int row = tid / 8 + NT / 8 * i, q = q0 + row;
+      float* dst = Xs + x_off(row);
+      const float* src = Xk + static_cast<long long>(q) * K + k;
+      if (xvec) {
+        const int kb = q < u ? 4 * max(0, min(4, K - k)) : 0;
+        cp_async16(dst, kb ? src : Xk, kb);
+      } else {
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        uint32_t bh[2], bl[2];
-        const int n = warp * 16 + nt * 8 + g;
-#pragma unroll
-        for (int v = 0; v < 2; ++v) {
-          const int k = ks + t + 4 * v;
-          split_tf32(TRANS ? Bs[n * (BK + BPAD) + k] : Bs[k * (BN + BPAD) + n],
-                     bh[v], bl[v]);
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_tf32(acc[mt][nt], ah[mt], bh);
-          mma_tf32(acc[mt][nt], al[mt], bh);
-          mma_tf32(acc[mt][nt], ah[mt], bl);
+        for (int v = 0; v < 4; ++v) {
+          const bool ok = q < u && k + v < K;
+          cp_async_elem(dst + v, ok ? src + v : Xk, ok);
         }
       }
     }
-    __syncthreads();
+  };
+  // lo plane lbuf <- tf32_lo of the query chunks this thread copied into
+  // stage buf (its own copies: its cp.async wait covers them)
+  auto split_lo = [&](int buf, int lbuf) {
+    const float* Xs = ring + buf * STAGE + T_TILE;
+    float* Ls = lo_planes + lbuf * QT * X_TILE;
+#pragma unroll
+    for (int i = 0; i < XPASS; ++i) {
+      const int o = x_off(tid / 8 + NT / 8 * i);
+      const float4 h = *reinterpret_cast<const float4*>(Xs + o);
+      *reinterpret_cast<float4*>(Ls + o) = make_float4(
+          __uint_as_float(tf32_lo(h.x)), __uint_as_float(tf32_lo(h.y)),
+          __uint_as_float(tf32_lo(h.z)), __uint_as_float(tf32_lo(h.w)));
+    }
+    fence_proxy_async();
+  };
+
+  float acc[QT][QN / 2];
+#pragma unroll
+  for (int j = 0; j < QT; ++j)
+#pragma unroll
+    for (int v = 0; v < QN / 2; ++v) acc[j][v] = 0.f;
+
+  // prologue: stages 0 .. STAGES - 2 in flight, stage 0's lo plane
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) stage(s, klo + s * BK);
+    cp_async_commit();
   }
+  cp_async_wait<STAGES - 2>();
+  split_lo(0, 0);
+
+  for (int step = 0; step < steps; ++step) {
+    const int cur = step % STAGES, k0 = klo + step * BK;
+    // every thread's copies of this stage and its lo plane have landed;
+    // every warp is done with the last stage's products
+    __syncthreads();
+    if (step + STAGES - 1 < steps)
+      stage((step + STAGES - 1) % STAGES, k0 + (STAGES - 1) * BK);
+    cp_async_commit();
+    const float* Ts = ring + cur * STAGE;
+    if (active && k0 >= wlo && k0 < whi) {
+      // A fragments of the stage's four k slices: rows 16 w + g (+ 8) of
+      // the warpgroup's 64, k 8 kk + t (+ 4), each read and split once
+      uint32_t ah[BK / KS][4], al[BK / KS][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+      for (int kk = 0; kk < BK / KS; ++kk) {
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int r = r0 + mt * 16 + g + 8 * (c / 2);
-        const int n = n0 + warp * 16 + nt * 8 + 2 * t + c % 2;
-        if (r < u && n < N) {
-          const long long o = (static_cast<long long>(blk) * u + r) * N + n;
-          Y[o] = C0 ? sub_rn(C0[o], acc[mt][nt][c]) : acc[mt][nt][c];
+        for (int v = 0; v < 4; ++v) {
+          const int r = PM * wg + 16 * w + g + 8 * (v % 2);
+          const int k = 8 * kk + t + 4 * (v / 2);
+          const float x =
+              LAYOUT == NMAJ ? Ts[nmaj<CM>(k, r)] : Ts[sw128(r, k)];
+          ah[kk][v] = __float_as_uint(x);
+          al[kk][v] = tf32_lo(x);
         }
       }
+      const uint32_t xh =
+          static_cast<uint32_t>(__cvta_generic_to_shared(Ts + T_TILE));
+      const uint32_t xl = static_cast<uint32_t>(__cvta_generic_to_shared(
+          lo_planes + (step % 2) * QT * X_TILE));
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / KS; ++kk)
+#pragma unroll
+        for (int j = 0; j < QT; ++j) {
+          const uint64_t dh = sw128_desc(xh + 4 * j * X_TILE + 32 * kk);
+          const uint64_t dl = sw128_desc(xl + 4 * j * X_TILE + 32 * kk);
+          wgmma_m64n32k8(acc[j], ah[kk], dh);
+          wgmma_m64n32k8(acc[j], al[kk], dh);
+          wgmma_m64n32k8(acc[j], ah[kk], dl);
+        }
+      wgmma_commit();
+      // the next stage's lo plane while the products run
+      if (step + 1 < steps) {
+        cp_async_wait<STAGES - 2>();
+        split_lo((step + 1) % STAGES, (step + 1) % 2);
+      }
+      wgmma_wait_all();
+#pragma unroll
+      for (int j = 0; j < QT; ++j) hold<QN / 2>(acc[j]);
+#pragma unroll
+      for (int kk = 0; kk < BK / KS; ++kk) {
+        hold<4>(ah[kk]);
+        hold<4>(al[kk]);
+      }
+    } else if (step + 1 < steps) {
+      cp_async_wait<STAGES - 2>();
+      split_lo((step + 1) % STAGES, (step + 1) % 2);
+    }
+  }
+
+  // acc[j][4 nt + v] is output column nw + 16 w + g + 8 (v / 2), query row
+  // q0 + 32 j + 8 nt + 2 t + v % 2
+#pragma unroll
+  for (int j = 0; j < QT; ++j) {
+#pragma unroll
+    for (int v = 0; v < QN / 2; ++v) {
+      const int n = nw + 16 * w + g + 8 * ((v % 4) / 2);
+      const int q = q0 + QN * j + 8 * (v / 4) + 2 * t + v % 2;
+      if (n < N && q < u) {
+        const long long o = (static_cast<long long>(blk) * u + q) * N + n;
+        Y[o] = C0 ? sub_rn(C0[o], acc[j][v]) : acc[j][v];
+      }
+    }
+  }
 }
 
+template <int WG, int QT, int LAYOUT>
+cudaError_t launch_f32(const float* X, const float* B, const long long* idx,
+                       long long nt, long long bstride, long long sk,
+                       long long sn, const float* C0, float* Y, int nblk,
+                       int u, int K, int N, bool trans, bool lower, bool xvec,
+                       bool panel_major, cudaStream_t st) {
+  constexpr int smem = f32_smem_floats(WG, QT) * 4;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      rows_mm_f32<WG, QT, LAYOUT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const int P = (N + PM * WG - 1) / (PM * WG);
+  const int NG = ((u + QN - 1) / QN + QT - 1) / QT;
+  const long long blocks = static_cast<long long>(nblk) * P * NG;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  rows_mm_f32<WG, QT, LAYOUT><<<static_cast<unsigned>(blocks), 128 * WG,
+                                smem, st>>>(X, B, idx, nt, bstride, sk, sn,
+                                            C0, Y, u, K, N, trans, lower,
+                                            xvec, panel_major, P, NG);
+  return cudaGetLastError();
+}
+
+// qt 1: one warpgroup a block (64 columns); qt 2 .. 6: two (128 columns)
+template <int LAYOUT>
+cudaError_t launch_f32_qt(int qt, const float* X, const float* B,
+                          const long long* idx, long long nt,
+                          long long bstride, long long sk, long long sn,
+                          const float* C0, float* Y, int nblk, int u, int K,
+                          int N, bool trans, bool lower, bool xvec,
+                          bool panel_major, cudaStream_t st) {
+#define ROWS_F32(WG, QT)                                                   \
+  launch_f32<WG, QT, LAYOUT>(X, B, idx, nt, bstride, sk, sn, C0, Y, nblk, \
+                             u, K, N, trans, lower, xvec, panel_major, st)
+  switch (qt) {
+    case 1:
+      return ROWS_F32(1, 1);
+    case 2:
+      return ROWS_F32(2, 2);
+    case 3:
+      return ROWS_F32(2, 3);
+    case 4:
+      return ROWS_F32(2, 4);
+    case 5:
+      return ROWS_F32(2, 5);
+    case 6:
+      return ROWS_F32(2, 6);
+    default:
+      return cudaErrorInvalidValue;
+  }
+#undef ROWS_F32
+}
+
+// ---------------------------------------------------------------------------
+// float64: correctly rounded FP64 in the plain version's order
+// ---------------------------------------------------------------------------
+
+constexpr int XP64 = BK + 1;   // a staged row of X, doubles
+constexpr int BP64 = PM + 1;   // a staged k row of op(B), doubles
+constexpr int STAGE64 = BM64 * XP64 + BK * BP64;
+
 // The 8 products of a k-step, summed by the fixed tree.
-__device__ __forceinline__ double tree8(const double* x, const double* b,
-                                        int bstep) {
+__device__ __forceinline__ double tree8(const double* x, const double* b) {
   double p[KS];
 #pragma unroll
-  for (int q = 0; q < KS; ++q) p[q] = mul_rn(x[q], b[q * bstep]);
+  for (int q = 0; q < KS; ++q) p[q] = mul_rn(x[q], b[q]);
   const double s0 = add_rn(p[0], p[4]), s1 = add_rn(p[1], p[5]);
   const double s2 = add_rn(p[2], p[6]), s3 = add_rn(p[3], p[7]);
   return add_rn(add_rn(s0, s2), add_rn(s1, s3));
 }
 
-// float64: thread (tr, tc) computes rows tr + 8 i and columns tc + 16 j
-// (i, j < 4) of the tile, op(B) staged k-major.
-template <bool TRANS>
+// Thread (tr, tc) computes rows tr + 8 i and columns tc + 16 j (i, j < 4)
+// of a 32 x 64 tile; op(B) staged k-major ([32 k][64 + 1 n]), X row-major.
 __global__ void __launch_bounds__(THREADS)
     rows_mm_f64(const double* __restrict__ X, const double* __restrict__ B,
                 const long long* __restrict__ idx, long long nt,
                 long long bstride, long long sk, long long sn,
                 const double* __restrict__ C0, double* __restrict__ Y, int u,
-                int K, int N, bool lower) {
-  constexpr int XPAD = 1, BPAD = 1;
-  __shared__ double Xs[BM * (BK + XPAD)];
-  __shared__ double Bs[BK * (BN + BPAD)];
-  const int n0 = blockIdx.x * BN, r0 = blockIdx.y * BM, blk = blockIdx.z;
+                int K, int N, bool trans, bool lower) {
+  extern __shared__ __align__(16) double dsm[];
+  const int n0 = blockIdx.x * PM, r0 = blockIdx.y * BM64, blk = blockIdx.z;
   const long long e = idx ? idx[blk] : bstride ? blk : 0;
   if (e < 0 || e >= nt) {
-    nan_tile(Y, blk, u, N, r0, n0);
+    nan_tile(Y, blk, u, N, r0, BM64, n0, PM);
     return;
   }
   const double* Xk = X + static_cast<long long>(blk) * u * K;
   const double* Be = B + e * bstride;
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  const int tid = threadIdx.x, tr = tid / 16, tc = tid % 16;
+  const bool nfast = sn <= sk;
+  int klo, khi;
+  k_range(K, n0, trans, lower, klo, khi);
+  const int steps = (khi - klo + BK - 1) / BK;
+
+  auto stage = [&](int buf, int k0) {
+    double* Xs = dsm + buf * STAGE64;
+    double* Bs = Xs + BM64 * XP64;
+    for (int f = tid; f < BM64 * BK; f += THREADS) {
+      const int r = f / BK, k = f % BK, gr = r0 + r, gk = k0 + k;
+      const bool ok = gr < u && gk < K;
+      cp_async_elem(Xs + r * XP64 + k,
+                    ok ? Xk + static_cast<long long>(gr) * K + gk : Xk, ok);
+    }
+    for (int f = tid; f < PM * BK; f += THREADS) {
+      const int n = nfast ? f % PM : f / BK, k = nfast ? f / PM : f % BK;
+      const int gn = n0 + n, gk = k0 + k;
+      const bool ok = gn < N && gk < K;
+      cp_async_elem(Bs + k * BP64 + n, ok ? Be + gk * sk + gn * sn : Be, ok);
+    }
+  };
+
   double acc[4][4] = {};
-  int lo, hi;
-  k_range(K, n0, TRANS, lower, lo, hi);
-  for (int k0 = lo; k0 < hi; k0 += BK) {
-    stage<double, XPAD, BPAD, false>(Xs, Bs, Xk, Be, u, K, N, sk, sn, r0,
-                                     n0, k0);
-    __syncthreads();
 #pragma unroll
-    for (int ks = 0; ks < BK; ks += KS)
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < steps) stage(s, klo + s * BK);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    if (step + STAGES - 1 < steps)
+      stage((step + STAGES - 1) % STAGES, klo + (step + STAGES - 1) * BK);
+    cp_async_commit();
+    const double* Xs = dsm + (step % STAGES) * STAGE64;
+    const double* Bs = Xs + BM64 * XP64;
+#pragma unroll
+    for (int ks = 0; ks < BK; ks += KS) {
+      double b[4][KS];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int q = 0; q < KS; ++q)
+          b[j][q] = Bs[(ks + q) * BP64 + tc + 16 * j];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         double x[KS];
 #pragma unroll
-        for (int q = 0; q < KS; ++q)
-          x[q] = Xs[(tr + 8 * i) * (BK + XPAD) + ks + q];
+        for (int q = 0; q < KS; ++q) x[q] = Xs[(tr + 8 * i) * XP64 + ks + q];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          acc[i][j] = add_rn(
-              acc[i][j], tree8(x, Bs + ks * (BN + BPAD) + tc + 16 * j,
-                               BN + BPAD));
+          acc[i][j] = add_rn(acc[i][j], tree8(x, b[j]));
       }
-    __syncthreads();
+    }
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -306,6 +557,25 @@ __global__ void __launch_bounds__(THREADS)
         Y[o] = C0 ? sub_rn(C0[o], acc[i][j]) : acc[i][j];
       }
     }
+}
+
+cudaError_t launch_f64(const double* X, const double* B, const long long* idx,
+                       long long nt, long long bstride, long long sk,
+                       long long sn, const double* C0, double* Y, int nblk,
+                       int u, int K, int N, bool trans, bool lower,
+                       cudaStream_t st) {
+  constexpr int smem = STAGES * STAGE64 * 8;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      rows_mm_f64, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((N + PM - 1) / PM, (u + BM64 - 1) / BM64, nblk);
+  rows_mm_f64<<<grid, THREADS, smem, st>>>(X, B, idx, nt, bstride, sk, sn,
+                                           C0, Y, u, K, N, trans, lower);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 // sum_i x[i] y[i] over one row by one warp, in the fixed order above; the
@@ -365,42 +635,54 @@ __global__ void __launch_bounds__(REDUCE_WARPS * 32)
 // outside [0, nt) gives NaN rows); B_e's element (p, q) at p sp + q sq (any
 // strides: the tables are read in place); op(B) = B_e^T where trans, else
 // B_e; lower: B_e lower triangular. X, C0 and Y row-major and contiguous;
-// nblk, u / 32 <= 65535; K, N >= 1. Returns the launch's error, else
-// cudaGetLastError().
+// K, N >= 1. float32: qt (1 .. 6) query tiles of 32 rows a block, the
+// table's staging (0: k-contiguous rows, 16-byte aligned; 1: n-contiguous
+// rows, aligned; 2: any) and the blocks' order (panel_major), all from
+// ops.rows_plan; nblk x ceil(N / (64 or 128)) x ceil(ceil(u / 32) / qt)
+// blocks <= INT_MAX. float64: qt, layout and panel_major unused; nblk,
+// u / 32 <= 65535. Returns the launch's error, else cudaGetLastError().
 extern "C" int rows_mm(int dtype, const void* X, const void* B,
                        const void* idx, long long nt, long long bstride,
                        long long sp, long long sq, const void* C0, void* Y,
                        int nblk, int u, int K, int N, int trans, int lower,
-                       void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (u + BM - 1) / BM, nblk);
+                       int qt, int layout, int panel_major, void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* ix = static_cast<const long long*>(idx);
   // op(B)[k][n] = B_e[n][k] (trans) or B_e[k][n]
   const long long sk = trans ? sq : sp, sn = trans ? sp : sq;
-  if (dtype == 0) {
-    const auto* x = static_cast<const float*>(X);
-    const auto* b = static_cast<const float*>(B);
-    const auto* c = static_cast<const float*>(C0);
-    auto* y = static_cast<float*>(Y);
-    if (trans)
-      rows_mm_f32<true><<<grid, THREADS, 0, st>>>(
-          x, b, ix, nt, bstride, sk, sn, c, y, u, K, N, lower);
-    else
-      rows_mm_f32<false><<<grid, THREADS, 0, st>>>(
-          x, b, ix, nt, bstride, sk, sn, c, y, u, K, N, lower);
-  } else {
-    const auto* x = static_cast<const double*>(X);
-    const auto* b = static_cast<const double*>(B);
-    const auto* c = static_cast<const double*>(C0);
-    auto* y = static_cast<double*>(Y);
-    if (trans)
-      rows_mm_f64<true><<<grid, THREADS, 0, st>>>(
-          x, b, ix, nt, bstride, sk, sn, c, y, u, K, N, lower);
-    else
-      rows_mm_f64<false><<<grid, THREADS, 0, st>>>(
-          x, b, ix, nt, bstride, sk, sn, c, y, u, K, N, lower);
+  if (dtype == 1)
+    return static_cast<int>(launch_f64(
+        static_cast<const double*>(X), static_cast<const double*>(B), ix, nt,
+        bstride, sk, sn, static_cast<const double*>(C0),
+        static_cast<double*>(Y), nblk, u, K, N, trans, lower, st));
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool base = aligned16(B) && bstride % 4 == 0;
+  if ((layout == KMAJ && !(base && sk == 1 && sn % 4 == 0)) ||
+      (layout == NMAJ && !(base && sn == 1 && sk % 4 == 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool xvec = K % 4 == 0 && aligned16(X);
+  const auto* x = static_cast<const float*>(X);
+  const auto* b = static_cast<const float*>(B);
+  const auto* c = static_cast<const float*>(C0);
+  auto* y = static_cast<float*>(Y);
+  cudaError_t err;
+  switch (layout) {
+    case KMAJ:
+      err = launch_f32_qt<KMAJ>(qt, x, b, ix, nt, bstride, sk, sn, c, y, nblk,
+                                u, K, N, trans, lower, xvec, panel_major, st);
+      break;
+    case NMAJ:
+      err = launch_f32_qt<NMAJ>(qt, x, b, ix, nt, bstride, sk, sn, c, y, nblk,
+                                u, K, N, trans, lower, xvec, panel_major, st);
+      break;
+    case ANY:
+      err = launch_f32_qt<ANY>(qt, x, b, ix, nt, bstride, sk, sn, c, y, nblk,
+                               u, K, N, trans, lower, xvec, panel_major, st);
+      break;
+    default:
+      err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // mean, var (rows,) of the rows' (rows = nblk u) dots and sums of squares:

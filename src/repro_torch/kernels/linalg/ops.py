@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -44,8 +45,15 @@ rows_reduce_launches = 0
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _INT_MAX = 2 ** 31 - 1
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ROWS_BLOCK = 32          # row_products.cu's BM: rows a block of the grid
+_ROWS_BLOCK = 32          # row_products.cu's BM64: rows a float64 block
 _GRID_MAX = 65535         # grid.y and grid.z
+ROWS_QN = 32              # row_products.cu's QN: query rows a tile (N)
+ROWS_PM = 64              # its PM: output columns a panel (M)
+ROWS_QT_MAX = 6           # query tiles a float32 block (row_products.cu's
+                          # launch_f32_qt: 1 with one warpgroup, else two)
+ROWS_KMAJ, ROWS_NMAJ, ROWS_ANY = 0, 1, 2   # its Layout
+ROWS_PANEL_MAJOR_BYTES = 16 << 20   # queries that stay in L2 (50 MB) for a
+                                    # wave of panel ranks
 
 
 def reset_counts() -> None:
@@ -194,7 +202,7 @@ def _rows_entry():
     """The row products' library and its two entries."""
     lib = build.library("row_products")
     lib.rows_mm.argtypes = [_I, _P, _P, _P, _LL, _LL, _LL, _LL, _P, _P, _I,
-                            _I, _I, _I, _I, _I, _P]
+                            _I, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.rows_reduce.argtypes = [_I, _LL, _I, _I, _I] + [_P] * 6 + [_LL] \
         + [_P, _P, _I, _P, _P, _P, _P]
     for fn in (lib.rows_mm, lib.rows_reduce):
@@ -223,6 +231,53 @@ def _table_index(idx: torch.Tensor | None, nblk: int, table: torch.Tensor,
         raise ValueError(f"{what}: idx must be ({nblk},) int64; got "
                          f"{tuple(idx.shape)} {idx.dtype}")
     return idx.contiguous()
+
+
+class RowsPlan(NamedTuple):
+    """How a float32 ``rows_mm`` launch tiles its work (``rows_plan``)."""
+    qt: int             # query tiles of ROWS_QN rows a kernel block
+    layout: int         # the table's staging: ROWS_KMAJ, ROWS_NMAJ, ROWS_ANY
+    panel_major: bool   # blocks numbered by panel rank before table block
+
+
+def rows_plan(shape: tuple, B: torch.Tensor, trans: bool = False,
+              lower: bool = False) -> RowsPlan:
+    """The tiling of a float32 ``rows_mm`` launch over X of ``shape``
+    (nblk, u, K) and the table (or shared matrix) B, read as op(B_e) =
+    B_eᵀ with ``trans``. None of it changes a row's arithmetic.
+
+    qt: the query tiles of ROWS_QN rows a kernel block takes, at most
+    ROWS_QT_MAX: the fewest blocks for each table panel, their tiles
+    balanced (u = 336: 11 tiles, 2 blocks of qt = 6). A block of one tile
+    has one warpgroup and ROWS_PM output columns, a larger one two
+    warpgroups and twice the columns.
+
+    layout: how a panel of op(B_e) is staged, ROWS_KMAJ (k-contiguous,
+    16-byte copies along k) or ROWS_NMAJ (n-contiguous, along n) where the
+    other stride and every entry's start are whole 16 bytes, else ROWS_ANY
+    (one element a copy).
+
+    panel_major: with ``lower`` the panels' k ranges differ up to K / 64
+    fold; numbered by panel rank first (longest first, over all table
+    blocks) only short panels are left for the tail. Every wave of ranks
+    then reads all blocks' queries again, so only where they fit in
+    ROWS_PANEL_MAJOR_BYTES."""
+    nblk, u, K = shape
+    tiles = max(1, -(-u // ROWS_QN))
+    blocks = -(-tiles // ROWS_QT_MAX)
+    qt = -(-tiles // blocks)
+    sp, sq = B.stride()[-2:]
+    sk, sn = (sq, sp) if trans else (sp, sq)
+    bstride = B.stride(0) if B.ndim == 3 else 0
+    base = B.data_ptr() % 16 == 0 and bstride % 4 == 0
+    if base and sk == 1 and sn % 4 == 0:
+        layout = ROWS_KMAJ
+    elif base and sn == 1 and sk % 4 == 0:
+        layout = ROWS_NMAJ
+    else:
+        layout = ROWS_ANY
+    panel_major = lower and 4 * nblk * u * K <= ROWS_PANEL_MAJOR_BYTES
+    return RowsPlan(qt, layout, panel_major)
 
 
 def rows_mm(X: torch.Tensor, B: torch.Tensor, idx: torch.Tensor | None = None,
@@ -258,7 +313,16 @@ def rows_mm(X: torch.Tensor, B: torch.Tensor, idx: torch.Tensor | None = None,
         idx = _table_index(idx, nblk, B, "rows_mm")
     if C0 is not None and C0.shape != (nblk, u, N):
         raise ValueError(f"C0 must be {(nblk, u, N)}; got {tuple(C0.shape)}")
-    if nblk > _GRID_MAX or -(-u // _ROWS_BLOCK) > _GRID_MAX:
+    # B is read in place through its strides (a table is never copied)
+    bstride = 0 if B.ndim == 2 else B.stride(0)
+    sp, sq = B.stride()[-2:]
+    plan = rows_plan(X.shape, B, trans, lower)
+    if dt == torch.float64:
+        over = nblk > _GRID_MAX or -(-u // _ROWS_BLOCK) > _GRID_MAX
+    else:
+        cols = ROWS_PM * (1 if plan.qt == 1 else 2)
+        over = nblk * -(-N // cols) * -(-u // (ROWS_QN * plan.qt)) > _INT_MAX
+    if over:
         raise ValueError(f"rows_mm: {nblk} blocks of {u} rows exceed the "
                          f"kernel's grid")
     Y = torch.empty((nblk, u, N), dtype=dt, device=X.device)
@@ -268,9 +332,6 @@ def rows_mm(X: torch.Tensor, B: torch.Tensor, idx: torch.Tensor | None = None,
         return Y.zero_() if C0 is None else Y.copy_(C0)
     X = X.contiguous()
     C0 = None if C0 is None else C0.contiguous()
-    # B is read in place through its strides (a table is never copied)
-    bstride = 0 if B.ndim == 2 else B.stride(0)
-    sp, sq = B.stride()[-2:]
     lib, entry, _ = _rows_entry()
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
@@ -278,7 +339,8 @@ def rows_mm(X: torch.Tensor, B: torch.Tensor, idx: torch.Tensor | None = None,
                      None if idx is None else idx.data_ptr(),
                      1 if B.ndim == 2 else B.shape[0], bstride, sp, sq,
                      None if C0 is None else C0.data_ptr(), Y.data_ptr(),
-                     nblk, u, K, N, int(trans), int(lower), stream)
+                     nblk, u, K, N, int(trans), int(lower), plan.qt,
+                     plan.layout, int(plan.panel_major), stream)
     build.check(lib, code, "rows_mm launch")
     rows_mm_launches += 1
     return Y

@@ -9,9 +9,10 @@ It builds the data, the support set and the co-clustered pPIC fit as
 {1, 7, 64, 200, 256, 256, 1000, 3200} ``--repeat`` times (host clock
 around synchronized requests) and prints each pass's latencies, their p50
 and the 3200-row request's time, and the test RMSE of the last 3200-row
-request; then it traces one 256-row request through
-``launch.profile.report``: wall, kernels, the device's busy share, and the
-kernels by device time. It uses
+request; then it traces one 256-row request and one 3200-row request (its
+main bucket 20 blocks of 336 rows, 6720 rows through the six row-product
+stages) through ``launch.profile.report``: wall, kernels, the device's busy
+share, the kernels by device time, and ``rows_mm``'s device time. It uses
 the package's public entry points only, so it also runs against an
 earlier checkout (from that checkout's root:
 ``PYTHONPATH=src python3 -c "import runpy, sys; sys.argv = ['rp'];
@@ -85,8 +86,14 @@ def main(argv=None) -> int:
         print(f"  pass {r}: latency ms {[round(x, 3) for x in lat]}, p50 "
               f"{sorted(lat)[len(lat) // 2]:.3f} ms, 3200-row request "
               f"{lat[-1]:.3f} ms; test RMSE {rmse:.4f}", flush=True)
-    U = ds.X_test[:256]
-    report("  one 256-row request traced", lambda: plan.routed_diag(U))
+    for size in (256, N_TEST):
+        U = ds.X_test[:size]
+        out = report(f"  one {size}-row request traced",
+                     lambda U=U: plan.routed_diag(U))
+        mm = [v for k, v in out["by_name"].items() if "rows_mm" in k]
+        print(f"  {size}-row request: rows_mm {sum(n for n, _ in mm)} "
+              f"launches, {sum(us for _, us in mm) / 1e3:.4f} ms device",
+              flush=True)
     return 0
 
 

@@ -1652,6 +1652,39 @@ def test_rows_mm_kernel_matches_plain(cuda, dtype, nblk, u, K, trans, lower,
         assert float((got - want).abs().max()) <= 1e-4 * scale
 
 
+ROWS_SERVING = [(u, False, False, True, True) for u in (1, 32, 336)] \
+    + [(336, True, True, False, False)]
+
+
+@pytest.mark.parametrize("u,trans,lower,table,c0", ROWS_SERVING)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rows_mm_at_the_serving_row_counts(cuda, dtype, u, trans, lower,
+                                           table, c0):
+    """The row counts a block takes when serving: one row, the 256-row
+    request's 32 and the 3200-row request's 336 (11 query tiles, blocks of
+    4, 4 and 3), through a table and on a shared lower B. float64 bitwise
+    the plain version, float32 within 1e-4 of the scale; the first 32 rows
+    of each block the same bits as those 32 rows alone."""
+    from repro_torch.kernels.linalg import ops as lops, ref as lref
+    K = 448
+    N = K if lower else 320
+    X, B, idx, C0 = _rows_case(cuda, dtype, 4, u, K, N, trans, lower,
+                               table, c0, seed=7)
+    got = lops.rows_mm(X, B, idx, trans=trans, lower=lower, C0=C0)
+    want = lref.rows_mm(X, B, idx, trans=trans, lower=lower, C0=C0)
+    if dtype == torch.float64:
+        assert torch.equal(got, want)
+    else:
+        Bs = B.abs() if B.ndim == 2 else B.abs()[idx]
+        scale = float((X.abs() @ (Bs.mT if trans else Bs)).max())
+        scale += 0.0 if C0 is None else float(C0.abs().max())
+        assert float((got - want).abs().max()) <= 1e-4 * scale
+    if u > 32:
+        few = lops.rows_mm(X[:, :32], B, idx, trans=trans, lower=lower,
+                           C0=None if C0 is None else C0[:, :32])
+        assert torch.equal(few, got[:, :32])
+
+
 @pytest.mark.parametrize("trans", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_rows_mm_reads_strided_tables_in_place(cuda, dtype, trans):

@@ -116,6 +116,53 @@ def test_wrappers_take_meta_and_refuse_mixed_devices():
         lops.rows_mm(torch.zeros((2, 3, 16)), B)
 
 
+@pytest.mark.parametrize("u,qt", [(0, 1), (1, 1), (32, 1), (33, 2), (96, 3),
+                                  (160, 5), (224, 4), (256, 4), (336, 6),
+                                  (385, 5)])
+def test_rows_plan_balances_the_query_tiles_of_a_block(u, qt):
+    """A float32 kernel block takes the fewest blocks of at most 6 query
+    tiles (32 rows each), balanced: 336 rows are 11 tiles in 2 blocks."""
+    tiles = max(1, -(-u // lops.ROWS_QN))
+    assert lops.rows_plan((3, u, 8), torch.zeros((8, 8))).qt == qt
+    assert qt <= lops.ROWS_QT_MAX and -(-tiles // qt) == -(-tiles
+                                                          // lops.ROWS_QT_MAX)
+
+
+def test_rows_plan_stages_the_serving_tables_sixteen_bytes_at_a_time():
+    """The tables as the plan keeps them go in by 16-byte copies: Q (M, s,
+    b) row-major along its output columns, its column-major copy and K_SD
+    read transposed along k, C_L^-1 either way; strided slices, rows that
+    are not whole 16 bytes and unaligned starts one element at a time."""
+    M, s, b = 3, 64, 48
+    Q = torch.zeros((M, s, b))
+    CL = torch.zeros((M, b, b))
+    def plan(B, trans=False):
+        return lops.rows_plan((M, 32, 64), B, trans).layout
+    assert plan(Q) == lops.ROWS_NMAJ                         # R = A Q
+    assert plan(Q.mT.contiguous().mT) == lops.ROWS_KMAJ
+    assert plan(Q, trans=True) == lops.ROWS_KMAJ             # W K_SD^T
+    assert plan(CL, trans=True) == lops.ROWS_KMAJ            # V = R C_L^-T
+    assert plan(CL) == lops.ROWS_NMAJ                        # W = V C_L^-1
+    assert plan(torch.zeros((M, s, 2 * b))[..., ::2]) == lops.ROWS_ANY
+    assert plan(torch.zeros((M, 70, 71))) == lops.ROWS_ANY
+    assert plan(torch.zeros((M, 70, 71)).mT) == lops.ROWS_ANY
+    assert plan(torch.zeros((M * s * b + 1,))[1:].view(M, s, b)) \
+        == lops.ROWS_ANY
+    assert plan(torch.zeros((s, b))) == lops.ROWS_NMAJ
+
+
+def test_rows_plan_numbers_triangular_panels_by_rank_where_queries_fit():
+    """Under ``lower`` the blocks go by panel rank first (the longest
+    panels of all table blocks first) where all blocks' queries fit in
+    ROWS_PANEL_MAJOR_BYTES: the 256-row request's 20 blocks of 32 rows,
+    not the 3200-row request's 336; never without ``lower``."""
+    L = torch.zeros((64, 64))
+    assert lops.rows_plan((20, 32, 2048), L, True, True).panel_major
+    assert lops.rows_plan((20, 32, 1600), L, False, True).panel_major
+    assert not lops.rows_plan((20, 336, 2048), L, True, True).panel_major
+    assert not lops.rows_plan((20, 32, 2048), L, True, False).panel_major
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", [dict(trans=True, lower=True, table=False,
                                        c0=False),
